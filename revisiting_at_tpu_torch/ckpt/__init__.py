@@ -1,0 +1,17 @@
+from .convert import (
+    core_module,
+    jax_params_to_state_dict,
+    load_state_dict,
+    load_torch_checkpoint,
+    save_torch_checkpoint,
+    strip_prefixes,
+)
+
+__all__ = [
+    "core_module",
+    "jax_params_to_state_dict",
+    "load_state_dict",
+    "load_torch_checkpoint",
+    "save_torch_checkpoint",
+    "strip_prefixes",
+]

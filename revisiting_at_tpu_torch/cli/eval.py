@@ -1,0 +1,129 @@
+"""Robustness evaluation entry point, port of revisiting_at_tpu/cli/eval.py.
+
+Rebuilds the model from a run's params.json, loads the weights from a .pt
+checkpoint in the reference format, and runs batched AutoAttack per norm
+with the reference epsilon table {Linf: 4/255, L2: 2, L1: 75}. The model
+computes in bf16, as the JAX evaluator's does.
+
+Usage:
+  python -m revisiting_at_tpu_torch.cli.eval --run_dir runs/<run> \
+      --torch_ckpt weights.pt [--l_norms Linf] [--n_ex 5000] [--batch_size 200] \
+      [--n_iter 100] [--use_pallas 1] [--synthetic] [--device cuda]
+
+A run trained by the JAX package is exported to a .pt first with
+`python -m revisiting_at_tpu.cli.export --run_dir <run> --out weights.pt`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--run_dir", type=str, required=True)
+    p.add_argument("--torch_ckpt", type=str, default="",
+                   help="reference-format .pt checkpoint of the run")
+    p.add_argument("--batch_size", type=int, default=200)
+    p.add_argument("--n_ex", type=int, default=5000)
+    p.add_argument("--l_norms", type=str, default="Linf", help="comma-separated")
+    p.add_argument("--eps", type=float, default=None)
+    p.add_argument("--full_aa", type=int, default=0)
+    p.add_argument("--img_size", type=int, default=224)
+    p.add_argument("--data_dir", type=str, default="")
+    p.add_argument("--synthetic", action="store_true",
+                   help="evaluate on random images (smoke tests only: numbers are meaningless)")
+    p.add_argument("--only_clean", action="store_true")
+    p.add_argument("--n_iter", type=int, default=100)
+    p.add_argument("--use_pallas", type=int, default=0,
+                   help="fused block-tail kernel for the ConvNeXt blocks")
+    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--shard_eval", type=int, default=0)
+    p.add_argument("--tp", type=int, default=0)
+    p.add_argument("--multihost", type=int, default=0)
+    return p.parse_args(argv)
+
+
+def load_eval_set(args, num_classes: int):
+    """Synthetic eval set, the JAX evaluator's draw (RandomState(0))."""
+    if args.data_dir:
+        raise NotImplementedError("--data_dir: the data pipeline is ROADMAP A10")
+    if not args.synthetic:
+        raise SystemExit("no --data_dir given: pass --synthetic to run on random images "
+                         "(smoke test only)")
+    print("WARNING: --synthetic evaluation: accuracies below are meaningless")
+    rng = np.random.RandomState(0)
+    x = rng.uniform(0, 1, size=(args.n_ex, args.img_size, args.img_size, 3)).astype(np.float32)
+    y = rng.randint(0, num_classes, size=args.n_ex).astype(np.int64)
+    return x, y
+
+
+def main(argv=None) -> dict:
+    """Run the evaluation; returns {norm: {"eps", "robust" (or "clean"), "n"}}."""
+    args = get_args(argv)
+    if args.shard_eval or args.multihost or args.tp > 1:
+        raise SystemExit("--tp/--shard_eval/--multihost: multi-GPU evaluation is "
+                         "ROADMAP A11, not ported yet")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda but CUDA is not available (pass --device cpu "
+                         "to evaluate on the CPU)")
+    if not args.torch_ckpt:
+        raise SystemExit(
+            f"no --torch_ckpt: export the run first with `python -m "
+            f"revisiting_at_tpu.cli.export --run_dir {args.run_dir} --out <weights.pt>` "
+            f"and pass --torch_ckpt <weights.pt> (reading orbax checkpoints is ROADMAP A7)")
+
+    from ..ckpt.convert import load_torch_checkpoint
+    from ..config import load_params_json
+    from ..evals import EPS_DICT, SHORT_ATTACKS, STANDARD_ATTACKS, AutoAttack, AutoAttackConfig
+    from ..models import get_model
+    from ..train.train_step import input_grad_view
+    from ..utils.logging import EvalLogger
+
+    run_dir = Path(args.run_dir)
+    cfg = load_params_json(run_dir / "params.json")
+    model, _ = get_model(
+        cfg.model.arch, not_original=bool(cfg.model.not_original),
+        num_classes=cfg.data.num_classes, dtype=torch.bfloat16,
+        use_blurpool=bool(cfg.training.use_blurpool),
+        add_normalization=bool(cfg.model.add_normalization),
+        use_pallas=bool(args.use_pallas),
+    )
+    load_torch_checkpoint(args.torch_ckpt, model)
+    model = model.to(device).eval().requires_grad_(False)
+    # every eval attack differentiates w.r.t. the input only
+    attack_view = input_grad_view(model)
+
+    x, y = load_eval_set(args, cfg.data.num_classes)
+    norms = args.l_norms.split(",")
+    logger = EvalLogger(str(run_dir / f"evaluated_logs_{args.l_norms}_{args.full_aa}.txt"))
+
+    results = {}
+    for norm in norms:
+        eps = args.eps if args.eps is not None else EPS_DICT["imagenet"][norm]
+        if eps > 1 and norm == "Linf":
+            eps /= 255.0
+        attacks = STANDARD_ATTACKS if args.full_aa else SHORT_ATTACKS
+        aa = AutoAttack(attack_view, AutoAttackConfig(
+            norm=norm, eps=eps, attacks_to_run=attacks, n_iter=args.n_iter,
+            batch_size=args.batch_size), logger=logger, device=device)
+        logger.log(f"norm={norm} eps={eps:.5f} attacks={attacks}")
+        if args.only_clean:
+            acc = float(aa.clean_accuracy(x, y).mean())
+            logger.log(f"clean accuracy: {acc:.2%} ({len(x)} pts)")
+            results[norm] = dict(eps=eps, clean=acc, n=len(x))
+            continue
+        _, robust = aa.run_standard_evaluation(x, y)
+        logger.log(f"robust accuracy ({norm}): {robust.mean():.2%} ({len(x)} pts)")
+        results[norm] = dict(eps=eps, robust=float(robust.mean()), n=len(x))
+    return results
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
