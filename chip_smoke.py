@@ -5,25 +5,40 @@
 
 Phases, each fatal on failure:
   1. environment: CUDA present; card name and power limit, torch and CUDA versions;
-  2. build the fused block-tail kernels (csrc/block_mlp.cu, sm_90a) with nvcc;
-  3. each kernel against its plain PyTorch version, in bf16, at the four
-     ConvNeXt-T stage shapes at batch 32 and at a ragged stage-3 M, in f32
-     once, with a per-sample keep once, and at the other widths the
-     kernels are built for (ConvNeXt-B/L);
-  4. the slice through its entry point: ConvNeXt-T-CvSt at full width and
-     224 px with random weights from --seed, written to a run dir as
-     params.json + .pt, evaluated by `cli.eval.main` (short AutoAttack,
+  2. build the block-tail kernels (csrc/block_mlp.cu and csrc/block_mlp_bwd.cu,
+     sm_90a), one nvcc per source, started together; ptxas spills are printed;
+  3. each kernel against its plain PyTorch version, in bf16: the forward and
+     the input backward at the four ConvNeXt-T stage shapes at batch 32; the
+     full backward (row pass, weight pass, reductions, and the host recovery
+     of dW2, db2, dgamma) on all nine cotangents at stages 0-2 at batch 80;
+     both also at a ragged M, in f32 once, with a per-sample keep once, and
+     at the other widths built (ConvNeXt-B/L). Two launches of the full
+     backward must give the same bits for dW1, A, db1 and dLN;
+  4. the evaluation path through its entry point: ConvNeXt-T-CvSt at full
+     width and 224 px with random weights from --seed, written to a run dir
+     as params.json + .pt, evaluated by `cli.eval.main` (short AutoAttack,
      --use_pallas 1);
-  5. the same short AutoAttack on the same model with labels set to its own
-     clean predictions, so APGD-CE and APGD-T run on every point; the
-     logits are checked against the CPU plain version on a small input;
-  6. timings: each kernel beside its plain version and beside the plain
-     model path's tail at batch 200, and ms per APGD iteration at batch 32
-     with and without the kernels.
+  5. the same short AutoAttack with labels set to the model's own clean
+     predictions, so APGD-CE and APGD-T run on every point; the logits are
+     checked against the CPU plain version on a small input;
+  6. the training step as bench.py builds it: ConvNeXt-T-CvSt, bf16, 224 px,
+     batch 80, mixup, 2-step APGD Linf 4/255, AdamW on the cosine schedule,
+     EMA 0.9999, use_pallas=1; 2 warm-up steps, then 10 timed (host clock
+     around a synchronize) in turns with the plain-tail step (use_pallas=0),
+     kernel, plain, plain, kernel; one step checked against the CPU plain
+     version at batch 2;
+  7. the train CLI: `cli.train.main` on ConvNeXt-T-CvSt at 224 px, synthetic
+     data, batch 16, 1 epoch, then `cli.eval.main` on the EMA weights it wrote;
+  8. timings: each kernel beside its plain version, its bound and the plain
+     model path's tail, at the stage shapes (forward and input backward at
+     batch 200, full backward at batch 80), and ms per APGD iteration at
+     batch 32 with and without the kernels; torch.profiler breakdowns of
+     the training step (phase 6) and of APGD by kernel family.
 
-The launch counters are zeroed just before phase 4 and read after phase 5:
-both kernels must have launched there. The second-to-last line is a JSON
-object {"kernels": [...]}, the last {"ok": true, "device": {...}}.
+The launch counters are zeroed just before each path (phases 4-5, 6, 7) and
+read just after it: every kernel the path runs must have launched there.
+The `launches` of the kernels line are phase 6's. The second-to-last line
+is a JSON object {"kernels": [...]}, the last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -43,9 +58,26 @@ KERNEL_RTOL = 2e-2
 
 # ConvNeXt-T stage shapes: (rows per image at 224 px, C)
 STAGES = [(3136, 96), (784, 192), (196, 384), (49, 768)]
+TRAIN_BATCH = 80  # the training step's batch (bench.py's configuration)
+# the port's CUDA kernels (anonymous namespace of csrc/*.cu), for profiles
+TAIL_KERNEL_NAMES = ("fwd_kernel", "bwd_kernel", "wgrad_kernel", "reduce_kernel")
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside them, HBM
+PEAK_BF16, PEAK_F32, PEAK_HBM = 989e12, 67e12, 3.35e12
 REPLACES = {"fwd": "revisiting_at_tpu/ops/block_mlp.py:108",
-            "bwd_input": "revisiting_at_tpu/ops/block_mlp.py:237"}
-SOURCE = "revisiting_at_tpu_torch/csrc/block_mlp.cu"
+            "bwd_input": "revisiting_at_tpu/ops/block_mlp.py:237",
+            "bwd_full_rows": "revisiting_at_tpu/ops/block_mlp.py:124",
+            "wgrad": "revisiting_at_tpu/ops/block_mlp.py:124",
+            "reduce": "revisiting_at_tpu/ops/block_mlp.py:124"}
+SOURCE = {"fwd": "revisiting_at_tpu_torch/csrc/block_mlp.cu",
+          "bwd_input": "revisiting_at_tpu_torch/csrc/block_mlp.cu",
+          "bwd_full_rows": "revisiting_at_tpu_torch/csrc/block_mlp_bwd.cu",
+          "wgrad": "revisiting_at_tpu_torch/csrc/block_mlp_bwd.cu",
+          "reduce": "revisiting_at_tpu_torch/csrc/block_mlp_bwd.cu"}
+FULL_COTANGENTS = ("ds", "dln_g", "dln_b", "dw1", "db1", "A", "dw2", "db2", "dgamma")
+# which kernel's error each cotangent of the full backward is booked under
+FULL_ERR_KEY = {"ds": "bwd_full_rows", "dln_g": "reduce", "dln_b": "reduce", "db1": "reduce",
+                "dw1": "wgrad", "A": "wgrad", "dw2": "wgrad", "db2": "bwd_full_rows",
+                "dgamma": "wgrad"}
 
 
 def log(msg):
@@ -109,6 +141,146 @@ def time_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def run_full(bm, d, kernel: bool):
+    """The full backward's nine cotangents (keep gets none), kernel or plain."""
+    w2g16 = (d["w2"].bfloat16().float() * d["gamma"]).bfloat16()
+    args = (d["s"], d["keep"], d["rows"], d["ln_g"], d["ln_b"], d["w1"].bfloat16(), d["b1"],
+            w2g16, d["dy"])
+    out = (bm.bwd_full_cuda if kernel else bm.bwd_full_plain)(*args)
+    rec = bm.recover_gamma_cotangents(out[5], d["dy"], d["keep"], d["rows"], d["w2"], d["b2"],
+                                      d["gamma"])
+    return list(out) + list(rec)
+
+
+def check(torch, what, got, ref) -> float:
+    """max |got - ref|, fatal unless finite and within KERNEL_RTOL * max |ref|."""
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{what}: non-finite kernel output")
+    e = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    log(f"check {what}: max_abs_err={e:.3e} max|ref|={scale:.3e}")
+    if not e <= KERNEL_RTOL * scale:
+        raise AssertionError(f"{what}: error {e} > {KERNEL_RTOL} * {scale}")
+    return e
+
+
+def zero_launches(bm) -> None:
+    for k in bm.LAUNCHES:
+        bm.LAUNCHES[k] = 0
+
+
+def require_launches(bm, path: str, kernels) -> dict:
+    """The counts since zero_launches; fatal if a kernel of the path has none."""
+    launches = dict(bm.LAUNCHES)
+    log(f"launches in {path}: {launches}")
+    for k in kernels:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched on {path}")
+    return launches
+
+
+def build_train_step(torch, state_dict, *, use_pallas: bool, device: str, seed: int):
+    """The training step as bench.py builds it, on the port: ConvNeXt-T-CvSt
+    in bf16 with f32 params, AdamW(wd 0.05) on the cosine schedule (lr 1e-3,
+    peak epoch 20, 300 epochs, 5,000 iterations per epoch), mixup with
+    label smoothing 0.1, 2-step APGD Linf 4/255, EMA 0.9999."""
+    from revisiting_at_tpu_torch.ckpt.convert import load_state_dict
+    from revisiting_at_tpu_torch.data import MixupConfig
+    from revisiting_at_tpu_torch.models import get_model
+    from revisiting_at_tpu_torch.train import (AdvConfig, LRConfig, TrainState, ema_init,
+                                               make_lr_schedule, make_optimizer,
+                                               make_train_step)
+
+    model, meta = get_model("convnext_tiny", not_original=True, dtype=torch.bfloat16,
+                            use_pallas=use_pallas)
+    load_state_dict(model, state_dict)
+    model.to(device).train()
+    sched = make_lr_schedule(LRConfig(lr=1e-3, lr_peak_epoch=20, epochs=300), 5000)
+    opt = make_optimizer(model, optimizer="adamw", weight_decay=0.05, family=meta.family,
+                         learning_rate=sched)
+    step = make_train_step(model, adv=AdvConfig(attack="apgd", norm="Linf", eps=4.0 / 255.0,
+                                                n_iter=2),
+                           mixup=MixupConfig(num_classes=1000, label_smoothing=0.1),
+                           ema_decay=0.9999, seed=seed)
+    return TrainState(model, opt, ema_init(model)), step
+
+
+def run_steps(torch, state, step, x, y, n):
+    """n steps; returns (ms per step on the host clock, the losses)."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    losses = [step(state, x, y)["loss"] for _ in range(n)]
+    torch.cuda.synchronize()
+    return (time.time() - t0) * 1000 / n, [float(v) for v in losses]
+
+
+def check_step_against_cpu(torch, np, state_dict, seed):
+    """One kernel-tail step on the card against the same step on the CPU,
+    where the tail takes its plain version, at batch 2: the loss and the
+    global gradient norm within 2e-2, and the gradient of a stage-0 block's
+    W1 (full-backward kernel) at cosine similarity above 0.99. bf16
+    convolutions and the attack's sign steps round differently on the two
+    devices, so this is a check of the path, not of the last bits."""
+    rng = np.random.RandomState(seed + 1)
+    x = torch.from_numpy(rng.uniform(0, 1, (2, 224, 224, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 1000, 2))
+    out = {}
+    for device in ("cuda", "cpu"):
+        state, step = build_train_step(torch, state_dict, use_pallas=True, device=device,
+                                       seed=seed)
+        metrics = step(state, x.to(device), y.to(device))
+        grad = state.model.stages[0].blocks[0].mlp.fc1.weight.grad.float().cpu()
+        out[device] = (float(metrics["loss"]), float(metrics["grad_norm"]), grad)
+    (lc, nc, gc), (lp, np_, gp) = out["cuda"], out["cpu"]
+    cos = float((gc * gp).sum() / (gc.norm() * gp.norm()))
+    log(f"train step vs CPU plain version (batch 2): loss {lc:.5f} / {lp:.5f}, grad_norm "
+        f"{nc:.4f} / {np_:.4f}, stage-0 W1 gradient cosine {cos:.5f}")
+    if not (abs(lc - lp) <= 2e-2 * abs(lp) and abs(nc - np_) <= 2e-2 * abs(np_) and cos > 0.99):
+        raise AssertionError("the training step disagrees with the CPU plain version")
+
+
+def profile_breakdown(torch, what: str, fn, n: int, label: str) -> None:
+    """torch.profiler over n calls of fn: wall and device time per call, the
+    device's busy share, and device time by kernel family. The profiler
+    inflates host time, so the shares are what to read."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1000 / n
+    families = {"tail kernels": 0.0, "gemm": 0.0, "conv": 0.0, "other": 0.0}
+    top = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.self_device_time_total / n
+        name = e.key
+        low = name.lower()
+        if any(f"(anonymous namespace)::{k}" in name for k in TAIL_KERNEL_NAMES):
+            families["tail kernels"] += us
+        elif any(k in low for k in ("conv", "dgrad", "wgrad", "fprop", "cudnn", "implicit")):
+            families["conv"] += us
+        elif any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet")):
+            families["gemm"] += us
+        else:
+            families["other"] += us
+        top.append((us, name[:70]))
+    device = sum(families.values()) / 1000
+    if device <= 0:
+        raise AssertionError(f"profile {what}: the profiler saw no device time")
+    top.sort(reverse=True)
+    log(f"profile {what}: wall {wall:.2f} ms, device {device:.2f} ms "
+        f"(busy {100 * device / wall:.1f}%), "
+        + ", ".join(f"{k} {v / 1000:.2f} ms" for k, v in families.items())
+        + "; top: " + "; ".join(f"{name} {us / 1000:.2f} ms" for us, name in top[:6])
+        + f" {label}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -139,12 +311,17 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------------------------- 2
     t0 = time.time()
+    libs = bm.build()
     bm._lib()
-    log(f"build: {time.time() - t0:.1f} s ({bm.build().name})")
+    log(f"build: {time.time() - t0:.1f} s ({', '.join(p.name for p in libs.values())})")
+    for path in libs.values():
+        for line in Path(f"{path}.ptxas.txt").read_text().splitlines():
+            if "spill" in line and " 0 bytes spill stores, 0 bytes spill loads" not in line:
+                log(f"ptxas {path.name}: {line.strip()}")
 
     # ---------------------------------------------------------------- 3
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    err = {"fwd": 0.0, "bwd_input": 0.0}
+    err = {k: 0.0 for k in bm.LAUNCHES}
     # the stage shapes at batch 32, as phases 4 and 5 give them to the kernels
     cases = [(rows * 32, C, torch.bfloat16, 0) for rows, C in STAGES]
     cases += [(49 * 3, 768, torch.bfloat16, 0),   # ragged: 147 rows, tiles of 32
@@ -159,15 +336,45 @@ def main(argv=None) -> int:
             got = run_tail(bm, d, which, kernel=True)
             ref = run_tail(bm, d, which, kernel=False)
             torch.cuda.synchronize()
-            if not torch.isfinite(got.float()).all():
-                raise AssertionError(f"{which} M={M} C={C}: non-finite kernel output")
-            e = (got.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            log(f"check {which:9s} M={M:6d} C={C:4d} {str(dtype):14s} keep={bool(keep_rows)} "
-                f"max_abs_err={e:.3e} max|ref|={scale:.3e}")
-            if not e <= KERNEL_RTOL * scale:
-                raise AssertionError(f"{which} M={M} C={C}: error {e} > {KERNEL_RTOL} * {scale}")
-            err[which] = max(err[which], e)
+            err[which] = max(err[which], check(torch, f"{which} M={M} C={C} {dtype} "
+                                               f"keep={bool(keep_rows)}", got, ref))
+    # the full backward: ConvNeXt-T's stages 0-2 at the training batch, where
+    # tail_fusable(C, "full") admits the kernel, then ragged M, f32 I/O, a
+    # per-sample keep, and the other widths built (B/L, wide_tail)
+    full_cases = [(rows * TRAIN_BATCH, C, torch.bfloat16, 0) for rows, C in STAGES[:3]]
+    full_cases += [(3136 * 2 + 40, 96, torch.bfloat16, 0), (196 * 3 + 5, 384, torch.bfloat16, 0),
+                   (784 * 2, 192, torch.float32, 0), (196 * 4, 384, torch.bfloat16, 196),
+                   (3136 + 40, 128, torch.bfloat16, 0), (784 + 40, 256, torch.bfloat16, 0),
+                   (196 * 2 + 8, 512, torch.bfloat16, 0), (49 * 2 + 5, 768, torch.bfloat16, 0),
+                   (49 * 2 + 5, 1024, torch.bfloat16, 0)]
+    for i, (M, C, dtype, keep_rows) in enumerate(full_cases):
+        d = tail_inputs(torch, M, C, dtype, gen, keep_rows)
+        got = run_full(bm, d, kernel=True)
+        ref = run_full(bm, d, kernel=False)
+        torch.cuda.synchronize()
+        what = f"M={M} C={C} {dtype} keep={bool(keep_rows)}"
+        for name, g, r in zip(FULL_COTANGENTS, got, ref):
+            e = check(torch, f"bwd_full {name:6s} {what}", g, r)
+            err[FULL_ERR_KEY[name]] = max(err[FULL_ERR_KEY[name]], e)
+        if i == 0:  # the weight cotangents are the same bits from run to run
+            again = run_full(bm, d, kernel=True)
+            for name in ("dw1", "A", "db1", "dln_g", "dln_b"):
+                j = FULL_COTANGENTS.index(name)
+                if not torch.equal(got[j], again[j]):
+                    raise AssertionError(f"bwd_full {name} {what}: two launches differ")
+            log(f"bwd_full {what}: dw1, A, db1, dln bitwise equal over two launches")
+        del d, got, ref
+    # the weight pass and the reduction alone, at stage 0's training shapes
+    m0 = STAGES[0][0] * TRAIN_BATCH
+    x16 = torch.randn(m0, 96, generator=gen, device="cuda").bfloat16()
+    y16 = torch.randn(m0, 384, generator=gen, device="cuda").bfloat16()
+    err["wgrad"] = max(err["wgrad"], check(torch, f"wgrad M={m0} 96x384",
+                                           bm.wgrad_cuda(x16, y16), bm.wgrad_plain(x16, y16)))
+    part = torch.randn(m0 // 64, 384, generator=gen, device="cuda")
+    err["reduce"] = max(err["reduce"], check(torch, f"reduce {m0 // 64}x384",
+                                             bm.reduce_cuda(part), bm.reduce_plain(part)))
+    del x16, y16, part
+    torch.cuda.empty_cache()
     if args.kernels_only:
         return 0
 
@@ -175,6 +382,7 @@ def main(argv=None) -> int:
     from revisiting_at_tpu_torch.attacks import apgd_attack
     from revisiting_at_tpu_torch.ckpt.convert import load_torch_checkpoint, save_torch_checkpoint
     from revisiting_at_tpu_torch.cli import eval as eval_cli
+    from revisiting_at_tpu_torch.cli import train as train_cli
     from revisiting_at_tpu_torch.config import Config
     from revisiting_at_tpu_torch.evals import AutoAttack, AutoAttackConfig
     from revisiting_at_tpu_torch.models import get_model
@@ -196,9 +404,9 @@ def main(argv=None) -> int:
     if not 28.0e6 < n_params < 29.5e6:
         raise AssertionError(f"unexpected parameter count {n_params}")
     save_torch_checkpoint(model, run_dir / "weights.pt")
+    del model
 
-    for k in bm.LAUNCHES:
-        bm.LAUNCHES[k] = 0
+    zero_launches(bm)
     t0 = time.time()
     res = eval_cli.main(["--run_dir", str(run_dir), "--torch_ckpt", str(run_dir / "weights.pt"),
                          "--use_pallas", "1", "--synthetic", "--l_norms", "Linf", "--n_ex",
@@ -231,9 +439,9 @@ def main(argv=None) -> int:
     x_adv, robust = aa.run_standard_evaluation(x, y)  # asserts the eps ball itself
     torch.cuda.synchronize()
     aa_s = time.time() - t0
-    launches = dict(bm.LAUNCHES)
     log(f"autoattack short (eps 0.25/255): robust acc {robust.mean():.4f} on 32 pts labelled "
-        f"by the model (clean 1.0), {aa_s:.2f} s; launches in phases 4-5: {launches}")
+        f"by the model (clean 1.0), {aa_s:.2f} s")
+    require_launches(bm, "the eval path (phases 4-5)", ("fwd", "bwd_input"))
     for attack in ("APGD-CE", "APGD-T"):
         if not any(f"after {attack}:" in m for m in aa_log.lines):
             raise AssertionError(f"{attack} did not run: no point was left for it")
@@ -241,9 +449,6 @@ def main(argv=None) -> int:
         raise AssertionError("x_adv has the wrong shape or non-finite values")
     if np.abs(x_adv - x).max() > eps * 1.001 + 1e-6 or x_adv.min() < 0 or x_adv.max() > 1:
         raise AssertionError("x_adv leaves the eps ball or the box")
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
 
     # logits against the plain version on the CPU (same bf16 model, same cast points)
     cpu_model, _ = get_model("convnext_tiny", not_original=True, dtype=torch.bfloat16,
@@ -259,15 +464,99 @@ def main(argv=None) -> int:
         f"argmax equal {bool((got.argmax(-1) == ref.argmax(-1)).all())}")
     if not (torch.isfinite(got).all() and e <= 5e-2 * scale):
         raise AssertionError("end-to-end logits disagree with the CPU plain version")
+    del cpu_model
 
     # ---------------------------------------------------------------- 6
+    init = torch.load(run_dir / "weights.pt", weights_only=True)
+    steps = {name: build_train_step(torch, init, use_pallas=name == "kernel", device="cuda",
+                                    seed=args.seed) for name in ("kernel", "plain")}
+    rng = np.random.RandomState(args.seed)
+    xb = torch.from_numpy(rng.uniform(0, 1, (TRAIN_BATCH, 224, 224, 3)).astype(np.float32))
+    yb = torch.from_numpy(rng.randint(0, 1000, TRAIN_BATCH))
+    xb, yb = xb.cuda(), yb.cuda()
+    probe = steps["kernel"][0].model.stages[0].blocks[0].mlp.fc1.weight
+    before = probe.detach().clone()
+    zero_launches(bm)
+    losses = {"kernel": [], "plain": []}
+    for name in ("kernel", "plain"):  # warm-up
+        losses[name] += run_steps(torch, *steps[name], xb, yb, 2)[1]
+    step_ms = {"kernel": [], "plain": []}
+    for name in ("kernel", "plain", "plain", "kernel"):
+        ms, ls = run_steps(torch, *steps[name], xb, yb, 5)
+        step_ms[name].append(ms)
+        losses[name] += ls
+    step_launches = require_launches(bm, "the training step (phase 6)", tuple(bm.LAUNCHES))
+    for name, ls in losses.items():
+        if not all(np.isfinite(ls)):
+            raise AssertionError(f"{name}-tail step: non-finite loss {ls}")
+    if torch.equal(before, probe.detach()):
+        raise AssertionError("the training step did not change the weights")
+    kernel_model = steps["kernel"][0].model
+    for si in range(3):  # the stages whose tails run the full-backward kernels
+        for name, p in kernel_model.stages[si].named_parameters():
+            if p.grad is None or not torch.isfinite(p.grad).all() or not p.grad.abs().max() > 0:
+                raise AssertionError(f"stage {si} {name}: no finite non-zero gradient")
+    for name, v in step_ms.items():
+        ms = sum(v) / len(v)
+        log(f"train step convnext_tiny+ConvStem bf16 B={TRAIN_BATCH} 224px 2-step APGD "
+            f"({name} tail): {ms:.2f} ms/step, {2000.0 / ms:.3f} attack-steps/s "
+            f"(runs of 5: {', '.join('%.2f' % t for t in v)}) {label}")
+    log(f"train step losses: kernel {losses['kernel'][:3]}..., plain {losses['plain'][:3]}...")
+    for name in ("kernel", "plain"):
+        profile_breakdown(torch, f"train step B={TRAIN_BATCH} ({name} tail), per step",
+                          lambda: steps[name][1](steps[name][0], xb, yb), 3, label)
+    del steps, kernel_model, probe, before, xb, yb
+    torch.cuda.empty_cache()
+    check_step_against_cpu(torch, np, init, args.seed)
+
+    # ---------------------------------------------------------------- 7
+    zero_launches(bm)
+    t0 = time.time()
+    trainer = train_cli.main([
+        "--model.arch", "convnext_tiny", "--model.not_original", "1",
+        "--model.add_normalization", "0", "--model.model_ema", "1", "--adv.attack", "apgd",
+        "--adv.n_iter", "2", "--data.dataset", "synthetic", "--training.batch_size", "16",
+        "--training.epochs", "1", "--training.use_pallas", "1", "--validation.batch_size", "16",
+        "--validation.max_batches", "2", "--logging.folder", str(repo / "build" / "smoke_train"),
+        "--logging.log_every_steps", "2", "--device", "cuda", "--synthetic_batches", "4"])
+    run = trainer.logger.dir
+    records = [json.loads(line) for line in (run / "log").read_text().splitlines()]
+    epoch = [r for r in records if "train_loss" in r]
+    if not (epoch and np.isfinite(epoch[0]["train_loss"])
+            and records[-1].get("event") == "final_val"):
+        raise AssertionError(f"cli.train: bad records {records}")
+    del trainer
+    torch.cuda.empty_cache()
+    res = eval_cli.main(["--run_dir", str(run), "--torch_ckpt",
+                         str(run / "ckpt" / "weights_ema_0.pt"), "--use_pallas", "1",
+                         "--synthetic", "--n_ex", "16", "--batch_size", "16", "--n_iter", "5",
+                         "--device", "cuda"])
+    if not 0.0 <= res["Linf"]["robust"] <= 1.0:
+        raise AssertionError(f"cli.eval on the trained run: bad result {res}")
+    log(f"cli.train + cli.eval: epoch {epoch[0]}, eval {res}, {time.time() - t0:.1f} s")
+    require_launches(bm, "the train CLI (phase 7)", tuple(bm.LAUNCHES))
+
+    # ---------------------------------------------------------------- 8
     # Each kernel beside its plain version (same cast points, f32 matmuls on
-    # bf16-rounded operands) and beside the plain model path's own tail
-    # (bf16 cuBLAS matmuls, erf GELU), at batch 200; order p, k, k, p.
-    kern_ms = {"fwd": 0.0, "bwd_input": 0.0}
-    plain_ms = {"fwd": 0.0, "bwd_input": 0.0}
+    # bf16-rounded operands), its bound, and the plain model path's own tail
+    # (bf16 cuBLAS matmuls, erf GELU); kernel and plain in turns p, k, k, p.
+    ms = {k: 0.0 for k in bm.LAUNCHES}
+    plain_ms = dict(ms)
+    library_ms = {k: None for k in bm.LAUNCHES}
+    library_ms.update(wgrad=0.0, reduce=0.0)
+    bounds = {k: [0.0, 0.0] for k in bm.LAUNCHES}  # summed op and byte times, ms
+    bound_ms = dict(ms)
+
+    def add_bound(k, flops, nbytes, peak=PEAK_BF16):
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM * 1e3
+        bounds[k][0] += t_ops
+        bounds[k][1] += t_bytes
+        bound_ms[k] += max(t_ops, t_bytes)
+        return max(t_ops, t_bytes)
+
     for rows, C in STAGES:
-        d = tail_inputs(torch, rows * 200, C, torch.bfloat16, gen)
+        B = 200
+        d = tail_inputs(torch, rows * B, C, torch.bfloat16, gen)
         s_in = d["s"].clone().requires_grad_(True)
         r_in = d["r"].clone().requires_grad_(True)
         model_args = (d["ln_g"], d["ln_b"], d["w1"].t(), d["b1"], d["w2"].t(), d["b2"],
@@ -278,19 +567,67 @@ def main(argv=None) -> int:
             "bwd_input": lambda: torch.autograd.grad(y_model, (s_in, r_in), d["dy"],
                                                      retain_graph=True),
         }
+        M = rows * B
+        weights = 2 * 4 * C * C * 2 + 7 * C * 4
         for which in ("fwd", "bwd_input"):
             k_fn = lambda: run_tail(bm, d, which, kernel=True)  # noqa: E731
             p_fn = lambda: run_tail(bm, d, which, kernel=False)  # noqa: E731
             p1, k1, k2, p2 = (time_ms(torch, f, 10) for f in (p_fn, k_fn, k_fn, p_fn))
             k, p = (k1 + k2) / 2, (p1 + p2) / 2
             mp = time_ms(torch, model_fn[which], 10)
-            kern_ms[which] += k
+            ms[which] += k
             plain_ms[which] += p
-            flops = (16 if which == "fwd" else 24) * rows * 200 * C * C
-            log(f"time {which:9s} B=200 M={rows * 200:6d} C={C:4d}: kernel {k:.3f} ms "
+            flops = (16 if which == "fwd" else 24) * M * C * C
+            bnd = add_bound(which, flops, 3 * M * C * 2 + weights)
+            log(f"time {which:9s} B={B} M={M:6d} C={C:4d}: kernel {k:.3f} ms "
                 f"({flops / k / 1e9:.1f} TFLOP/s), plain {p:.3f} ms, "
-                f"model bf16 path {mp:.3f} ms {label}")
+                f"model bf16 path {mp:.3f} ms, bound {bnd:.3f} ms {label}")
         del d, s_in, r_in, y_model, model_fn
+        torch.cuda.empty_cache()
+
+    for rows, C in STAGES[:3]:  # the full backward runs in stages 0-2
+        M = rows * TRAIN_BATCH
+        d = tail_inputs(torch, M, C, torch.bfloat16, gen)
+        w2g16 = (d["w2"].bfloat16().float() * d["gamma"]).bfloat16()
+        a = (d["s"], None, M, d["ln_g"], d["ln_b"], d["w1"].bfloat16(), d["b1"], w2g16, d["dy"])
+        ds, u16, kdy16, g16, dh16, *col_parts = bm.bwd_full_rows_cuda(*a)
+        m_pad = u16.shape[0]
+        k_rows = time_ms(torch, lambda: bm.bwd_full_rows_cuda(*a), 10)
+        p_rows = time_ms(torch, lambda: bm.bwd_full_rows_plain(*a), 5)
+        ms["bwd_full_rows"] += k_rows
+        plain_ms["bwd_full_rows"] += p_rows
+        side = sum(t.numel() * t.element_size() for t in (ds, u16, kdy16, g16, dh16, *col_parts))
+        add_bound("bwd_full_rows", 24 * M * C * C, 2 * M * C * 2 + 2 * 4 * C * C * 2 + side)
+        w_parts = []
+        for x16, y16 in ((u16, dh16), (g16, kdy16)):
+            part = bm.wgrad_partials_cuda(x16, y16)
+            w_parts.append(part.view(part.shape[0], -1))
+            ms["wgrad"] += time_ms(torch, lambda: bm.wgrad_partials_cuda(x16, y16), 10)
+            plain_ms["wgrad"] += time_ms(torch, lambda: bm.wgrad_plain(x16, y16), 5)
+            library_ms["wgrad"] += time_ms(torch, lambda: torch.matmul(x16.t(), y16), 10)
+            add_bound("wgrad", 2 * m_pad * x16.shape[1] * y16.shape[1],
+                      (x16.numel() + y16.numel()) * 2 + part.numel() * 4)
+        for part in col_parts + w_parts:
+            ms["reduce"] += time_ms(torch, lambda: bm.reduce_cuda(part), 10)
+            plain_ms["reduce"] += time_ms(torch, lambda: bm.reduce_plain(part), 10)
+            library_ms["reduce"] += time_ms(torch, lambda: torch.sum(part, 0), 10)
+            add_bound("reduce", part.numel(), (part.numel() + part.shape[1]) * 4, PEAK_F32)
+        # the whole full backward, its plain version and the model path's weight backward
+        k_full = time_ms(torch, lambda: bm.bwd_full_cuda(*a), 10)
+        p_full = time_ms(torch, lambda: bm.bwd_full_plain(*a), 5)
+        leaves = [d["s"].clone(), d["r"].clone(), d["ln_g"], d["ln_b"], d["w1"].t().contiguous(),
+                  d["b1"], d["w2"].t().contiguous(), d["b2"], d["gamma"]]
+        leaves = [t.detach().requires_grad_(True) for t in leaves]
+        y_model = plain_tail(*leaves, torch.bfloat16)
+        m_full = time_ms(torch, lambda: torch.autograd.grad(y_model, leaves, d["dy"],
+                                                            retain_graph=True), 10)
+        full_bytes = 3 * M * C * 2 + 2 * 4 * C * C * (2 + 4) + 14 * C * 4
+        b_full = max(40 * M * C * C / PEAK_BF16, full_bytes / PEAK_HBM) * 1e3
+        log(f"time bwd_full  B={TRAIN_BATCH} M={M:6d} C={C:4d}: kernels {k_full:.3f} ms "
+            f"({40 * M * C * C / k_full / 1e9:.1f} TFLOP/s; rows pass {k_rows:.3f}), "
+            f"plain {p_full:.3f} ms, model bf16 path weight backward {m_full:.3f} ms, "
+            f"bound {b_full:.3f} ms {label}")
+        del d, a, ds, u16, kdy16, g16, dh16, col_parts, w_parts, leaves, y_model
         torch.cuda.empty_cache()
 
     plain = load_model(False)
@@ -310,10 +647,18 @@ def main(argv=None) -> int:
         log(f"apgd-ce convnext_tiny+ConvStem bf16 B=32 224px ({name} tail): "
             f"{sum(v) / len(v):.2f} ms/iteration (runs {', '.join('%.2f' % t for t in v)}) "
             f"{label}")
+    for name, m in (("kernel", fused), ("plain", plain)):
+        profile_breakdown(torch, f"apgd-ce B=32 ({name} tail), per 5 iterations",
+                          lambda: apgd_attack(m, xt, yb, eps=4.0 / 255.0, n_iter=5,
+                                              is_train=False, random_start=True,
+                                              generator=torch.Generator(device="cuda")
+                                              .manual_seed(1)), 1, label)
 
-    kernels = [dict(name=f"block_mlp_{k}", route="cuda", source=SOURCE, replaces=REPLACES[k],
-                    launches=launches[k], max_abs_err=err[k], ms=kern_ms[k],
-                    plain_ms=plain_ms[k]) for k in ("fwd", "bwd_input")]
+    kernels = [dict(name=f"block_mlp_{k}", route="cuda", source=SOURCE[k], replaces=REPLACES[k],
+                    launches=step_launches[k], max_abs_err=err[k], ms=ms[k],
+                    plain_ms=plain_ms[k], bound_ms=bound_ms[k],
+                    bound_by="operations" if bounds[k][0] >= bounds[k][1] else "bytes",
+                    library_ms=library_ms[k]) for k in bm.LAUNCHES]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

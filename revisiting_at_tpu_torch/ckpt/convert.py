@@ -142,8 +142,13 @@ def load_torch_checkpoint(path: str | Path, model: nn.Module) -> nn.Module:
     return load_state_dict(model, sd)
 
 
-def save_torch_checkpoint(model: nn.Module, path: str | Path) -> None:
-    """torch.save the model's reference-format state_dict (f32, raw keys)."""
-    sd = {k: v.detach().float().cpu().contiguous()
+def save_torch_checkpoint(model: nn.Module, path: str | Path,
+                          ema: Mapping[str, torch.Tensor] | None = None) -> None:
+    """torch.save the model's reference-format state_dict (f32, raw keys).
+    With `ema` ({model parameter name: tensor}, train/ema.py), the
+    parameters are taken from it: the EMA weights of the same model."""
+    prefix = "model." if isinstance(model, NormalizedModel) else ""
+    ema = ema or {}
+    sd = {k: ema.get(prefix + k, v).detach().float().cpu().contiguous()
           for k, v in core_module(model).state_dict().items()}
     torch.save(sd, str(path))

@@ -4,6 +4,8 @@ Port of revisiting_at_tpu/config/config.py: the same sections, fields and
 defaults, so the port reads a params.json written by the JAX trainer (and
 writes one the JAX evaluator reads). Flat 'section.param' keys; unknown
 keys in a params.json are ignored for forward compatibility.
+`config_from_args` parses the JAX CLI's `--section.param value` and
+`--section.param=value` flags and validates the enum-valued knobs.
 """
 
 from __future__ import annotations
@@ -157,6 +159,28 @@ class Config:
     def dump_params_json(self, path: str | Path) -> None:
         Path(path).write_text(json.dumps(self.to_flat_dict(), indent=2))
 
+    # enum-valued knobs fail fast at parse time
+    _CHOICES = {
+        "lr.lr_schedule_type": ("cyclic", "cosine", "step"),
+        "training.optimizer": ("adamw", "sgd"),
+        "training.precision": ("bf16", "fp32"),
+        "validation.precision": ("bf16", "fp32"),
+        "adv.attack": ("none", "fgsm", "apgd"),
+        "adv.norm": ("Linf", "L2", "L1"),
+        "data.dataset": ("folder", "synthetic"),
+    }
+
+    def validate(self) -> "Config":
+        flat = self.to_flat_dict()
+        for key, choices in self._CHOICES.items():
+            if flat[key] not in choices:
+                raise ValueError(f"{key}={flat[key]!r} not in {choices}")
+        if self.resolution.min_res > self.resolution.max_res:
+            raise ValueError("resolution.min_res > max_res")
+        if self.training.grad_accum < 1 or self.adv.n_iter < 0:
+            raise ValueError("training.grad_accum >= 1 and adv.n_iter >= 0 required")
+        return self
+
     def set_flat(self, key: str, value: str) -> None:
         sec_name, param = key.split(".", 1)
         section = getattr(self, sec_name)
@@ -164,6 +188,28 @@ class Config:
             raise KeyError(f"unknown config key {key!r}")
         typ = get_type_hints(type(section))[param]
         setattr(section, param, typ(value))
+
+
+def config_from_args(argv: list[str]) -> Config:
+    """Parse `--section.param value` / `--section.param=value` overrides."""
+    cfg = Config()
+    i = 0
+    while i < len(argv):
+        arg = argv[i]
+        if not arg.startswith("--"):
+            raise ValueError(f"unexpected argument {arg!r}")
+        arg = arg[2:]
+        if "=" in arg:
+            key, value = arg.split("=", 1)
+            i += 1
+        else:
+            key = arg
+            if i + 1 >= len(argv):
+                raise ValueError(f"missing value for --{key}")
+            value = argv[i + 1]
+            i += 2
+        cfg.set_flat(key, value)
+    return cfg.validate()
 
 
 def load_params_json(path: str | Path) -> Config:

@@ -69,11 +69,12 @@ def torch_noise(seed: int, norm: str, device) -> NoiseFn:
 class AutoAttack:
     """`AutoAttack(logits_fn, cfg, device=...).run_standard_evaluation(x, y)`.
 
-    logits_fn maps an NHWC [0, 1] f32 batch on `device` to logits [B, classes]."""
+    logits_fn maps an NHWC [0, 1] f32 batch on `device` to logits [B, classes].
+    The device is the card unless the caller asks for the CPU."""
 
     def __init__(self, logits_fn: Callable[[torch.Tensor], torch.Tensor],
                  cfg: AutoAttackConfig, logger=None, noise_fn: NoiseFn | None = None,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         for attack in cfg.attacks_to_run:
             if attack in ("fab-t", "square"):
                 raise NotImplementedError(f"{attack}: ROADMAP A8")

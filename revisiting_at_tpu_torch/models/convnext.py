@@ -13,6 +13,11 @@ with erf GELU, or the fused tail of ops/block_mlp.py (tanh GELU, bf16
 matmul operands) when `use_pallas` and `tail_fusable(C, grad_mode, wide)`.
 The flag keeps the JAX package's name. The 7x7 depthwise conv is
 PyTorch's, as the JAX package leaves it to XLA.
+
+DropPath is active in train mode (`model.train()`) for blocks with a
+non-zero rate: each block draws a per-sample keep of mask / keep_p, the
+mask Bernoulli(keep_p), from the model's `drop_generator` (None: PyTorch's
+default generator), which a caller may replace to control the draws.
 The isotropic ConvNeXt waits for ROADMAP A3.
 """
 
@@ -46,23 +51,35 @@ def _layer_norm_f32(s, g, b, eps=1e-6):
     return (sf - mu) * torch.rsqrt(var + eps) * g + b
 
 
-def plain_tail(s, x, ln_g, ln_b, w1, b1, w2, b2, gamma, dtype):
+def plain_tail(s, x, ln_g, ln_b, w1, b1, w2, b2, gamma, dtype, keep=None):
     """The block tail of the plain model path: f32 LayerNorm, then Dense(4C),
-    erf GELU and Dense(C) in `dtype`, LayerScale and the residual. w1 and w2
-    are nn.Linear weights ([4C, C] and [C, 4C])."""
+    erf GELU and Dense(C) in `dtype`, LayerScale, the per-sample DropPath
+    scale `keep` ([B] or None) and the residual. w1 and w2 are nn.Linear
+    weights ([4C, C] and [C, 4C])."""
     u = _layer_norm_f32(s, ln_g, ln_b).to(dtype)
     h = F.linear(u, w1.to(dtype), b1.to(dtype))
     o = F.linear(F.gelu(h), w2.to(dtype), b2.to(dtype))
-    return x + o * gamma.to(o.dtype)
+    o = o * gamma.to(o.dtype)
+    if keep is not None:
+        o = o * keep.to(o.dtype).reshape(-1, 1, 1, 1)
+    return x + o
+
+
+def drop_path_keep(batch: int, drop_path: float, generator: torch.Generator | None,
+                   device) -> torch.Tensor:
+    """Per-sample DropPath scale [batch] f32: mask / keep_p, mask ~ Bernoulli(keep_p)."""
+    keep_p = 1.0 - drop_path
+    u = torch.rand(batch, generator=generator, device=generator.device if generator else device)
+    return (u < keep_p).float().to(device) / keep_p
 
 
 class ConvNeXtBlock(nn.Module):
     def __init__(self, dim: int, drop_path: float = 0.0, layer_scale_init: float = 1e-6,
                  dtype: torch.dtype = torch.float32, use_pallas: bool = False,
-                 wide_tail: bool = False):
+                 wide_tail: bool = False, split_bwd: bool = False):
         super().__init__()
         self.dim, self.drop_path, self.dtype = dim, drop_path, dtype
-        self.use_pallas, self.wide_tail = use_pallas, wide_tail
+        self.use_pallas, self.wide_tail, self.split_bwd = use_pallas, wide_tail, split_bwd
         self.conv_dw = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
         trunc_normal_(self.conv_dw.weight)
         nn.init.zeros_(self.conv_dw.bias)
@@ -73,20 +90,24 @@ class ConvNeXtBlock(nn.Module):
         else:
             self.register_buffer("gamma", torch.ones(dim), persistent=False)
 
-    def forward(self, x: torch.Tensor, grad_mode: str = "full") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, grad_mode: str = "full",
+                generator: torch.Generator | None = None) -> torch.Tensor:
         C, dt = self.dim, self.dtype
+        keep = None
         if self.drop_path > 0.0 and self.training:
-            raise NotImplementedError("DropPath in training: ROADMAP A5")
+            keep = drop_path_keep(x.shape[0], self.drop_path, generator, x.device)
         s = to_nhwc(F.conv2d(to_nchw(x.to(dt)), self.conv_dw.weight.to(dt),
                              self.conv_dw.bias.to(dt), padding=3, groups=C))
         ln_g, ln_b = self.norm.weight, self.norm.bias
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
         if self.use_pallas and tail_fusable(C, grad_mode, wide=self.wide_tail):
+            if grad_mode == "full" and self.split_bwd:
+                grad_mode = "split"
             return convnext_block_tail(
-                s, x, None, ln_g, ln_b, fc1.weight.t(), fc1.bias, fc2.weight.t(), fc2.bias,
+                s, x, keep, ln_g, ln_b, fc1.weight.t(), fc1.bias, fc2.weight.t(), fc2.bias,
                 self.gamma, grad_mode=grad_mode)
         return plain_tail(s, x, ln_g, ln_b, fc1.weight, fc1.bias, fc2.weight, fc2.bias,
-                          self.gamma, dt)
+                          self.gamma, dt, keep)
 
 
 class ConvNeXt(nn.Module):
@@ -94,8 +115,11 @@ class ConvNeXt(nn.Module):
     returns a module mapping NHWC images to the stage-0 map (/4, dims[0]
     channels); default the patchify stem.
 
-    `grad_mode` ('full' or 'input') is handed to every block; the eval
-    attacks set 'input' through train.train_step.input_grad_view."""
+    `grad_mode` ('full' or 'input') is handed to every block; the attacks
+    set 'input' through train.train_step.input_grad_view (eval) or
+    attack_grad_mode (training, scoped). `drop_generator` feeds DropPath.
+    `split_bwd` maps the full backward onto the JAX package's split variant,
+    which the port serves with the same kernels."""
 
     def __init__(self, depths: Sequence[int] = (3, 3, 9, 3),
                  dims: Sequence[int] = (96, 192, 384, 768), num_classes: int = 1000,
@@ -103,10 +127,11 @@ class ConvNeXt(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  stem_factory: Callable[..., nn.Module] | None = None,
                  use_blurpool: bool = False, use_pallas: bool = False,
-                 wide_tail: bool = False):
+                 wide_tail: bool = False, split_bwd: bool = False):
         super().__init__()
         self.dtype = dtype
         self.grad_mode = "full"
+        self.drop_generator: torch.Generator | None = None
         if stem_factory is not None:
             self.stem = stem_factory(dtype=dtype, use_blurpool=use_blurpool)
         else:
@@ -125,7 +150,7 @@ class ConvNeXt(nn.Module):
                 stage.downsample = nn.Identity()
             stage.blocks = nn.ModuleList(
                 ConvNeXtBlock(dim, dp_rates[cur + bi], layer_scale_init, dtype, use_pallas,
-                              wide_tail)
+                              wide_tail, split_bwd)
                 for bi in range(depth)
             )
             cur += depth
@@ -143,7 +168,7 @@ class ConvNeXt(nn.Module):
         for stage in self.stages:
             x = stage.downsample(x)
             for block in stage.blocks:
-                x = block(x, self.grad_mode)
+                x = block(x, self.grad_mode, self.drop_generator)
         x = x.float().mean(dim=(1, 2))
         x = self.head.norm(x.to(self.dtype))
         return F.linear(x.float(), self.head.fc.weight, self.head.fc.bias)

@@ -1,3 +1,3 @@
-from .logging import EvalLogger
+from .logging import EvalLogger, RunLogger, make_run_name
 
-__all__ = ["EvalLogger"]
+__all__ = ["EvalLogger", "RunLogger", "make_run_name"]

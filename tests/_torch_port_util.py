@@ -57,3 +57,46 @@ def model_pair(arch="convnext_micro", *, not_original=False, use_pallas=False, i
 def images(n=4, img=32, seed=1):
     rng = np.random.RandomState(seed)
     return rng.uniform(0, 1, size=(n, img, img, 3)).astype(np.float32)
+
+
+# ------------------------------------------------------------- block tail
+
+TAIL_ARGS = ("s", "r", "ln_g", "ln_b", "w1", "b1", "w2", "b2", "gamma")
+
+
+def tail_inputs(M, C, seed=0):
+    """Numpy inputs of the block tail on [M, C] rows, and a cotangent dy."""
+    rng = np.random.RandomState(seed)
+    f = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
+    return dict(s=f(M, C), r=f(M, C), ln_g=rng.uniform(0.5, 1.5, C).astype(np.float32),
+                ln_b=f(C) * 0.1, w1=f(C, 4 * C) * 0.1, b1=f(4 * C) * 0.1,
+                w2=f(4 * C, C) * 0.1, b2=f(C) * 0.1,
+                gamma=rng.uniform(0.1, 1.0, C).astype(np.float32), dy=f(M, C))
+
+
+def jax_tail_cotangents(d, B, keep, mode):
+    """The JAX block tail's cotangents w.r.t. TAIL_ARGS (f32 W1/W2 cast to
+    bf16 inside, as the model does), in interpret mode, as numpy arrays
+    shaped like d's. keep: per-sample scale [B] or None (one grid row)."""
+    from revisiting_at_tpu.ops import block_mlp as jbm
+
+    M, C = d["s"].shape
+    Mb = M // B
+    kp = jnp.ones((1,), jnp.float32) if keep is None else jnp.asarray(keep, jnp.float32)
+    m_tile = jbm.pick_m_tile(Mb, C, 4 * C, heavy=True)
+
+    def f(s, r, ln_g, ln_b, w1, b1, w2, b2, gamma):
+        return jbm.block_mlp(s, r, kp, ln_g, ln_b, w1.astype(jnp.bfloat16), b1,
+                             w2.astype(jnp.bfloat16), b2, gamma, m_tile, True, mode, m_tile)
+
+    args = [jnp.asarray(d[k]).reshape(B, Mb, C) if k in ("s", "r") else jnp.asarray(d[k])
+            for k in TAIL_ARGS]
+    _, vjp = jax.vjp(f, *args)
+    cts = vjp(jnp.asarray(d["dy"]).reshape(B, Mb, C))
+    return [np.asarray(ct, np.float32).reshape(d[k].shape) for k, ct in zip(TAIL_ARGS, cts)]
+
+
+def rel_err(got, ref):
+    """max |got - ref| / max |ref|."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return np.abs(got - ref).max() / np.abs(ref).max()

@@ -22,6 +22,8 @@ from revisiting_at_tpu_torch.ops import block_mlp as tbm
 from revisiting_at_tpu_torch.ops import losses as tl
 from revisiting_at_tpu_torch.ops import norms as tn
 
+from _torch_port_util import TAIL_ARGS, jax_tail_cotangents, rel_err, tail_inputs
+
 torch.set_num_threads(1)
 T = torch.from_numpy
 
@@ -133,15 +135,6 @@ def test_bf16_logits_use_f32_math(logits):
 
 # ------------------------------------------------------------- block tail
 
-def tail_inputs(M, C, seed=0):
-    rng = np.random.RandomState(seed)
-    f = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
-    return dict(s=f(M, C), r=f(M, C), ln_g=rng.uniform(0.5, 1.5, C).astype(np.float32),
-                ln_b=f(C) * 0.1, w1=f(C, 4 * C) * 0.1, b1=f(4 * C) * 0.1,
-                w2=f(4 * C, C) * 0.1, b2=f(C) * 0.1,
-                gamma=rng.uniform(0.1, 1.0, C).astype(np.float32), dy=f(M, C))
-
-
 def jax_tail(d, B, keep):
     """JAX block_mlp in interpret mode, grad_mode='input': (y, ds, dr)."""
     M, C = d["s"].shape
@@ -185,18 +178,23 @@ def test_block_tail_plain_matches_jax_interpret(M, C, B, keep):
 
 
 def test_convnext_block_tail_nhwc_and_full_mode_cpu():
-    """NHWC wrapper flattens B*H*W; on the CPU 'full' differentiates the
-    weights through the plain version's autograd."""
-    d = tail_inputs(2 * 9, 16, seed=2)
-    t = {k: T(v).requires_grad_(True) for k, v in d.items()}
-    s4, r4 = t["s"].reshape(2, 3, 3, 16), t["r"].reshape(2, 3, 3, 16)
-    y = tbm.convnext_block_tail(s4, r4, None, t["ln_g"], t["ln_b"], t["w1"], t["b1"],
+    """NHWC wrapper with a per-sample keep over H*W rows; on the CPU 'full'
+    runs the plain full backward, whose nine cotangents match JAX's
+    _bwd_kernel (interpret mode) through the same wrapper shape."""
+    B, H, W, C = 2, 3, 3, 16
+    d = tail_inputs(B * H * W, C, seed=2)
+    keep = np.asarray([1.25, 0.0], np.float32)
+    refs = jax_tail_cotangents(d, B, keep, "full")
+    t = {k: T(v).requires_grad_(True) for k, v in d.items() if k != "dy"}
+    s4, r4 = t["s"].reshape(B, H, W, C), t["r"].reshape(B, H, W, C)
+    y = tbm.convnext_block_tail(s4, r4, T(keep), t["ln_g"], t["ln_b"], t["w1"], t["b1"],
                                 t["w2"], t["b2"], t["gamma"], grad_mode="full")
-    flat = tbm.fwd_plain(t["s"], t["r"], None, 18, t["ln_g"], t["ln_b"], t["w1"], t["b1"],
-                         t["w2"], t["b2"], t["gamma"])
-    _close(y.reshape(18, 16).detach(), flat.detach())
-    y.sum().backward()
-    assert t["w1"].grad is not None and t["gamma"].grad is not None
+    flat = tbm.fwd_plain(t["s"], t["r"], T(keep), H * W, t["ln_g"], t["ln_b"], t["w1"],
+                         t["b1"], t["w2"], t["b2"], t["gamma"])
+    _close(y.reshape(B * H * W, C).detach(), flat.detach())
+    y.backward(T(d["dy"]).reshape(B, H, W, C))
+    for k, ref in zip(TAIL_ARGS, refs):
+        assert rel_err(t[k].grad, ref) < 2e-3, k
 
 
 def test_block_tail_dispatch_never_falls_back():
@@ -215,6 +213,21 @@ def test_block_tail_dispatch_never_falls_back():
     with pytest.raises(ValueError):
         tbm.block_mlp(t["s"], t["r"], None, 8, t["ln_g"], t["ln_b"], t["w1"], t["b1"],
                       t["w2"], t["b2"], t["gamma"], grad_mode="weights")
+
+
+def test_full_backward_never_falls_back():
+    """'full' on a tensor with no kernel (meta: no CUDA here) raises in the
+    forward and in the backward instead of taking the plain version."""
+    d = tail_inputs(8, 32)
+    m = {k: T(v).to("meta").requires_grad_(k != "dy") for k, v in d.items()}
+    before = dict(tbm.LAUNCHES)
+    with pytest.raises(NotImplementedError):
+        tbm.block_mlp(m["s"], m["r"], None, 8, m["ln_g"], m["ln_b"], m["w1"], m["b1"],
+                      m["w2"], m["b2"], m["gamma"], grad_mode="full")
+    with pytest.raises(NotImplementedError):
+        tbm.block_mlp_bwd_full(m["s"], None, 8, m["ln_g"], m["ln_b"], m["w1"], m["b1"],
+                               m["w2"], m["b2"], m["gamma"], m["dy"])
+    assert tbm.LAUNCHES == before
 
 
 @pytest.mark.parametrize("mode", ["input", "full"])

@@ -53,7 +53,7 @@ def test_short_autoattack_matches_jax():
     kw = dict(norm="Linf", eps=1.0 / 255.0, attacks_to_run=("apgd-ce", "apgd-t"), n_iter=5,
               n_target_classes=3, batch_size=8, seed=0, verbose=False)
     x_ref, robust_ref = JaxAutoAttack(fwd, JaxConfig(**kw)).run_standard_evaluation(x, y)
-    aa = AutoAttack(tm, AutoAttackConfig(**kw), noise_fn=jax_fold_in_noise(0))
+    aa = AutoAttack(tm, AutoAttackConfig(**kw), noise_fn=jax_fold_in_noise(0), device="cpu")
     x_adv, robust = aa.run_standard_evaluation(x, y)
     np.testing.assert_array_equal(robust, robust_ref)
     diff = np.abs(x_adv - x_ref)
@@ -65,7 +65,13 @@ def test_short_autoattack_matches_jax():
 
 def test_unported_attacks_raise():
     with pytest.raises(NotImplementedError, match="A8"):
-        AutoAttack(lambda t: t, AutoAttackConfig(attacks_to_run=("apgd-ce", "square")))
+        AutoAttack(lambda t: t, AutoAttackConfig(attacks_to_run=("apgd-ce", "square")),
+                   device="cpu")
+
+
+def test_autoattack_runs_on_the_card_by_default():
+    cfg = AutoAttackConfig(attacks_to_run=("apgd-ce", "apgd-t"))
+    assert AutoAttack(lambda t: t, cfg).device == torch.device("cuda")
 
 
 @pytest.fixture(scope="module")
