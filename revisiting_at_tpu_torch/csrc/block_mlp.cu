@@ -19,7 +19,8 @@
 // at stage 3) are zero-filled on load and masked on store.
 // The input backward runs the same loop with two more products (dg = kdy16 @
 // w2g^T and du += dh16 @ W1^T) and finishes with the LayerNorm backward,
-// whose row means are reduced across warps through shared-memory atomics.
+// whose row means are summed per warp in shared memory, then over the warps
+// in a fixed order, so ds is the same bits from run to run.
 //
 // Plain C interface for ctypes: each entry point returns cudaGetLastError()
 // after its launch (or -1 for a width it was not built for).

@@ -23,9 +23,9 @@
 //      the card would sit mostly idle, so each block sums a slice of M rows
 //      for one output tile into its own f32 partial.
 //   3. reduce_kernel sums partials over their leading axis in a fixed order.
-// No float atomics anywhere: the weight cotangents are the same bits from run
-// to run. Rows past M (padding to a multiple of 64) are written as zeros by
-// the row pass, so they add nothing to any column sum or product.
+// No float atomics anywhere: ds and the weight cotangents are the same bits
+// from run to run. Rows past M (padding to a multiple of 64) are written as
+// zeros by the row pass, so they add nothing to any column sum or product.
 //
 // What bounds it on the H100: 40 * M * C^2 flops (h, dg and du in the row
 // pass, dW1 and A in the weight pass) against s, dy and ds, so the tensor

@@ -182,6 +182,12 @@ bwd_kernel(const T* __restrict__ s, const float* __restrict__ keep, int rows_per
   float* inv = mean + K::BM;
   float* sum1 = inv + K::BM;   // row sums of du * g
   float* sum2 = sum1 + K::BM;  // row sums of du * g * xhat
+  // Parts of sum1 and sum2 per 16-wide column tile, [NT][BM] each, added in
+  // tile order (no atomics). They reuse hbuf, which no thread reads after
+  // the last chunk's GELU step and its __syncthreads.
+  float* part1 = hbuf;
+  float* part2 = hbuf + K::NT * K::BM;
+  static_assert(2 * K::NT <= K::LDH, "row-sum parts must fit in hbuf");
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * K::BM;
 
@@ -192,7 +198,6 @@ bwd_kernel(const T* __restrict__ s, const float* __restrict__ keep, int rows_per
     const float v = row < M ? keep_of(keep, rows_per_keep, row) * to_f32(dy[row * C + c]) : 0.0f;
     kdy16[rr * K::LDU + c] = __float2bfloat16(v);
   }
-  for (int i = threadIdx.x; i < K::BM; i += K::NTHREADS) { sum1[i] = 0.0f; sum2[i] = 0.0f; }
   __syncthreads();
   if constexpr (FULL) {
     // u16 and kdy16 are the left operands of the weight pass: 16-byte copies
@@ -316,7 +321,16 @@ bwd_kernel(const T* __restrict__ s, const float* __restrict__ keep, int rows_per
   }
 #pragma unroll
   for (int pass = 0; pass < 2; ++pass) {
-    if (pass == 1) __syncthreads();
+    if (pass == 1) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < K::BM; i += K::NTHREADS) {
+        float a = 0.0f, b = 0.0f;
+        for (int t = 0; t < K::NT; ++t) { a += part1[t * K::BM + i]; b += part2[t * K::BM + i]; }
+        sum1[i] = a;
+        sum2[i] = b;
+      }
+      __syncthreads();
+    }
 #pragma unroll
     for (int mi = 0; mi < K::MT; ++mi) {
 #pragma unroll
@@ -344,7 +358,11 @@ bwd_kernel(const T* __restrict__ s, const float* __restrict__ keep, int rows_per
               p1 += __shfl_xor_sync(0xffffffffu, p1, o);
               p2 += __shfl_xor_sync(0xffffffffu, p2, o);
             }
-            if (cc == 0) { atomicAdd(sum1 + rr, p1); atomicAdd(sum2 + rr, p2); }
+            if (cc == 0) {
+              const int t = warp * K::CPW + ci;  // this column tile
+              part1[t * K::BM + rr] = p1;
+              part2[t * K::BM + rr] = p2;
+            }
           } else if (live) {
             const float m1 = sum1[rr] / C, m2 = sum2[rr] / C;
             ds[row * C + col] = from_f32<T>(inv[rr] * (dxh - m1 - xhat * m2));

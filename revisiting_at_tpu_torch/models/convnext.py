@@ -76,10 +76,10 @@ def drop_path_keep(batch: int, drop_path: float, generator: torch.Generator | No
 class ConvNeXtBlock(nn.Module):
     def __init__(self, dim: int, drop_path: float = 0.0, layer_scale_init: float = 1e-6,
                  dtype: torch.dtype = torch.float32, use_pallas: bool = False,
-                 wide_tail: bool = False, split_bwd: bool = False):
+                 wide_tail: bool = False):
         super().__init__()
         self.dim, self.drop_path, self.dtype = dim, drop_path, dtype
-        self.use_pallas, self.wide_tail, self.split_bwd = use_pallas, wide_tail, split_bwd
+        self.use_pallas, self.wide_tail = use_pallas, wide_tail
         self.conv_dw = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
         trunc_normal_(self.conv_dw.weight)
         nn.init.zeros_(self.conv_dw.bias)
@@ -101,8 +101,6 @@ class ConvNeXtBlock(nn.Module):
         ln_g, ln_b = self.norm.weight, self.norm.bias
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
         if self.use_pallas and tail_fusable(C, grad_mode, wide=self.wide_tail):
-            if grad_mode == "full" and self.split_bwd:
-                grad_mode = "split"
             return convnext_block_tail(
                 s, x, keep, ln_g, ln_b, fc1.weight.t(), fc1.bias, fc2.weight.t(), fc2.bias,
                 self.gamma, grad_mode=grad_mode)
@@ -117,9 +115,7 @@ class ConvNeXt(nn.Module):
 
     `grad_mode` ('full' or 'input') is handed to every block; the attacks
     set 'input' through train.train_step.input_grad_view (eval) or
-    attack_grad_mode (training, scoped). `drop_generator` feeds DropPath.
-    `split_bwd` maps the full backward onto the JAX package's split variant,
-    which the port serves with the same kernels."""
+    attack_grad_mode (training, scoped). `drop_generator` feeds DropPath."""
 
     def __init__(self, depths: Sequence[int] = (3, 3, 9, 3),
                  dims: Sequence[int] = (96, 192, 384, 768), num_classes: int = 1000,
@@ -127,7 +123,7 @@ class ConvNeXt(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  stem_factory: Callable[..., nn.Module] | None = None,
                  use_blurpool: bool = False, use_pallas: bool = False,
-                 wide_tail: bool = False, split_bwd: bool = False):
+                 wide_tail: bool = False):
         super().__init__()
         self.dtype = dtype
         self.grad_mode = "full"
@@ -150,7 +146,7 @@ class ConvNeXt(nn.Module):
                 stage.downsample = nn.Identity()
             stage.blocks = nn.ModuleList(
                 ConvNeXtBlock(dim, dp_rates[cur + bi], layer_scale_init, dtype, use_pallas,
-                              wide_tail, split_bwd)
+                              wide_tail)
                 for bi in range(depth)
             )
             cur += depth

@@ -3,8 +3,7 @@
 Same names and semantics: `not_original` swaps in the paper's ConvStem
 (ConvStem1(48) for tiny/small, ConvStem3(64/96) for base/large, ConvStem1(8)
 for convnext_micro), `add_normalization` prepends the ImageNet normalizer,
-`wide_tail=None` means on for convnext_large only, and `split_bwd` selects
-the split full backward of the block tail (served by the same kernels).
+and `wide_tail=None` means on for convnext_large only.
 """
 
 from __future__ import annotations
@@ -42,15 +41,14 @@ class ModelMeta:
 def get_model(name: str, *, not_original: bool = False, num_classes: int = 1000,
               dtype: torch.dtype = torch.bfloat16, drop_path_rate: float = 0.0,
               use_blurpool: bool = False, add_normalization: bool = False,
-              use_pallas: bool = False, wide_tail: bool | None = None,
-              split_bwd: bool = False) -> tuple[nn.Module, ModelMeta]:
+              use_pallas: bool = False,
+              wide_tail: bool | None = None) -> tuple[nn.Module, ModelMeta]:
     """Build a model by reference name. Returns (module, meta); the module
     maps NHWC [0, 1] images to f32 logits."""
     if wide_tail is None:
         wide_tail = name == "convnext_large"
     common = dict(num_classes=num_classes, dtype=dtype, use_blurpool=use_blurpool,
-                  drop_path_rate=drop_path_rate, use_pallas=use_pallas, wide_tail=wide_tail,
-                  split_bwd=split_bwd)
+                  drop_path_rate=drop_path_rate, use_pallas=use_pallas, wide_tail=wide_tail)
     if name in ("convnext_tiny", "convnext_small", "convnext_base", "convnext_large",
                 "convnext_tiny_21k"):
         size = name.replace("convnext_", "").replace("_21k", "")

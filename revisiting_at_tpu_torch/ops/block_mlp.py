@@ -12,8 +12,9 @@ csrc/ replace its TPU kernels:
   * the full backward replaces `_bwd_kernel` (csrc/block_mlp_bwd.cu): a row
     pass (ds, bf16 side outputs, per-block column sums), a weight pass
     (dW1 and A = g16^T @ kdy16 over slices of M) and a fixed-order
-    reduction. It serves grad_mode "split" (`_bwd_split`) too: the JAX
-    package's two-pass variant computes the same cotangents.
+    reduction. The JAX package's two-pass variant of that kernel
+    (`_bwd_split`, its `split_bwd` knob) computes the same cotangents, so
+    the port has no second variant.
 
 The kernels are bound to PyTorch with ctypes and built with nvcc at first
 use into build/kernels/ (see `build`). The sources name what bounds them on
@@ -530,13 +531,11 @@ def block_mlp(s, r, keep, rows_per_keep, ln_g, ln_b, w1, b1, w2, b2, gamma,
 
     grad_mode 'input' differentiates w.r.t. s and r only (attack closures;
     weight cotangents are None). 'full' differentiates everything through
-    the full backward. 'split' is the JAX package's two-pass variant of the
-    full backward (`split_bwd`); its cotangents are the same, and the port's
-    full backward already runs in passes, so it takes the same path."""
+    the full backward."""
     if grad_mode == "input":
         return _BlockTailInput.apply(s, r, keep, rows_per_keep, ln_g, ln_b, w1, b1, w2, b2,
                                      gamma)
-    if grad_mode not in ("full", "split"):
+    if grad_mode != "full":
         raise ValueError(f"unknown grad_mode {grad_mode!r}")
     return _BlockTailFull.apply(s, r, keep, rows_per_keep, ln_g, ln_b, w1, b1, w2, b2, gamma)
 

@@ -77,10 +77,11 @@ class Trainer:
                      drop_path_rate=cfg.model.drop_path_rate,
                      use_blurpool=bool(t.use_blurpool),
                      add_normalization=bool(cfg.model.add_normalization))
+        # training.split_bwd is ignored: the JAX split backward has the full
+        # backward's cotangents, and the port's full backward already runs in passes
         self.model, self.meta = get_model(
             cfg.model.arch, dtype=dtype, use_pallas=bool(t.use_pallas),
-            wide_tail=None if t.wide_tail < 0 else bool(t.wide_tail),
-            split_bwd=bool(t.split_bwd), **build)
+            wide_tail=None if t.wide_tail < 0 else bool(t.wide_tail), **build)
         self.model.to(self.device)
         # the f32 validation twin (validation.precision=fp32) shares the weights
         self.val_model = self.model

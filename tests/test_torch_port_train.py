@@ -61,22 +61,23 @@ T = torch.from_numpy
 
 # ---------------------------------------------------------- full backward
 
-@pytest.mark.parametrize("M,C,B,keep,mode", [
+@pytest.mark.parametrize("M,C,B,keep,jax_mode", [
     (40, 16, 1, None, "full"),            # M not a multiple of any power-of-two tile
     (2 * 24, 16, 2, [1.0, 0.5], "full"),  # per-sample DropPath scale
     (196, 384, 1, None, "full"),          # one ConvNeXt-T stage-2 block at 14x14
     (2 * 24, 16, 2, [1.0, 0.5], "split"),  # the JAX package's _bwd_split
 ])
-def test_full_backward_matches_jax(M, C, B, keep, mode):
+def test_full_backward_matches_jax(M, C, B, keep, jax_mode):
     """All nine cotangents (keep gets none) of the port's full backward on
     the CPU (its plain version, through the autograd Function) against the
-    JAX kernels in interpret mode."""
+    JAX kernels in interpret mode: `_bwd_kernel`, and its two-pass variant
+    `_bwd_split`, which the port's one full backward also stands for."""
     d = tail_inputs(M, C)
-    refs = jax_tail_cotangents(d, B, keep, mode)
+    refs = jax_tail_cotangents(d, B, keep, jax_mode)
     t = {k: T(d[k]).requires_grad_(True) for k in TAIL_ARGS}
     kp = None if keep is None else torch.tensor(keep)
     y = tbm.block_mlp(t["s"], t["r"], kp, M // B, *(t[k] for k in TAIL_ARGS[2:]),
-                      grad_mode=mode)
+                      grad_mode="full")
     y.backward(T(d["dy"]))
     for k, ref in zip(TAIL_ARGS, refs):
         assert t[k].grad.dtype == torch.float32, k
@@ -370,16 +371,20 @@ def test_drop_path_per_sample_keep(use_pallas):
     assert float(blk.mlp.fc1.weight.grad.abs().max()) > 0
 
 
-def test_split_bwd_knob_takes_the_full_backward():
-    torch.manual_seed(0)
+def test_split_bwd_knob_takes_the_full_backward(tmp_path):
+    """training.split_bwd is accepted, kept in params.json and ignored: the
+    trainer's model takes the one full backward either way, to the bit."""
     grads = []
-    for split in (False, True):
-        model, _ = get_model("convnext_micro", num_classes=NCLS, dtype=torch.float32,
-                             use_pallas=True, split_bwd=split)
-        load_state_dict(model, jax_params_to_state_dict(jax_params(), "convnext_micro"))
-        assert model.stages[0].blocks[0].split_bwd == split
+    for split in ("0", "1"):
+        cfg = config_from_args(BASE + ["--logging.folder", str(tmp_path),
+                                       "--training.split_bwd", split])
+        assert cfg.to_flat_dict()["training.split_bwd"] == int(split)
+        model = Trainer(cfg, device="cpu", synthetic_batches=1).model
+        load_state_dict(model, jax_params_to_state_dict(jax_params(not_original=True),
+                                                        "convnext_micro"))
         model(T(images(n=2))).sum().backward()
         grads.append(model.stages[0].blocks[0].mlp.fc1.weight.grad)
+    assert float(grads[0].abs().max()) > 0
     torch.testing.assert_close(grads[0], grads[1], rtol=0, atol=0)
 
 
