@@ -5,43 +5,62 @@
 
 Phases, each fatal on failure:
   1. environment: CUDA present; card name and power limit, torch and CUDA versions;
-  2. build the block-tail kernels (csrc/block_mlp.cu and csrc/block_mlp_bwd.cu,
-     sm_90a), one nvcc per source, started together; ptxas spills are printed;
-  3. each kernel against its plain PyTorch version, in bf16: the forward and
-     the input backward at the four ConvNeXt-T stage shapes at batch 32; the
-     full backward (row pass, weight pass, reductions, and the host recovery
-     of dW2, db2, dgamma) on all nine cotangents at stages 0-2 at batch 80;
-     both also at a ragged M, in f32 once, with a per-sample keep once, and
-     at the other widths built (ConvNeXt-B/L); each output within its own
-     tolerance (TOL). Two launches must give the same bits (every kernel,
-     all nine cotangents of the full backward), and two planted faults (a
-     slice of M left out of dW1, a row group left out of db1) must fail
-     the check;
-  4. the evaluation path through its entry point: ConvNeXt-T-CvSt at full
-     width and 224 px with random weights from --seed, written to a run dir
-     as params.json + .pt, evaluated by `cli.eval.main` (short AutoAttack,
-     --use_pallas 1);
+  2. build the kernels (csrc/block_mlp.cu, csrc/block_mlp_bwd.cu and
+     csrc/attention.cu, sm_90a), one nvcc per source, all started together;
+     ptxas spills are printed;
+  3. each kernel against its plain PyTorch version, in bf16: the block
+     tail's forward and input backward at the four ConvNeXt-T stage shapes
+     at batch 32; its full backward (row pass, weight pass, reductions, and
+     the host recovery of dW2, db2, dgamma) on all nine cotangents at stages
+     0-2 at batch 80; both also at a ragged M, in f32 once, with a per-sample
+     keep once, and at the other widths built (ConvNeXt-B/L); the attention
+     forward and backward (dq, dk, dv) at ViT-S, M and B at batch 80 and 197
+     tokens, ViT-S at 401 tokens, and ViT-S with every score below 0; each
+     output within its own tolerance (TOL). Two launches must give the same
+     bits (every kernel), and three planted faults (a slice of M left out of
+     dW1, a row group left out of db1, one zero key past N left unmasked in
+     the attention) must fail the check;
+  4. the ConvNeXt evaluation path through its entry point: ConvNeXt-T-CvSt at
+     full width and 224 px with random weights from --seed, written to a run
+     dir as params.json + .pt, evaluated by `cli.eval.main` (short
+     AutoAttack, --use_pallas 1);
   5. the same short AutoAttack with labels set to the model's own clean
      predictions, so APGD-CE and APGD-T run on every point; the logits are
      checked against the CPU plain version on a small input;
-  6. the training step as bench.py builds it: ConvNeXt-T-CvSt, bf16, 224 px,
-     batch 80, mixup, 2-step APGD Linf 4/255, AdamW on the cosine schedule,
-     EMA 0.9999, use_pallas=1; 2 warm-up steps, then 10 timed (host clock
-     around a synchronize) in turns with the plain-tail step (use_pallas=0),
-     kernel, plain, plain, kernel; one step checked against the CPU plain
-     version at batch 2;
-  7. the train CLI: `cli.train.main` on ConvNeXt-T-CvSt at 224 px, synthetic
-     data, batch 16, 1 epoch, then `cli.eval.main` on the EMA weights it wrote;
-  8. timings: each kernel beside its plain version, its bound and the plain
-     model path's tail, at the stage shapes (forward and input backward at
-     batch 200, full backward at batch 80), and ms per APGD iteration at
-     batch 32 with and without the kernels; torch.profiler breakdowns of
-     the training step (phase 6) and of APGD by kernel family.
+  6. the ConvNeXt training step as bench.py builds it: ConvNeXt-T-CvSt, bf16,
+     224 px, batch 80, mixup, 2-step APGD Linf 4/255, AdamW on the cosine
+     schedule, EMA 0.9999, use_pallas=1; 2 warm-up steps, then 10 timed
+     (host clock around a synchronize) in turns with the plain-tail step
+     (use_pallas=0), kernel, plain, plain, kernel; one step checked against
+     the CPU plain version at batch 2;
+  7. the ConvNeXt train CLI: `cli.train.main` on ConvNeXt-T-CvSt at 224 px,
+     synthetic data, batch 16, 1 epoch, then `cli.eval.main` on the EMA
+     weights it wrote;
+  8. timings of the block-tail kernels beside their plain versions, bounds
+     and the plain model path's tail, at the stage shapes (forward and input
+     backward at batch 200, full backward at batch 80), and ms per APGD
+     iteration at batch 32 with and without the kernels; torch.profiler
+     breakdowns of the training step (phase 6) and of APGD by kernel family;
+  9. the ViT evaluation path: ViT-S-CvSt (vit_s, not_original=1) at full
+     width and 224 px with random weights from --seed, evaluated by
+     `cli.eval.main` (short AutoAttack, --use_pallas 1), once more at 320 px
+     (401 tokens, pos_embed resized); the logits checked against the CPU
+     plain version on a small input;
+ 10. the ViT training step as bench.py builds its vit_s_cvst_at row: the
+     step of phase 6 on ViT-S-CvSt, kernel path and use_pallas=0 in turns,
+     one step checked against the CPU plain version at batch 2;
+ 11. the ViT train CLI: `cli.train.main` on ViT-S-CvSt, then `cli.eval.main`
+     on its EMA weights;
+ 12. timings of the attention kernels beside their bounds, plain versions,
+     the model path's attention (use_pallas=0) and
+     scaled_dot_product_attention, at the training shapes; torch.profiler's
+     breakdown of the ViT step (phase 10) by kernel family.
 
-The launch counters are zeroed just before each path (phases 4-5, 6, 7) and
-read just after it: every kernel the path runs must have launched there.
-The `launches` of the kernels line are phase 6's. The second-to-last line
-is a JSON object {"kernels": [...]}, the last {"ok": true, "device": {...}}.
+The launch counters are zeroed just before each path (phases 4-5, 6, 7, 9,
+10, 11) and read just after it: every kernel the path runs must have
+launched there. The `launches` of the kernels line are phase 6's for the
+block tail and phase 10's for the attention. The second-to-last line is a
+JSON object {"kernels": [...]}, the last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -73,6 +92,11 @@ TOL = {
     # the weight pass and the reduction alone, on the same operands: f32
     # summation order only (largest readings 2.9e-6 and 2.6e-7)
     "wgrad": 2e-5, "reduce": 2e-6,
+    # attention, bf16 outputs: a score one f32 ulp apart can flip the bf16
+    # rounding of p or ds16, which moves an output by one bf16 ulp of a term
+    # (largest readings over the ATT_CASES and the all-negative scores: o
+    # 2.4e-3, dq 1.3e-3, dk 2.3e-3, dv 2.2e-3)
+    "att_o": 1e-2, "att_dq": 8e-3, "att_dk": 1e-2, "att_dv": 1e-2,
 }
 
 # ConvNeXt-T stage shapes: (rows per image at 224 px, C)
@@ -80,18 +104,31 @@ STAGES = [(3136, 96), (784, 192), (196, 384), (49, 768)]
 TRAIN_BATCH = 80  # the training step's batch (bench.py's configuration)
 # the port's CUDA kernels (anonymous namespace of csrc/*.cu), for profiles
 TAIL_KERNEL_NAMES = ("fwd_kernel", "bwd_kernel", "wgrad_kernel", "reduce_kernel")
+ATT_KERNEL_NAMES = ("attn_fwd_kernel", "attn_bwd_rows_kernel", "attn_bwd_cols_kernel")
+TAIL_KERNELS = ("block_mlp_fwd", "block_mlp_bwd_input", "block_mlp_bwd_full_rows",
+                "block_mlp_wgrad", "block_mlp_reduce")
+ATT_KERNELS = ("attention_fwd", "attention_bwd_rows", "attention_bwd_cols")
+# attention checks: (name, heads, tokens) at the training batch; hd = 64
+ATT_CASES = [("ViT-S", 6, 197), ("ViT-M", 8, 197), ("ViT-B", 12, 197), ("ViT-S@320", 6, 401)]
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM
 PEAK_BF16, PEAK_HBM = 989e12, 3.35e12
-REPLACES = {"fwd": "revisiting_at_tpu/ops/block_mlp.py:108",
-            "bwd_input": "revisiting_at_tpu/ops/block_mlp.py:237",
-            "bwd_full_rows": "revisiting_at_tpu/ops/block_mlp.py:124",
-            "wgrad": "revisiting_at_tpu/ops/block_mlp.py:124",
-            "reduce": "revisiting_at_tpu/ops/block_mlp.py:124"}
-SOURCE = {"fwd": "revisiting_at_tpu_torch/csrc/block_mlp.cu",
-          "bwd_input": "revisiting_at_tpu_torch/csrc/block_mlp.cu",
-          "bwd_full_rows": "revisiting_at_tpu_torch/csrc/block_mlp_bwd.cu",
-          "wgrad": "revisiting_at_tpu_torch/csrc/block_mlp_bwd.cu",
-          "reduce": "revisiting_at_tpu_torch/csrc/block_mlp_bwd.cu"}
+# kernels-line names: block_mlp_<LAUNCHES key> and attention_<LAUNCHES key>
+REPLACES = {"block_mlp_fwd": "revisiting_at_tpu/ops/block_mlp.py:108",
+            "block_mlp_bwd_input": "revisiting_at_tpu/ops/block_mlp.py:237",
+            "block_mlp_bwd_full_rows": "revisiting_at_tpu/ops/block_mlp.py:124",
+            "block_mlp_wgrad": "revisiting_at_tpu/ops/block_mlp.py:124",
+            "block_mlp_reduce": "revisiting_at_tpu/ops/block_mlp.py:124",
+            "attention_fwd": "revisiting_at_tpu/ops/attention.py:213",
+            "attention_bwd_rows": "revisiting_at_tpu/ops/attention.py:238",
+            "attention_bwd_cols": "revisiting_at_tpu/ops/attention.py:238"}
+SOURCE = {"block_mlp_fwd": "revisiting_at_tpu_torch/csrc/block_mlp.cu",
+          "block_mlp_bwd_input": "revisiting_at_tpu_torch/csrc/block_mlp.cu",
+          "block_mlp_bwd_full_rows": "revisiting_at_tpu_torch/csrc/block_mlp_bwd.cu",
+          "block_mlp_wgrad": "revisiting_at_tpu_torch/csrc/block_mlp_bwd.cu",
+          "block_mlp_reduce": "revisiting_at_tpu_torch/csrc/block_mlp_bwd.cu",
+          "attention_fwd": "revisiting_at_tpu_torch/csrc/attention.cu",
+          "attention_bwd_rows": "revisiting_at_tpu_torch/csrc/attention.cu",
+          "attention_bwd_cols": "revisiting_at_tpu_torch/csrc/attention.cu"}
 FULL_COTANGENTS = ("ds", "dln_g", "dln_b", "dw1", "db1", "A", "dw2", "db2", "dgamma")
 # which kernel's error each cotangent of the full backward is booked under
 FULL_ERR_KEY = {"ds": "bwd_full_rows", "dln_g": "reduce", "dln_b": "reduce", "db1": "reduce",
@@ -198,14 +235,26 @@ def planted_fault(what, got, ref, tol) -> None:
         f"tolerance {tol:.1e}): rejected")
 
 
-def zero_launches(bm) -> None:
-    for k in bm.LAUNCHES:
-        bm.LAUNCHES[k] = 0
+def counter_modules():
+    from revisiting_at_tpu_torch.ops import attention, block_mlp
+    return {"block_mlp": block_mlp, "attention": attention}
 
 
-def require_launches(bm, path: str, kernels) -> dict:
+def zero_launches() -> None:
+    for mod in counter_modules().values():
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict:
+    """{kernels-line name: launches since zero_launches}."""
+    return {f"{prefix}_{k}": v for prefix, mod in counter_modules().items()
+            for k, v in mod.LAUNCHES.items()}
+
+
+def require_launches(path: str, kernels) -> dict:
     """The counts since zero_launches; fatal if a kernel of the path has none."""
-    launches = dict(bm.LAUNCHES)
+    launches = launch_counts()
     log(f"launches in {path}: {launches}")
     for k in kernels:
         if launches[k] <= 0:
@@ -213,11 +262,66 @@ def require_launches(bm, path: str, kernels) -> dict:
     return launches
 
 
-def build_train_step(torch, state_dict, *, use_pallas: bool, device: str, seed: int):
-    """The training step as bench.py builds it, on the port: ConvNeXt-T-CvSt
-    in bf16 with f32 params, AdamW(wd 0.05) on the cosine schedule (lr 1e-3,
-    peak epoch 20, 300 epochs, 5,000 iterations per epoch), mixup with
-    label smoothing 0.1, 2-step APGD Linf 4/255, EMA 0.9999."""
+def att_inputs(torch, B, N, H, gen, negative=False):
+    """bf16 qkv [B, N, 3D] and a cotangent do [B, N, D], D = 64 * H. With
+    `negative`, q >= 0 and k <= 0, so every score is about -20: softmax is
+    shift-invariant, but a key that wrongly scores 0 then takes the mass."""
+    D = 64 * H
+    qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda")
+    if negative:
+        qkv[..., :D] = 2.0 * qkv[..., :D].abs()
+        qkv[..., D:2 * D] = -2.0 * qkv[..., D:2 * D].abs()
+    return qkv.bfloat16(), torch.randn(B, N, D, generator=gen, device="cuda").bfloat16()
+
+
+def check_attention(torch, att, gen) -> dict:
+    """The attention kernels against their plain versions in bf16 at the
+    ViT shapes (ATT_CASES, batch 80) and with every score below 0: o, dq,
+    dk and dv each within its own tolerance; the same bits over two
+    launches; and the planted fault (one zero key past N left unmasked)
+    rejected. Returns the largest error per kernel."""
+    err = dict.fromkeys(ATT_KERNELS, 0.0)
+    cases = [(name, H, N, False) for name, H, N in ATT_CASES] + [("ViT-S, scores < 0", 6, 197,
+                                                                   True)]
+    for i, (name, H, N, negative) in enumerate(cases):
+        qkv, do = att_inputs(torch, TRAIN_BATCH, N, H, gen, negative)
+        D = 64 * H
+        what = f"{name} B={TRAIN_BATCH} N={N} H={H}"
+        o = att.attention_fwd_cuda(qkv, H)
+        o_ref = att.attention_qkv_fwd_plain(qkv, H)
+        torch.cuda.synchronize()
+        err["attention_fwd"] = max(err["attention_fwd"],
+                                   check(torch, f"attention o  {what}", o, o_ref, TOL["att_o"]))
+        d = att.attention_bwd_cuda(qkv, do, H)
+        d_ref = att.attention_qkv_bwd_plain(qkv, do, H)
+        torch.cuda.synchronize()
+        for j, part in enumerate(("dq", "dk", "dv")):
+            sl = slice(j * D, (j + 1) * D)
+            e = check(torch, f"attention {part} {what}", d[..., sl], d_ref[..., sl],
+                      TOL[f"att_{part}"])
+            key = "attention_bwd_rows" if part == "dq" else "attention_bwd_cols"
+            err[key] = max(err[key], e)
+        if i == 0 or negative:
+            if not (torch.equal(o, att.attention_fwd_cuda(qkv, H))
+                    and torch.equal(d, att.attention_bwd_cuda(qkv, do, H))):
+                raise AssertionError(f"attention {what}: two launches differ")
+            log(f"attention o, dqkv {what}: bitwise equal over two launches")
+        if negative:
+            padded = torch.cat([qkv, torch.zeros_like(qkv[:, :1])], dim=1)
+            planted_fault(f"attention o with one zero key past N unmasked, {what}",
+                          att.attention_qkv_fwd_plain(padded, H)[:, :N], o_ref, TOL["att_o"])
+        del qkv, do, o, o_ref, d, d_ref
+        torch.cuda.empty_cache()
+    return err
+
+
+def build_train_step(torch, state_dict, *, use_pallas: bool, device: str, seed: int,
+                     arch: str = "convnext_tiny"):
+    """The training step as bench.py builds it, on the port: the arch with
+    ConvStem (ConvNeXt-T-CvSt, or ViT-S-CvSt for vit_s) in bf16 with f32
+    params, AdamW(wd 0.05, the family's decay rule) on the cosine schedule
+    (lr 1e-3, peak epoch 20, 300 epochs, 5,000 iterations per epoch), mixup
+    with label smoothing 0.1, 2-step APGD Linf 4/255, EMA 0.9999."""
     from revisiting_at_tpu_torch.ckpt.convert import load_state_dict
     from revisiting_at_tpu_torch.data import MixupConfig
     from revisiting_at_tpu_torch.models import get_model
@@ -225,7 +329,7 @@ def build_train_step(torch, state_dict, *, use_pallas: bool, device: str, seed: 
                                                make_lr_schedule, make_optimizer,
                                                make_train_step)
 
-    model, meta = get_model("convnext_tiny", not_original=True, dtype=torch.bfloat16,
+    model, meta = get_model(arch, not_original=True, dtype=torch.bfloat16,
                             use_pallas=use_pallas)
     load_state_dict(model, state_dict)
     model.to(device).train()
@@ -248,29 +352,33 @@ def run_steps(torch, state, step, x, y, n):
     return (time.time() - t0) * 1000 / n, [float(v) for v in losses]
 
 
-def check_step_against_cpu(torch, np, state_dict, seed):
-    """One kernel-tail step on the card against the same step on the CPU,
-    where the tail takes its plain version, at batch 2: the loss and the
-    global gradient norm within 2e-2, and the gradient of a stage-0 block's
-    W1 (full-backward kernel) at cosine similarity above 0.99. bf16
-    convolutions and the attack's sign steps round differently on the two
-    devices, so this is a check of the path, not of the last bits."""
+def check_step_against_cpu(torch, np, state_dict, seed, arch="convnext_tiny",
+                           probes=("stages.0.blocks.0.mlp.fc1.weight",)):
+    """One kernel step on the card against the same step on the CPU, where
+    every kernel takes its plain version, at batch 2: the loss and the
+    global gradient norm within 2e-2, and the gradient of each probe (a
+    block's W1: full-backward kernel; a ViT block's qkv weight: attention
+    backward) at cosine similarity above 0.99. bf16 convolutions and the
+    attack's sign steps round differently on the two devices, so this is a
+    check of the path, not of the last bits."""
     rng = np.random.RandomState(seed + 1)
     x = torch.from_numpy(rng.uniform(0, 1, (2, 224, 224, 3)).astype(np.float32))
     y = torch.from_numpy(rng.randint(0, 1000, 2))
     out = {}
     for device in ("cuda", "cpu"):
         state, step = build_train_step(torch, state_dict, use_pallas=True, device=device,
-                                       seed=seed)
+                                       seed=seed, arch=arch)
         metrics = step(state, x.to(device), y.to(device))
-        grad = state.model.stages[0].blocks[0].mlp.fc1.weight.grad.float().cpu()
-        out[device] = (float(metrics["loss"]), float(metrics["grad_norm"]), grad)
+        grads = [state.model.get_parameter(name).grad.float().cpu() for name in probes]
+        out[device] = (float(metrics["loss"]), float(metrics["grad_norm"]), grads)
     (lc, nc, gc), (lp, np_, gp) = out["cuda"], out["cpu"]
-    cos = float((gc * gp).sum() / (gc.norm() * gp.norm()))
-    log(f"train step vs CPU plain version (batch 2): loss {lc:.5f} / {lp:.5f}, grad_norm "
-        f"{nc:.4f} / {np_:.4f}, stage-0 W1 gradient cosine {cos:.5f}")
-    if not (abs(lc - lp) <= 2e-2 * abs(lp) and abs(nc - np_) <= 2e-2 * abs(np_) and cos > 0.99):
-        raise AssertionError("the training step disagrees with the CPU plain version")
+    cos = [float((a * b).sum() / (a.norm() * b.norm())) for a, b in zip(gc, gp)]
+    log(f"{arch} train step vs CPU plain version (batch 2): loss {lc:.5f} / {lp:.5f}, "
+        f"grad_norm {nc:.4f} / {np_:.4f}, gradient cosine "
+        + ", ".join(f"{n} {c:.5f}" for n, c in zip(probes, cos)))
+    if not (abs(lc - lp) <= 2e-2 * abs(lp) and abs(nc - np_) <= 2e-2 * abs(np_)
+            and min(cos) > 0.99):
+        raise AssertionError(f"the {arch} training step disagrees with the CPU plain version")
 
 
 def profile_breakdown(torch, what: str, fn, n: int, label: str) -> None:
@@ -287,7 +395,8 @@ def profile_breakdown(torch, what: str, fn, n: int, label: str) -> None:
             fn()
         torch.cuda.synchronize()
         wall = (time.time() - t0) * 1000 / n
-    families = {"tail kernels": 0.0, "gemm": 0.0, "conv": 0.0, "other": 0.0}
+    families = {"attention kernels": 0.0, "tail kernels": 0.0, "gemm": 0.0, "conv": 0.0,
+                "other": 0.0}
     top = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -295,7 +404,9 @@ def profile_breakdown(torch, what: str, fn, n: int, label: str) -> None:
         us = e.self_device_time_total / n
         name = e.key
         low = name.lower()
-        if any(f"(anonymous namespace)::{k}" in name for k in TAIL_KERNEL_NAMES):
+        if any(f"(anonymous namespace)::{k}" in name for k in ATT_KERNEL_NAMES):
+            families["attention kernels"] += us
+        elif any(f"(anonymous namespace)::{k}" in name for k in TAIL_KERNEL_NAMES):
             families["tail kernels"] += us
         elif any(k in low for k in ("conv", "dgrad", "wgrad", "fprop", "cudnn", "implicit")):
             families["conv"] += us
@@ -315,6 +426,235 @@ def profile_breakdown(torch, what: str, fn, n: int, label: str) -> None:
         + f" {label}")
 
 
+def vit_eval_phase(torch, np, repo, seed) -> dict:
+    """Phase 9: ViT-S-CvSt through cli.eval (224 px, then 320 px with the
+    checkpoint's pos_embed resized), short AutoAttack on points labelled by
+    the model, and its logits against the CPU plain version. Returns the
+    run's state_dict for the training phases."""
+    from revisiting_at_tpu_torch.ckpt.convert import load_torch_checkpoint, save_torch_checkpoint
+    from revisiting_at_tpu_torch.cli import eval as eval_cli
+    from revisiting_at_tpu_torch.config import Config
+    from revisiting_at_tpu_torch.evals import AutoAttack, AutoAttackConfig
+    from revisiting_at_tpu_torch.models import get_model
+    from revisiting_at_tpu_torch.train.train_step import input_grad_view
+
+    run_dir = repo / "build" / "smoke_run_vit"
+    run_dir.mkdir(parents=True, exist_ok=True)
+    cfg = Config()
+    cfg.model.arch, cfg.model.not_original, cfg.model.add_normalization = "vit_s", 1, 0
+    cfg.dump_params_json(run_dir / "params.json")
+    torch.manual_seed(seed)
+    model, _ = get_model("vit_s", not_original=True, dtype=torch.float32)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"model: vit_s + ConvStem, {n_params / 1e6:.2f} M params, seed {seed}")
+    if not 22.7e6 < n_params < 22.9e6:
+        raise AssertionError(f"unexpected parameter count {n_params}")
+    save_torch_checkpoint(model, run_dir / "weights.pt")
+    del model
+
+    zero_launches()
+    t0 = time.time()
+    base = ["--run_dir", str(run_dir), "--torch_ckpt", str(run_dir / "weights.pt"),
+            "--use_pallas", "1", "--synthetic", "--l_norms", "Linf", "--device", "cuda"]
+    res = eval_cli.main(base + ["--n_ex", "32", "--batch_size", "32", "--n_iter", "10"])
+    res320 = eval_cli.main(base + ["--n_ex", "8", "--batch_size", "8", "--n_iter", "2",
+                                   "--img_size", "320"])
+    log(f"cli.eval vit_s: {res}; at 320 px (401 tokens): {res320}; {time.time() - t0:.1f} s")
+    for r, n in ((res, 32), (res320, 8)):
+        if not 0.0 <= r["Linf"]["robust"] <= 1.0 or r["Linf"]["n"] != n:
+            raise AssertionError(f"bad eval result {r}")
+
+    m, _ = get_model("vit_s", not_original=True, dtype=torch.bfloat16, use_pallas=True)
+    load_torch_checkpoint(run_dir / "weights.pt", m)
+    fused = input_grad_view(m.cuda().eval().requires_grad_(False))
+    x = np.random.RandomState(seed).uniform(0, 1, (16, 224, 224, 3)).astype(np.float32)
+    xt = torch.from_numpy(x).cuda()
+    with torch.no_grad():
+        y = fused(xt).argmax(-1).cpu().numpy()
+    eps = 0.25 / 255.0  # points must survive APGD-CE for APGD-T to run
+    aa_log = Recorder()
+    aa = AutoAttack(fused, AutoAttackConfig(norm="Linf", eps=eps,
+                                            attacks_to_run=("apgd-ce", "apgd-t"), n_iter=5,
+                                            batch_size=16, seed=seed),
+                    logger=aa_log, device="cuda")
+    x_adv, robust = aa.run_standard_evaluation(x, y)
+    require_launches("the ViT eval path (phase 9)",
+                     ATT_KERNELS + ("block_mlp_fwd", "block_mlp_bwd_input"))
+    if not any("after APGD-CE:" in line for line in aa_log.lines):
+        raise AssertionError("APGD-CE did not run on the ViT")
+    if not np.isfinite(x_adv).all() or np.abs(x_adv - x).max() > eps * 1.001 + 1e-6:
+        raise AssertionError("ViT x_adv is non-finite or leaves the eps ball")
+    log(f"autoattack short vit_s (eps 0.25/255): robust acc {robust.mean():.4f} on 16 pts "
+        f"labelled by the model")
+
+    cpu_model, _ = get_model("vit_s", not_original=True, dtype=torch.bfloat16, use_pallas=True)
+    load_torch_checkpoint(run_dir / "weights.pt", cpu_model)
+    with torch.no_grad():
+        ref = cpu_model.eval()(xt[:2].cpu())
+        got = fused(xt[:2]).cpu()
+    e, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    log(f"vit_s logits vs CPU plain version (2 images): max_abs_err {e:.3e}, max|ref| "
+        f"{scale:.3e}, argmax equal {bool((got.argmax(-1) == ref.argmax(-1)).all())}")
+    if not (torch.isfinite(got).all() and e <= 5e-2 * scale):
+        raise AssertionError("ViT logits disagree with the CPU plain version")
+    del fused, m, cpu_model, xt
+    torch.cuda.empty_cache()
+    return torch.load(run_dir / "weights.pt", weights_only=True)
+
+
+def vit_step_phase(torch, np, init, seed, label):
+    """Phase 10: the ViT-S-CvSt training step as bench.py's vit_s_cvst_at
+    row builds it, kernel path (use_pallas=1) and use_pallas=0 in turns,
+    with their profiles, and one step against the CPU plain version.
+    Returns the step's launches."""
+    steps = {name: build_train_step(torch, init, use_pallas=name == "kernel", device="cuda",
+                                    seed=seed, arch="vit_s") for name in ("kernel", "plain")}
+    rng = np.random.RandomState(seed)
+    xb = torch.from_numpy(rng.uniform(0, 1, (TRAIN_BATCH, 224, 224, 3)).astype(np.float32))
+    yb = torch.from_numpy(rng.randint(0, 1000, TRAIN_BATCH))
+    xb, yb = xb.cuda(), yb.cuda()
+    probe = steps["kernel"][0].model.blocks[0].attn.qkv.weight
+    before = probe.detach().clone()
+    zero_launches()
+    losses = {"kernel": [], "plain": []}
+    for name in ("kernel", "plain"):  # warm-up
+        losses[name] += run_steps(torch, *steps[name], xb, yb, 2)[1]
+    step_ms = {"kernel": [], "plain": []}
+    for name in ("kernel", "plain", "plain", "kernel"):
+        ms, ls = run_steps(torch, *steps[name], xb, yb, 5)
+        step_ms[name].append(ms)
+        losses[name] += ls
+    launches = require_launches("the ViT training step (phase 10)", TAIL_KERNELS + ATT_KERNELS)
+    for name, ls in losses.items():
+        if not all(np.isfinite(ls)):
+            raise AssertionError(f"vit_s {name} step: non-finite loss {ls}")
+    if torch.equal(before, probe.detach()):
+        raise AssertionError("the ViT training step did not change the weights")
+    for name, prm in steps["kernel"][0].model.blocks[0].named_parameters():
+        if prm.grad is None or not torch.isfinite(prm.grad).all() or not prm.grad.abs().max() > 0:
+            raise AssertionError(f"vit_s blocks.0 {name}: no finite non-zero gradient")
+    for name, v in step_ms.items():
+        ms = sum(v) / len(v)
+        log(f"train step vit_s+ConvStem bf16 B={TRAIN_BATCH} 224px 2-step APGD "
+            f"({name} path): {ms:.2f} ms/step, {2000.0 / ms:.3f} attack-steps/s "
+            f"(runs of 5: {', '.join('%.2f' % t for t in v)}) {label}")
+    log(f"vit_s step losses: kernel {losses['kernel'][:3]}..., plain {losses['plain'][:3]}...")
+    for name in ("kernel", "plain"):
+        profile_breakdown(torch, f"vit_s train step B={TRAIN_BATCH} ({name} path), per step",
+                          lambda: steps[name][1](steps[name][0], xb, yb), 3, label)
+    del steps, probe, before, xb, yb
+    torch.cuda.empty_cache()
+    check_step_against_cpu(torch, np, init, seed, arch="vit_s",
+                           probes=("blocks.0.mlp.fc1.weight", "blocks.0.attn.qkv.weight"))
+    return launches
+
+
+def vit_cli_phase(torch, np, repo) -> None:
+    """Phase 11: cli.train on ViT-S-CvSt for one short epoch, then cli.eval
+    on the EMA weights it wrote."""
+    from revisiting_at_tpu_torch.cli import eval as eval_cli
+    from revisiting_at_tpu_torch.cli import train as train_cli
+
+    zero_launches()
+    t0 = time.time()
+    trainer = train_cli.main([
+        "--model.arch", "vit_s", "--model.not_original", "1", "--model.add_normalization", "0",
+        "--model.model_ema", "1", "--model.drop_path_rate", "0.1", "--adv.attack", "apgd",
+        "--adv.n_iter", "2", "--data.dataset", "synthetic", "--training.batch_size", "16",
+        "--training.epochs", "1", "--training.use_pallas", "1", "--validation.batch_size", "16",
+        "--validation.max_batches", "2", "--logging.folder",
+        str(repo / "build" / "smoke_train_vit"), "--logging.log_every_steps", "2",
+        "--device", "cuda", "--synthetic_batches", "4"])
+    run = trainer.logger.dir
+    records = [json.loads(line) for line in (run / "log").read_text().splitlines()]
+    epoch = [r for r in records if "train_loss" in r]
+    if not (epoch and np.isfinite(epoch[0]["train_loss"])
+            and records[-1].get("event") == "final_val"):
+        raise AssertionError(f"cli.train vit_s: bad records {records}")
+    del trainer
+    torch.cuda.empty_cache()
+    res = eval_cli.main(["--run_dir", str(run), "--torch_ckpt",
+                         str(run / "ckpt" / "weights_ema_0.pt"), "--use_pallas", "1",
+                         "--synthetic", "--n_ex", "16", "--batch_size", "16", "--n_iter", "5",
+                         "--device", "cuda"])
+    if not 0.0 <= res["Linf"]["robust"] <= 1.0:
+        raise AssertionError(f"cli.eval on the trained ViT run: bad result {res}")
+    log(f"cli.train + cli.eval vit_s: epoch {epoch[0]}, eval {res}, {time.time() - t0:.1f} s")
+    require_launches("the ViT train CLI (phase 11)", TAIL_KERNELS + ATT_KERNELS)
+
+
+def attention_timings(torch, att, gen, label) -> dict:
+    """Phase 12: each attention kernel at the training shapes (ViT-S, batch
+    80, 197 tokens) beside its plain version, its bound, the model path's
+    attention (use_pallas=0, models/vit.py plain_attention) and
+    scaled_dot_product_attention; kernel and plain in turns p, k, k, p.
+    Returns {kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
+    import torch.nn.functional as F
+    from revisiting_at_tpu_torch.models.vit import plain_attention
+
+    B, N, H, hd = TRAIN_BATCH, 197, 6, 64
+    D = H * hd
+    qkv, do = att_inputs(torch, B, N, H, gen)
+    dqkv, stats = att.attention_bwd_rows_cuda(qkv, do, H)
+
+    def turns(k_fn, p_fn, iters=10):
+        p1, k1, k2, p2 = (time_ms(torch, f, iters) for f in (p_fn, k_fn, k_fn, p_fn))
+        return (k1 + k2) / 2, (p1 + p2) / 2
+
+    def bound(flops, nbytes):
+        t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_HBM * 1e3
+        return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+    def sdpa(x):  # strided [B, H, N, hd] views of qkv, no copies by the caller
+        q, k, v = x.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+        return F.scaled_dot_product_attention(q, k, v)
+
+    flop = B * H * N * N * hd
+    out = {}
+    k_ms, p_ms = turns(lambda: att.attention_fwd_cuda(qkv, H),
+                       lambda: att.attention_qkv_fwd_plain(qkv, H))
+    model_ms = time_ms(torch, lambda: plain_attention(qkv, H, torch.bfloat16), 10)
+    lib_ms = time_ms(torch, lambda: sdpa(qkv), 10)
+    out["attention_fwd"] = (k_ms, p_ms, *bound(4 * flop, B * N * 4 * D * 2), lib_ms)
+    log(f"time attention fwd B={B} N={N} H={H}: kernel {k_ms:.4f} ms "
+        f"({4 * flop / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, model path {model_ms:.4f} "
+        f"ms, sdpa {lib_ms:.4f} ms, bound {out['attention_fwd'][2]:.4f} ms "
+        f"({out['attention_fwd'][3]}) {label}")
+
+    rows_ms, rows_p = turns(lambda: att.attention_bwd_rows_cuda(qkv, do, H),
+                            lambda: att.attention_bwd_rows_plain(qkv, do, H))
+    cols_ms, cols_p = turns(lambda: att.attention_bwd_cols_cuda(qkv, do, H, stats, dqkv),
+                            lambda: att.attention_bwd_cols_plain(qkv, do, H))
+    whole_ms, whole_p = turns(lambda: att.attention_bwd_cuda(qkv, do, H),
+                              lambda: att.attention_qkv_bwd_plain(qkv, do, H))
+    leaf = qkv.detach().requires_grad_(True)
+    o_model = plain_attention(leaf, H, torch.bfloat16)
+    model_bwd = time_ms(torch, lambda: torch.autograd.grad(o_model, leaf, do, retain_graph=True),
+                        10)
+    o_lib = sdpa(leaf)
+    do_lib = do.view(B, N, H, hd).permute(0, 2, 1, 3)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(o_lib, leaf, do_lib, retain_graph=True),
+                      10)
+    lib_both = time_ms(torch, lambda: torch.autograd.grad(sdpa(leaf), leaf, do_lib), 10)
+    # the backward's work (10 * B*H*N^2*hd; qkv and dO read, dqkv written),
+    # split over the two kernels: the row pass s, dp and dq and the reads,
+    # the column pass dv, dk and their writes
+    out["attention_bwd_rows"] = (rows_ms, rows_p, *bound(6 * flop, B * N * 5 * D * 2), lib_bwd)
+    out["attention_bwd_cols"] = (cols_ms, cols_p, *bound(4 * flop, B * N * 2 * D * 2), None)
+    whole_bound = bound(10 * flop, B * N * 7 * D * 2)
+    design = 2 * stats.numel() * 4
+    log(f"time attention bwd B={B} N={N} H={H}: kernels {whole_ms:.4f} ms "
+        f"({10 * flop / whole_ms / 1e9:.1f} TFLOP/s; row pass {rows_ms:.4f}, column pass "
+        f"{cols_ms:.4f}), plain {whole_p:.4f} ms (row {rows_p:.4f}, column {cols_p:.4f}), "
+        f"model path backward {model_bwd:.4f} ms, sdpa backward {lib_bwd:.4f} ms (forward + "
+        f"backward {lib_both:.4f} ms), bound {whole_bound[0]:.4f} ms ({whole_bound[1]}); the "
+        f"design's own work: side buffer {design / 1e6:.2f} MB, recomputed products "
+        f"{6 * flop / 1e9:.2f} GFLOP {label}")
+    del qkv, do, dqkv, stats, leaf, o_model, o_lib
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -332,7 +672,9 @@ def main(argv=None) -> int:
         return 2
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
+    from revisiting_at_tpu_torch.ops import attention as att
     from revisiting_at_tpu_torch.ops import block_mlp as bm
+    from revisiting_at_tpu_torch.ops import cuda_build
 
     # plain versions compare in true f32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -345,8 +687,9 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------------------------- 2
     t0 = time.time()
-    libs = bm.build()
+    libs = cuda_build.build()
     bm._lib()
+    att._lib()
     log(f"build: {time.time() - t0:.1f} s ({', '.join(p.name for p in libs.values())})")
     for path in libs.values():
         function = "?"  # the mangled name, as ptxas reports it before its spill line
@@ -358,7 +701,7 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------------------------- 3
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    err = {k: 0.0 for k in bm.LAUNCHES}
+    err = {k: 0.0 for k in bm.LAUNCHES}  # block tail, keyed as bm.LAUNCHES
     # the stage shapes at batch 32, as phases 4 and 5 give them to the kernels
     cases = [(rows * 32, C, torch.bfloat16, 0) for rows, C in STAGES]
     cases += [(49 * 3, 768, torch.bfloat16, 0),   # ragged: 147 rows, tiles of 32
@@ -432,6 +775,7 @@ def main(argv=None) -> int:
                                              bm.reduce_plain(part), TOL["reduce"]))
     del x16, y16, part
     torch.cuda.empty_cache()
+    att_err = check_attention(torch, att, gen)
     if args.kernels_only:
         return 0
 
@@ -463,7 +807,7 @@ def main(argv=None) -> int:
     save_torch_checkpoint(model, run_dir / "weights.pt")
     del model
 
-    zero_launches(bm)
+    zero_launches()
     t0 = time.time()
     res = eval_cli.main(["--run_dir", str(run_dir), "--torch_ckpt", str(run_dir / "weights.pt"),
                          "--use_pallas", "1", "--synthetic", "--l_norms", "Linf", "--n_ex",
@@ -498,7 +842,7 @@ def main(argv=None) -> int:
     aa_s = time.time() - t0
     log(f"autoattack short (eps 0.25/255): robust acc {robust.mean():.4f} on 32 pts labelled "
         f"by the model (clean 1.0), {aa_s:.2f} s")
-    require_launches(bm, "the eval path (phases 4-5)", ("fwd", "bwd_input"))
+    require_launches("the eval path (phases 4-5)", ("block_mlp_fwd", "block_mlp_bwd_input"))
     for attack in ("APGD-CE", "APGD-T"):
         if not any(f"after {attack}:" in m for m in aa_log.lines):
             raise AssertionError(f"{attack} did not run: no point was left for it")
@@ -533,7 +877,7 @@ def main(argv=None) -> int:
     xb, yb = xb.cuda(), yb.cuda()
     probe = steps["kernel"][0].model.stages[0].blocks[0].mlp.fc1.weight
     before = probe.detach().clone()
-    zero_launches(bm)
+    zero_launches()
     losses = {"kernel": [], "plain": []}
     for name in ("kernel", "plain"):  # warm-up
         losses[name] += run_steps(torch, *steps[name], xb, yb, 2)[1]
@@ -542,7 +886,7 @@ def main(argv=None) -> int:
         ms, ls = run_steps(torch, *steps[name], xb, yb, 5)
         step_ms[name].append(ms)
         losses[name] += ls
-    step_launches = require_launches(bm, "the training step (phase 6)", tuple(bm.LAUNCHES))
+    step_launches = require_launches("the training step (phase 6)", TAIL_KERNELS)
     for name, ls in losses.items():
         if not all(np.isfinite(ls)):
             raise AssertionError(f"{name}-tail step: non-finite loss {ls}")
@@ -567,7 +911,7 @@ def main(argv=None) -> int:
     check_step_against_cpu(torch, np, init, args.seed)
 
     # ---------------------------------------------------------------- 7
-    zero_launches(bm)
+    zero_launches()
     t0 = time.time()
     trainer = train_cli.main([
         "--model.arch", "convnext_tiny", "--model.not_original", "1",
@@ -591,7 +935,7 @@ def main(argv=None) -> int:
     if not 0.0 <= res["Linf"]["robust"] <= 1.0:
         raise AssertionError(f"cli.eval on the trained run: bad result {res}")
     log(f"cli.train + cli.eval: epoch {epoch[0]}, eval {res}, {time.time() - t0:.1f} s")
-    require_launches(bm, "the train CLI (phase 7)", tuple(bm.LAUNCHES))
+    require_launches("the train CLI (phase 7)", TAIL_KERNELS)
 
     # ---------------------------------------------------------------- 8
     # Each kernel beside its plain version (same cast points, f32 matmuls on
@@ -722,11 +1066,25 @@ def main(argv=None) -> int:
                                               generator=torch.Generator(device="cuda")
                                               .manual_seed(1)), 1, label)
 
-    kernels = [dict(name=f"block_mlp_{k}", route="cuda", source=SOURCE[k], replaces=REPLACES[k],
-                    launches=step_launches[k], max_abs_err=err[k], ms=ms[k],
-                    plain_ms=plain_ms[k], bound_ms=bound_ms[k],
+    del fused, plain, xt, yb
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 9-12
+    vit_init = vit_eval_phase(torch, np, repo, args.seed)
+    vit_launches = vit_step_phase(torch, np, vit_init, args.seed, label)
+    vit_cli_phase(torch, np, repo)
+    att_times = attention_timings(torch, att, gen, label)
+
+    kernels = [dict(name=f"block_mlp_{k}", route="cuda", source=SOURCE[f"block_mlp_{k}"],
+                    replaces=REPLACES[f"block_mlp_{k}"], launches=step_launches[f"block_mlp_{k}"],
+                    max_abs_err=err[k], ms=ms[k], plain_ms=plain_ms[k], bound_ms=bound_ms[k],
                     bound_by="operations" if bounds[k][0] >= bounds[k][1] else "bytes",
                     library_ms=library_ms[k]) for k in bm.LAUNCHES]
+    for k in ATT_KERNELS:
+        k_ms, p_ms, b_ms, b_by, lib = att_times[k]
+        kernels.append(dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
+                            launches=vit_launches[k], max_abs_err=att_err[k], ms=k_ms,
+                            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

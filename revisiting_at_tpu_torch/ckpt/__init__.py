@@ -3,6 +3,7 @@ from .convert import (
     jax_params_to_state_dict,
     load_state_dict,
     load_torch_checkpoint,
+    read_torch_checkpoint,
     save_torch_checkpoint,
     strip_prefixes,
 )
@@ -12,6 +13,7 @@ __all__ = [
     "jax_params_to_state_dict",
     "load_state_dict",
     "load_torch_checkpoint",
+    "read_torch_checkpoint",
     "save_torch_checkpoint",
     "strip_prefixes",
 ]

@@ -5,7 +5,10 @@ reference checkpoint format, and the output of the JAX package's
 `python -m revisiting_at_tpu.cli.export` strict-loads into the port.
 
 `jax_params_to_state_dict` takes the JAX package's param tree as nested
-dicts of numpy arrays (no JAX needed) and does the layout inversions:
+dicts of numpy arrays (no JAX needed) of a ConvNeXt or a ViT, maps each
+leaf to its timm name by the family's patterns (a ConvStem's convs and LNs
+go to stem.stem.<i> in a ConvNeXt, to patch_embed.proj.stem.<i> in a ViT,
+whose 1x1 proj follows at index 12) and does the layout inversions:
 
   kernel [in, out]        -> Linear    [out, in]
   kernel [kh, kw, I, O]   -> Conv2d    [O, I, kh, kw]
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.factory import model_family
 from ..models.layers import NormalizedModel
 
 
@@ -54,13 +58,22 @@ _BLOCK = {
     "pwconv2_bias": ("mlp.fc2.bias", None),
     "gamma": ("gamma", None),
 }
-_PATTERNS = [
-    # ConvStem: conv{i} at Sequential index 3i, its LayerNorm at 3i + 1
-    (r"ConvStem\d*_\d+/conv(\d+)/Conv_0/(kernel|bias)$",
-     lambda m: (f"stem.stem.{3 * int(m[1])}.{'weight' if m[2] == 'kernel' else 'bias'}",
-                _conv if m[2] == "kernel" else None)),
-    (r"ConvStem\d*_\d+/norm(\d+)/LayerNorm_0/(scale|bias)$",
-     lambda m: (f"stem.stem.{3 * int(m[1]) + 1}.{_LN[m[2]]}", None)),
+def _stem_patterns(prefix: str):
+    """A ConvStem's leaves: conv{i} at Sequential index 3i, its LayerNorm at
+    3i + 1, the ViT stems' 1x1 proj after the four stages, at 12."""
+    return [
+        (r"ConvStem\d*_\d+/conv(\d+)/Conv_0/(kernel|bias)$",
+         lambda m: (f"{prefix}.{3 * int(m[1])}.{'weight' if m[2] == 'kernel' else 'bias'}",
+                    _conv if m[2] == "kernel" else None)),
+        (r"ConvStem\d*_\d+/norm(\d+)/LayerNorm_0/(scale|bias)$",
+         lambda m: (f"{prefix}.{3 * int(m[1]) + 1}.{_LN[m[2]]}", None)),
+        (r"ConvStem\d*_\d+/proj/Conv_0/(kernel|bias)$",
+         lambda m: (f"{prefix}.12.{'weight' if m[1] == 'kernel' else 'bias'}",
+                    _conv if m[1] == "kernel" else None)),
+    ]
+
+
+_CONVNEXT_PATTERNS = _stem_patterns("stem.stem")[:2] + [
     (r"stem/proj/Conv_0/(kernel|bias)$",
      lambda m: (f"stem.0.{'weight' if m[1] == 'kernel' else 'bias'}",
                 _conv if m[1] == "kernel" else None)),
@@ -77,27 +90,42 @@ _PATTERNS = [
      lambda m: (f"head.fc.{'weight' if m[1] == 'kernel' else 'bias'}",
                 _lin if m[1] == "kernel" else None)),
 ]
+_VIT_PATTERNS = _stem_patterns("patch_embed.proj.stem") + [
+    (r"(cls_token|pos_embed)$", lambda m: (m[1], None)),
+    (r"patch_embed/proj/Conv_0/(kernel|bias)$",
+     lambda m: (f"patch_embed.proj.{'weight' if m[1] == 'kernel' else 'bias'}",
+                _conv if m[1] == "kernel" else None)),
+    (r"block(\d+)/(norm[12])/LayerNorm_0/(scale|bias)$",
+     lambda m: (f"blocks.{m[1]}.{m[2]}.{_LN[m[3]]}", None)),
+    (r"block(\d+)/(attn|mlp)/(qkv|proj|fc1|fc2)/(kernel|bias)$",
+     lambda m: (f"blocks.{m[1]}.{m[2]}.{m[3]}.{'weight' if m[4] == 'kernel' else 'bias'}",
+                _lin if m[4] == "kernel" else None)),
+    (r"block(\d+)/(ls[12])$", lambda m: (f"blocks.{m[1]}.{m[2]}.gamma", None)),
+    (r"norm/LayerNorm_0/(scale|bias)$", lambda m: (f"norm.{_LN[m[1]]}", None)),
+    (r"head/(kernel|bias)$",
+     lambda m: (f"head.{'weight' if m[1] == 'kernel' else 'bias'}",
+                _lin if m[1] == "kernel" else None)),
+]
 
 
 def jax_params_to_state_dict(params: Mapping[str, Any], arch: str) -> dict[str, torch.Tensor]:
-    """JAX ConvNeXt param tree (nested dicts of numpy arrays, the tree under
-    variables['params']) -> the port's state_dict, f32. A NormalizedModel's
-    'model' level is stripped. Every leaf must map: a leaf left over means
-    the tree is not the arch's, and raises."""
-    if not arch.startswith("convnext") or arch == "convnext_iso":
-        raise NotImplementedError(f"{arch}: the port builds ConvNeXt T/S/B/L/micro only")
+    """JAX ConvNeXt or ViT param tree (nested dicts of numpy arrays, the tree
+    under variables['params']) -> the port's state_dict, f32. A
+    NormalizedModel's 'model' level is stripped. Every leaf must map: a leaf
+    left over means the tree is not the arch's, and raises."""
+    patterns = {"convnext": _CONVNEXT_PATTERNS, "vit": _VIT_PATTERNS}[model_family(arch)]
     if set(params.keys()) == {"model"}:
         params = params["model"]
     out: dict[str, torch.Tensor] = {}
     for key, value in _flatten(params).items():
-        name, tf = _map_leaf(key, arch)
+        name, tf = _map_leaf(key, arch, patterns)
         arr = tf(value) if tf else value
         out[name] = torch.from_numpy(np.array(arr, np.float32))
     return out
 
 
-def _map_leaf(key: str, arch: str):
-    for pattern, target in _PATTERNS:
+def _map_leaf(key: str, arch: str, patterns):
+    for pattern, target in patterns:
         m = re.match(pattern, key)
         if m is not None:
             try:
@@ -133,13 +161,19 @@ def load_state_dict(model: nn.Module, sd: Mapping[str, torch.Tensor]) -> nn.Modu
     return model
 
 
-def load_torch_checkpoint(path: str | Path, model: nn.Module) -> nn.Module:
-    """Strict-load a .pt checkpoint (a plain state_dict, or a dict holding one
-    under 'model_state_dict') into the model."""
+def read_torch_checkpoint(path: str | Path) -> dict[str, torch.Tensor]:
+    """The state_dict of a .pt checkpoint (a plain state_dict, or a dict
+    holding one under 'model_state_dict'), with the reference's prefixes
+    stripped."""
     sd = torch.load(str(path), map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "model_state_dict" in sd:
         sd = sd["model_state_dict"]
-    return load_state_dict(model, sd)
+    return strip_prefixes(sd)
+
+
+def load_torch_checkpoint(path: str | Path, model: nn.Module) -> nn.Module:
+    """Strict-load a .pt checkpoint into the model."""
+    return load_state_dict(model, read_torch_checkpoint(path))
 
 
 def save_torch_checkpoint(model: nn.Module, path: str | Path,

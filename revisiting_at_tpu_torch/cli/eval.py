@@ -3,7 +3,9 @@
 Rebuilds the model from a run's params.json, loads the weights from a .pt
 checkpoint in the reference format, and runs batched AutoAttack per norm
 with the reference epsilon table {Linf: 4/255, L2: 2, L1: 75}. The model
-computes in bf16, as the JAX evaluator's does.
+computes in bf16, as the JAX evaluator's does. A ViT is built for
+--img_size, and the checkpoint's pos_embed is resized to that grid before
+the strict load (bicubic, models/pos_embed.py; unchanged if it matches).
 
 Usage:
   python -m revisiting_at_tpu_torch.cli.eval --run_dir runs/<run> \
@@ -41,7 +43,8 @@ def get_args(argv=None):
     p.add_argument("--only_clean", action="store_true")
     p.add_argument("--n_iter", type=int, default=100)
     p.add_argument("--use_pallas", type=int, default=0,
-                   help="fused block-tail kernel for the ConvNeXt blocks")
+                   help="the fused kernels: the block tail (ConvNeXt and ViT blocks) and "
+                        "the ViT attention")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--shard_eval", type=int, default=0)
     p.add_argument("--tp", type=int, default=0)
@@ -79,23 +82,26 @@ def main(argv=None) -> dict:
             f"revisiting_at_tpu.cli.export --run_dir {args.run_dir} --out <weights.pt>` "
             f"and pass --torch_ckpt <weights.pt> (reading orbax checkpoints is ROADMAP A7)")
 
-    from ..ckpt.convert import load_torch_checkpoint
+    from ..ckpt.convert import load_state_dict, read_torch_checkpoint
     from ..config import load_params_json
     from ..evals import EPS_DICT, SHORT_ATTACKS, STANDARD_ATTACKS, AutoAttack, AutoAttackConfig
-    from ..models import get_model
+    from ..models import get_model, resize_vit_pos_embed
     from ..train.train_step import input_grad_view
     from ..utils.logging import EvalLogger
 
     run_dir = Path(args.run_dir)
     cfg = load_params_json(run_dir / "params.json")
-    model, _ = get_model(
+    model, meta = get_model(
         cfg.model.arch, not_original=bool(cfg.model.not_original),
         num_classes=cfg.data.num_classes, dtype=torch.bfloat16,
         use_blurpool=bool(cfg.training.use_blurpool),
         add_normalization=bool(cfg.model.add_normalization),
-        use_pallas=bool(args.use_pallas),
+        use_pallas=bool(args.use_pallas), img_size=args.img_size,
     )
-    load_torch_checkpoint(args.torch_ckpt, model)
+    sd = read_torch_checkpoint(args.torch_ckpt)
+    if meta.family == "vit":
+        sd = resize_vit_pos_embed(sd, args.img_size, meta.patch_size)
+    load_state_dict(model, sd)
     model = model.to(device).eval().requires_grad_(False)
     # every eval attack differentiates w.r.t. the input only
     attack_view = input_grad_view(model)

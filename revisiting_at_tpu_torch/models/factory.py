@@ -1,9 +1,14 @@
-"""Model factory, port of the ConvNeXt half of revisiting_at_tpu/models/factory.py.
+"""Model factory, port of revisiting_at_tpu/models/factory.py for the
+ConvNeXt and ViT families.
 
 Same names and semantics: `not_original` swaps in the paper's ConvStem
-(ConvStem1(48) for tiny/small, ConvStem3(64/96) for base/large, ConvStem1(8)
-for convnext_micro), `add_normalization` prepends the ImageNet normalizer,
-and `wide_tail=None` means on for convnext_large only.
+(ConvStem1(48) for convnext tiny/small, ConvStem3(64/96) for base/large,
+ConvStem1(8) for convnext_micro; ConvStem(48, 8) for vit_s/deit_s/vit_s_21k,
+ConvStem2(48) for vit_m, ConvStem(48, 16, fin_dim=None) for vit_b,
+ConvStem(4, 8) for vit_micro), `add_normalization` prepends the ImageNet
+normalizer, and `wide_tail=None` means on for convnext_large only. A ViT
+is built for one `img_size` (its pos_embed's grid); `attn_impl` picks the
+fused attention's layout ('qkv' or 'bhnd').
 """
 
 from __future__ import annotations
@@ -16,7 +21,8 @@ from torch import nn
 
 from .convnext import CONVNEXT_CFGS, ConvNeXt
 from .layers import NormalizedModel
-from .stems import ConvStem1, ConvStem3
+from .stems import ConvStem, ConvStem1, ConvStem2, ConvStem3
+from .vit import VIT_CFGS, VisionTransformer
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -25,30 +31,40 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 # ROADMAP item that brings them.
 _NOT_YET = {
     "convnext_iso": "A3 (ConvNeXtIsotropic)",
-    "vit_s": "A9", "deit_s": "A9", "vit_s_21k": "A9", "vit_m": "A9", "vit_b": "A9",
-    "vit_micro": "A9",
     "resnet50": "A12", "resnet50_gelu": "A12", "resnet101": "A12", "wrn_50_2": "A12",
     "densnet201": "A12", "inception": "A12",
 }
 
 
+def model_family(name: str) -> str:
+    """The family of a name the port builds, 'convnext' or 'vit': it sets
+    the weight-decay rule and the checkpoint layout."""
+    if name.startswith("convnext") and name not in _NOT_YET:
+        return "convnext"
+    if name.startswith(("vit", "deit")):
+        return "vit"
+    raise NotImplementedError(f"{name}: the port builds ConvNeXt T/S/B/L/micro and the ViTs")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelMeta:
     name: str
-    family: str
+    family: str  # 'convnext' | 'vit': drives the weight-decay rule
+    patch_size: int = 16  # for pos-embed interpolation on ViTs
 
 
 def get_model(name: str, *, not_original: bool = False, num_classes: int = 1000,
               dtype: torch.dtype = torch.bfloat16, drop_path_rate: float = 0.0,
               use_blurpool: bool = False, add_normalization: bool = False,
-              use_pallas: bool = False,
-              wide_tail: bool | None = None) -> tuple[nn.Module, ModelMeta]:
+              use_pallas: bool = False, wide_tail: bool | None = None,
+              attn_impl: str = "qkv", img_size: int = 224) -> tuple[nn.Module, ModelMeta]:
     """Build a model by reference name. Returns (module, meta); the module
     maps NHWC [0, 1] images to f32 logits."""
     if wide_tail is None:
         wide_tail = name == "convnext_large"
     common = dict(num_classes=num_classes, dtype=dtype, use_blurpool=use_blurpool,
                   drop_path_rate=drop_path_rate, use_pallas=use_pallas, wide_tail=wide_tail)
+    vit = dict(common, attn_impl=attn_impl, img_size=img_size)
     if name in ("convnext_tiny", "convnext_small", "convnext_base", "convnext_large",
                 "convnext_tiny_21k"):
         size = name.replace("convnext_", "").replace("_21k", "")
@@ -62,10 +78,23 @@ def get_model(name: str, *, not_original: bool = False, num_classes: int = 1000,
         stem = partial(ConvStem1, siz=8) if not_original else None
         model = ConvNeXt(depths=(1, 1, 1, 1), dims=(16, 32, 64, 128), stem_factory=stem,
                          **common)
+    elif name in ("vit_s", "deit_s", "vit_s_21k", "vit_m", "vit_b"):
+        cfg = VIT_CFGS[{"vit_m": "m", "vit_b": "b"}.get(name, "s")]
+        embed = None
+        if not_original:
+            embed = {"vit_m": partial(ConvStem2, siz=48),
+                     "vit_b": partial(ConvStem, siz=48, end_siz=16, fin_dim=None)
+                     }.get(name, partial(ConvStem, siz=48, end_siz=8))
+        model = VisionTransformer(embed_factory=embed, **cfg, **vit)
+    elif name == "vit_micro":
+        # the JAX package's smoke-test ViT: embed 32, depth 2, 2 heads
+        embed = partial(ConvStem, siz=4, end_siz=8) if not_original else None
+        model = VisionTransformer(embed_dim=32, depth=2, num_heads=2, embed_factory=embed,
+                                  **dict(vit, wide_tail=False))
     elif name in _NOT_YET:
         raise NotImplementedError(f"{name}: not ported yet, ROADMAP {_NOT_YET[name]}")
     else:
         raise ValueError(f"unknown model {name!r}")
     if add_normalization and name != "convnext_tiny_21k":
         model = NormalizedModel(model, IMAGENET_MEAN, IMAGENET_STD)
-    return model, ModelMeta(name, "convnext")
+    return model, ModelMeta(name, model_family(name))

@@ -17,8 +17,8 @@ csrc/ replace its TPU kernels:
     the port has no second variant.
 
 The kernels are bound to PyTorch with ctypes and built with nvcc at first
-use into build/kernels/ (see `build`). The sources name what bounds them on
-the H100 and how the design deals with it.
+use into build/kernels/ (ops/cuda_build.py). The sources name what bounds
+them on the H100 and how the design deals with it.
 
 Beside each kernel is its plain PyTorch version with the same cast points:
 bf16 matmul operands with f32 accumulation, emulated as
@@ -30,16 +30,12 @@ takes the plain version; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
 import types
-from pathlib import Path
 
 import torch
+
+from . import cuda_build
 
 # Launches of each kernel, counted where the wrapper launches it.
 LAUNCHES = {"fwd": 0, "bwd_input": 0, "bwd_full_rows": 0, "wgrad": 0, "reduce": 0}
@@ -48,14 +44,6 @@ _K0 = math.sqrt(2.0 / math.pi)
 _K1 = 0.044715
 _EPS = 1e-6
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_HEADER = _CSRC / "block_mlp_common.cuh"
-# one shared library per source, built by concurrent nvcc processes
-SOURCES = {"block_mlp": _CSRC / "block_mlp.cu", "block_mlp_bwd": _CSRC / "block_mlp_bwd.cu"}
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-# -Xptxas -v: registers, shared memory and spills per kernel, kept beside the library
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # rows summed per thread in one level of the fixed-order reduction
 _REDUCE_GROUP = 64
 
@@ -174,88 +162,28 @@ def reduce_plain(part):
 # ----------------------------------------------------------- CUDA kernels
 
 _lib_handle = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME")
-    if home and (Path(home) / "bin" / "nvcc").exists():
-        return str(Path(home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    if Path("/usr/local/cuda/bin/nvcc").exists():
-        return "/usr/local/cuda/bin/nvcc"
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def _library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + _HEADER.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return _BUILD_DIR / f"lib{name}_{digest}.so"
-
-
-def build() -> dict[str, Path]:
-    """Compile each csrc/ source for sm_90a into build/kernels/ (once per
-    source version), one nvcc process per source, all started together.
-    Returns {name: shared library}; ptxas's report is kept beside each
-    library as <library>.ptxas.txt."""
-    libs = {name: _library_path(name) for name in SOURCES}
-    todo = [(name, out) for name, out in libs.items() if not out.exists()]
-    if todo:
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
-        procs = []
-        for name, out in todo:
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-            procs.append((out, tmp, cmd, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        failed = []
-        for out, tmp, cmd, proc in procs:  # wait for every process before raising
-            stdout, stderr = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                              f"{stdout}\n{stderr}")
-                continue
-            Path(f"{out}.ptxas.txt").write_text(stdout + stderr)
-            os.replace(tmp, out)
-        if failed:
-            raise RuntimeError("\n".join(failed))
-    return libs
 
 
 def _lib():
     """The kernels' C entry points (both libraries), built at first use."""
     global _lib_handle
-    with _lib_lock:
-        if _lib_handle is None:
-            libs = {name: ctypes.CDLL(str(path)) for name, path in build().items()}
-            P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            signatures = {
-                "block_mlp": {
-                    "block_mlp_supports": [I],
-                    "block_mlp_fwd": [I, I, P, P, P, I, P, P, P, P, P, P, P, P, L, P],
-                    "block_mlp_bwd_input": [I, I, P, P, I, P, P, P, P, P, P, P, L, P],
-                },
-                "block_mlp_bwd": {
-                    "block_mlp_rows_per_block": [I],
-                    "block_mlp_row_pad": [],
-                    "block_mlp_bwd_full_rows": [I, I, P, P, I, P, P, P, P, P, P, P, L, L,
-                                                P, P, P, P, P, P, P, P],
-                    "block_mlp_wgrad": [P, I, P, I, L, L, I, P, P],
-                    "block_mlp_reduce": [P, L, L, I, P, P],
-                },
-            }
-            fns = {}
-            for name, entries in signatures.items():
-                for fn_name, argtypes in entries.items():
-                    fn = getattr(libs[name], fn_name)
-                    fn.argtypes, fn.restype = argtypes, I
-                    fns[fn_name] = fn
-            _lib_handle = types.SimpleNamespace(**fns)
-        return _lib_handle
+    if _lib_handle is None:
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        fns = cuda_build.load("block_mlp", {
+            "block_mlp_supports": [I],
+            "block_mlp_fwd": [I, I, P, P, P, I, P, P, P, P, P, P, P, P, L, P],
+            "block_mlp_bwd_input": [I, I, P, P, I, P, P, P, P, P, P, P, L, P],
+        })
+        fns.update(cuda_build.load("block_mlp_bwd", {
+            "block_mlp_rows_per_block": [I],
+            "block_mlp_row_pad": [],
+            "block_mlp_bwd_full_rows": [I, I, P, P, I, P, P, P, P, P, P, P, L, L,
+                                        P, P, P, P, P, P, P, P],
+            "block_mlp_wgrad": [P, I, P, I, L, L, I, P, P],
+            "block_mlp_reduce": [P, L, L, I, P, P],
+        }))
+        _lib_handle = types.SimpleNamespace(**fns)
+    return _lib_handle
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -551,3 +479,17 @@ def convnext_block_tail(s, r, keep, ln_g, ln_b, w1, b1, w2, b2, gamma, *,
                   None if keep is None else keep.float(), M,
                   ln_g, ln_b, w1, b1, w2, b2, gamma, grad_mode=grad_mode)
     return y.reshape(B, Hs, Ws, C)
+
+
+def vit_mlp_tail(x, keep, ln_g, ln_b, w1, b1, w2, b2, gamma, *, grad_mode: str = "full"):
+    """Token wrapper for the ViT MLP tail: norm2 -> fc1 -> GELU -> fc2 ->
+    LayerScale -> (DropPath) -> residual on x [B, N, C]. The same kernels
+    as the ConvNeXt tail with s = r = x on B*N rows and one keep per image
+    (rows_per_keep = N); autograd adds the two cotangents of the shared
+    input. W1 is [C, 4C] and W2 [4C, C] (the JAX layout); keep is [B] or
+    None."""
+    B, N, C = x.shape
+    xr = x.reshape(B * N, C)
+    y = block_mlp(xr, xr, None if keep is None else keep.float(), N,
+                  ln_g, ln_b, w1, b1, w2, b2, gamma, grad_mode=grad_mode)
+    return y.reshape(B, N, C)

@@ -72,16 +72,23 @@ class Trainer:
         torch.autograd.set_detect_anomaly(bool(cfg.misc.debug_nans))
         dtype = torch.bfloat16 if t.precision == "bf16" else torch.float32
         torch.manual_seed(t.seed)
+        # a ViT is built for one image size (its pos_embed), the training
+        # resolution; the validation model shares its weights, so it must match
         build = dict(not_original=bool(cfg.model.not_original),
                      num_classes=cfg.data.num_classes,
                      drop_path_rate=cfg.model.drop_path_rate,
                      use_blurpool=bool(t.use_blurpool),
-                     add_normalization=bool(cfg.model.add_normalization))
+                     add_normalization=bool(cfg.model.add_normalization),
+                     img_size=cfg.resolution.max_res)
         # training.split_bwd is ignored: the JAX split backward has the full
         # backward's cotangents, and the port's full backward already runs in passes
         self.model, self.meta = get_model(
             cfg.model.arch, dtype=dtype, use_pallas=bool(t.use_pallas),
             wide_tail=None if t.wide_tail < 0 else bool(t.wide_tail), **build)
+        if self.meta.family == "vit" and cfg.validation.resolution != cfg.resolution.max_res:
+            raise ValueError(f"{cfg.model.arch}: validation.resolution "
+                             f"{cfg.validation.resolution} != resolution.max_res "
+                             f"{cfg.resolution.max_res}: a ViT's pos_embed fixes its image size")
         self.model.to(self.device)
         # the f32 validation twin (validation.precision=fp32) shares the weights
         self.val_model = self.model

@@ -17,15 +17,19 @@ NCLS = 10
 
 
 def perturbed_params(params, seed=0):
-    """Init params with LayerScale gamma drawn from U(0.1, 1) and non-zero
-    biases: the 1e-6 init would hide every block tail from the comparison."""
+    """Init params with LayerScale (ConvNeXt gamma, ViT ls1/ls2) drawn from
+    U(0.1, 1), a non-zero class token and non-zero biases: the 1e-6 and zero
+    inits would hide the block tails and the class token from the
+    comparison."""
     rng = np.random.RandomState(seed)
 
     def leaf(path, v):
         v = np.asarray(v, np.float32)
         name = str(path[-1].key)
-        if name == "gamma":
+        if name in ("gamma", "ls1", "ls2"):
             return rng.uniform(0.1, 1.0, v.shape).astype(np.float32)
+        if name == "cls_token":
+            return (rng.randn(*v.shape) * 0.5).astype(np.float32)
         if name == "bias" or name.endswith("_bias"):
             return (rng.randn(*v.shape) * 0.05).astype(np.float32)
         return v
@@ -42,14 +46,37 @@ def jax_params(arch="convnext_micro", not_original=False, img=32, seed=0):
                             seed)
 
 
+@functools.lru_cache(maxsize=None)
+def shaped_params(arch="vit_micro", not_original=False, img=32, seed=0):
+    """Perturbed f32 params of the JAX model's shapes drawn with numpy, with
+    no init compile: kernels N(0, 1/fan_in), LayerNorm scales 1, biases 0,
+    the other leaves (pos_embed, cls_token, LayerScale) N(0, 0.02)."""
+    jm, _ = jax_get_model(arch, not_original=not_original, num_classes=NCLS, dtype=jnp.float32)
+    shapes = jax.eval_shape(functools.partial(jm.init, train=False), jax.random.PRNGKey(seed),
+                            jnp.zeros((1, img, img, 3)))["params"]
+    rng = np.random.RandomState(seed)
+
+    def leaf(path, s):
+        name = str(path[-1].key)
+        if name in ("scale", "bias"):
+            return np.full(s.shape, float(name == "scale"), np.float32)
+        if name == "kernel":
+            return (rng.randn(*s.shape) / np.sqrt(np.prod(s.shape[:-1]))).astype(np.float32)
+        return (rng.randn(*s.shape) * 0.02).astype(np.float32)
+
+    return perturbed_params(jax.tree_util.tree_map_with_path(leaf, shapes), seed)
+
+
 def model_pair(arch="convnext_micro", *, not_original=False, use_pallas=False, img=32,
-               seed=0, dtype_torch=torch.float32):
-    """(jax_model, jax_variables, torch_model) with the same weights, fp32."""
+               seed=0, dtype_torch=torch.float32, params=None):
+    """(jax_model, jax_variables, torch_model) with the same weights, fp32:
+    `params`, or the JAX init's (jax_params)."""
     jm, _ = jax_get_model(arch, not_original=not_original, num_classes=NCLS, dtype=jnp.float32,
                           use_pallas=use_pallas, pallas_interpret=use_pallas)
-    params = jax_params(arch, not_original, img, seed)
+    if params is None:
+        params = jax_params(arch, not_original, img, seed)
     tm, _ = torch_get_model(arch, not_original=not_original, num_classes=NCLS,
-                            dtype=dtype_torch, use_pallas=use_pallas)
+                            dtype=dtype_torch, use_pallas=use_pallas, img_size=img)
     load_state_dict(tm, jax_params_to_state_dict(params, arch))
     return jm, {"params": params}, tm.eval()
 

@@ -106,7 +106,10 @@ def test_factory_names_and_views():
     with torch.device("meta"):  # structure only: no 198M-parameter init
         large, _ = get_model("convnext_large", not_original=True)
     assert large.stages[2].blocks[0].wide_tail and large.stem.out_dim == 192
-    with pytest.raises(NotImplementedError, match="A9"):
-        get_model("vit_s")
+    vit, vit_meta = get_model("vit_micro", dtype=torch.float32, add_normalization=True)
+    assert vit_meta.family == "vit" and vit.model.grad_mode == "full"
+    assert input_grad_view(vit) is vit and vit.model.grad_mode == "input"
+    with pytest.raises(NotImplementedError, match="A3"):
+        get_model("convnext_iso")
     with pytest.raises(NotImplementedError, match="A12"):
         get_model("resnet50")
