@@ -5,9 +5,9 @@
 
 Phases, each fatal on failure:
   1. environment: CUDA present; card name and power limit, torch and CUDA versions;
-  2. build the kernels (csrc/block_mlp.cu, csrc/block_mlp_bwd.cu and
-     csrc/attention.cu, sm_90a), one nvcc per source, all started together;
-     ptxas spills are printed;
+  2. build the kernels (csrc/block_mlp.cu, csrc/block_mlp_bwd.cu,
+     csrc/attention.cu and csrc/dwconv.cu, sm_90a), one nvcc per source,
+     all started together; ptxas spills are printed;
   3. each kernel against its plain PyTorch version, in bf16: the block
      tail's forward and input backward at the four ConvNeXt-T stage shapes
      at batch 32; its full backward (row pass, weight pass, reductions, and
@@ -15,11 +15,15 @@ Phases, each fatal on failure:
      0-2 at batch 80; both also at a ragged M, in f32 once, with a per-sample
      keep once, and at the other widths built (ConvNeXt-B/L); the attention
      forward and backward (dq, dk, dv) at ViT-S, M and B at batch 80 and 197
-     tokens, ViT-S at 401 tokens, and ViT-S with every score below 0; each
-     output within its own tolerance (TOL). Two launches must give the same
-     bits (every kernel), and three planted faults (a slice of M left out of
-     dW1, a row group left out of db1, one zero key past N left unmasked in
-     the attention) must fail the check;
+     tokens, ViT-S at 401 tokens, and ViT-S with every score below 0; the
+     7x7 depthwise conv's forward, dx, weight pass and reduction at
+     ConvNeXt-T's gated stages (0-2) at batch 80, 224 and 320 px, on a
+     ragged map and once in f32; each output within its own tolerance
+     (TOL). Two launches must give the same bits (every kernel), and five
+     planted faults (a slice of M left out of dW1, a row group left out of
+     db1, one zero key past N left unmasked in the attention, a dwconv
+     band's top halo row read as zero, one block's partial left out of the
+     dwconv's dw) must fail the check;
   4. the ConvNeXt evaluation path through its entry point: ConvNeXt-T-CvSt at
      full width and 224 px with random weights from --seed, written to a run
      dir as params.json + .pt, evaluated by `cli.eval.main` (short
@@ -54,12 +58,32 @@ Phases, each fatal on failure:
  12. timings of the attention kernels beside their bounds, plain versions,
      the model path's attention (use_pallas=0) and
      scaled_dot_product_attention, at the training shapes; torch.profiler's
-     breakdown of the ViT step (phase 10) by kernel family.
+     breakdown of the ViT step (phase 10) by kernel family;
+ 13. ConvNeXt-T-CvSt built directly with use_pallas_dwconv=1 and
+     use_pallas=1 (no factory or CLI flag sets it): short AutoAttack on
+     points labelled by the model, its logits against the CPU plain
+     version; the training step of phase 6 on it, timed in turns with
+     phase 6's library-conv step (both use_pallas=1), dwconv, library,
+     library, dwconv, after 5 warm-up steps, with both profiles (the
+     convolutions split into depthwise and the rest) and one step against
+     the CPU plain version at batch 2; each dwconv kernel's launches per
+     step (60 forwards, 45 dx, 15 weight passes);
+ 14. FGSM training (bench.py's single-step RS-FGSM, alpha 1.25, 4/255):
+     the step on ConvNeXt-T-CvSt with and without the dwconv kernel and on
+     ViT-S-CvSt (bench.py's vit_s_fgsm_at), batch 80, timed in turns; the
+     dwconv launches per step (45 forwards, 30 dx, 15 weight passes); then
+     `cli.train.main --adv.attack fgsm` on ConvNeXt-T-CvSt and
+     `cli.eval.main` on its EMA weights;
+ 15. timings of the dwconv kernels at the gated stage shapes, batch 80,
+     beside their bounds, plain versions and the library's depthwise conv
+     (F.conv2d(groups=C) on the channels_last bf16 map, and its autograd
+     backward for dx and for dw/db).
 
 The launch counters are zeroed just before each path (phases 4-5, 6, 7, 9,
-10, 11) and read just after it: every kernel the path runs must have
-launched there. The `launches` of the kernels line are phase 6's for the
-block tail and phase 10's for the attention. The second-to-last line is a
+10, 11, 13 and 14) and read just after it: every kernel the path runs must
+have launched there. The `launches` of the kernels line are phase 6's for
+the block tail, phase 10's for the attention and phase 13's training step
+for the dwconv. The second-to-last line is a
 JSON object {"kernels": [...]}, the last {"ok": true, "device": {...}}.
 """
 
@@ -97,6 +121,12 @@ TOL = {
     # (largest readings over the ATT_CASES and the all-negative scores: o
     # 2.4e-3, dq 1.3e-3, dk 2.3e-3, dv 2.2e-3)
     "att_o": 1e-2, "att_dq": 8e-3, "att_dk": 1e-2, "att_dv": 1e-2,
+    # dwconv: y and dx round an f32 sum to the map's type on both sides,
+    # the kernel's made of fused multiply-adds, the plain version's of
+    # separate ones, so a bf16 rounding can flip by one ulp (largest
+    # readings: y 3.7e-3, dx 3.7e-3); dw, db and the reduction are f32 sums
+    # in another order (largest readings: dw 5.1e-7, db 3.1e-7, 2.4e-7)
+    "dw_y": 2e-2, "dw_dx": 2e-2, "dw_dw": 3e-6, "dw_db": 2e-6, "dw_reduce": 1.5e-6,
 }
 
 # ConvNeXt-T stage shapes: (rows per image at 224 px, C)
@@ -105,14 +135,21 @@ TRAIN_BATCH = 80  # the training step's batch (bench.py's configuration)
 # the port's CUDA kernels (anonymous namespace of csrc/*.cu), for profiles
 TAIL_KERNEL_NAMES = ("fwd_kernel", "bwd_kernel", "wgrad_kernel", "reduce_kernel")
 ATT_KERNEL_NAMES = ("attn_fwd_kernel", "attn_bwd_rows_kernel", "attn_bwd_cols_kernel")
+DW_KERNEL_NAMES = ("dwconv_fwd_kernel", "dwconv_wgrad_kernel", "dwconv_reduce_kernel")
 TAIL_KERNELS = ("block_mlp_fwd", "block_mlp_bwd_input", "block_mlp_bwd_full_rows",
                 "block_mlp_wgrad", "block_mlp_reduce")
 ATT_KERNELS = ("attention_fwd", "attention_bwd_rows", "attention_bwd_cols")
 # attention checks: (name, heads, tokens) at the training batch; hd = 64
 ATT_CASES = [("ViT-S", 6, 197), ("ViT-M", 8, 197), ("ViT-B", 12, 197), ("ViT-S@320", 6, 401)]
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM
-PEAK_BF16, PEAK_HBM = 989e12, 3.35e12
-# kernels-line names: block_mlp_<LAUNCHES key> and attention_<LAUNCHES key>
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 outside
+# the tensor cores, HBM
+PEAK_BF16, PEAK_FP32, PEAK_HBM = 989e12, 67e12, 3.35e12
+DW_KERNELS = ("dwconv_fwd", "dwconv_dx", "dwconv_wgrad", "dwconv_reduce")
+# ConvNeXt-T's stages the dwconv gate (C <= 384) admits: (map side at 224 px, C)
+DW_STAGES = [(56, 96), (28, 192), (14, 384)]
+# dwconv launches per training step over the 15 gated blocks: (forward, dx, weight pass)
+DW_PER_STEP = {"apgd": (60, 45, 15), "fgsm": (45, 30, 15)}
+# kernels-line names: <module>_<LAUNCHES key> for block_mlp, attention and dwconv
 REPLACES = {"block_mlp_fwd": "revisiting_at_tpu/ops/block_mlp.py:108",
             "block_mlp_bwd_input": "revisiting_at_tpu/ops/block_mlp.py:237",
             "block_mlp_bwd_full_rows": "revisiting_at_tpu/ops/block_mlp.py:124",
@@ -120,7 +157,11 @@ REPLACES = {"block_mlp_fwd": "revisiting_at_tpu/ops/block_mlp.py:108",
             "block_mlp_reduce": "revisiting_at_tpu/ops/block_mlp.py:124",
             "attention_fwd": "revisiting_at_tpu/ops/attention.py:213",
             "attention_bwd_rows": "revisiting_at_tpu/ops/attention.py:238",
-            "attention_bwd_cols": "revisiting_at_tpu/ops/attention.py:238"}
+            "attention_bwd_cols": "revisiting_at_tpu/ops/attention.py:238",
+            "dwconv_fwd": "revisiting_at_tpu/ops/dwconv.py:37",
+            "dwconv_dx": "revisiting_at_tpu/ops/dwconv.py:49",
+            "dwconv_wgrad": "revisiting_at_tpu/ops/dwconv.py:49",
+            "dwconv_reduce": "revisiting_at_tpu/ops/dwconv.py:49"}
 SOURCE = {"block_mlp_fwd": "revisiting_at_tpu_torch/csrc/block_mlp.cu",
           "block_mlp_bwd_input": "revisiting_at_tpu_torch/csrc/block_mlp.cu",
           "block_mlp_bwd_full_rows": "revisiting_at_tpu_torch/csrc/block_mlp_bwd.cu",
@@ -128,7 +169,8 @@ SOURCE = {"block_mlp_fwd": "revisiting_at_tpu_torch/csrc/block_mlp.cu",
           "block_mlp_reduce": "revisiting_at_tpu_torch/csrc/block_mlp_bwd.cu",
           "attention_fwd": "revisiting_at_tpu_torch/csrc/attention.cu",
           "attention_bwd_rows": "revisiting_at_tpu_torch/csrc/attention.cu",
-          "attention_bwd_cols": "revisiting_at_tpu_torch/csrc/attention.cu"}
+          "attention_bwd_cols": "revisiting_at_tpu_torch/csrc/attention.cu",
+          **dict.fromkeys(DW_KERNELS, "revisiting_at_tpu_torch/csrc/dwconv.cu")}
 FULL_COTANGENTS = ("ds", "dln_g", "dln_b", "dw1", "db1", "A", "dw2", "db2", "dgamma")
 # which kernel's error each cotangent of the full backward is booked under
 FULL_ERR_KEY = {"ds": "bwd_full_rows", "dln_g": "reduce", "dln_b": "reduce", "db1": "reduce",
@@ -236,8 +278,8 @@ def planted_fault(what, got, ref, tol) -> None:
 
 
 def counter_modules():
-    from revisiting_at_tpu_torch.ops import attention, block_mlp
-    return {"block_mlp": block_mlp, "attention": attention}
+    from revisiting_at_tpu_torch.ops import attention, block_mlp, dwconv
+    return {"block_mlp": block_mlp, "attention": attention, "dwconv": dwconv}
 
 
 def zero_launches() -> None:
@@ -315,13 +357,28 @@ def check_attention(torch, att, gen) -> dict:
     return err
 
 
+def convnext_t_dwconv(torch, dtype, use_pallas: bool = True):
+    """ConvNeXt-T-CvSt built directly with use_pallas_dwconv=1, as the JAX
+    package's tests/test_dwconv.py builds its model: no factory or config
+    flag sets it. Its state_dict is convnext_tiny's (not_original=1)."""
+    from functools import partial
+
+    from revisiting_at_tpu_torch.models import CONVNEXT_CFGS, ConvNeXt, ConvStem1
+
+    return ConvNeXt(**CONVNEXT_CFGS["tiny"], stem_factory=partial(ConvStem1, siz=48),
+                    dtype=dtype, use_pallas=use_pallas, use_pallas_dwconv=True)
+
+
 def build_train_step(torch, state_dict, *, use_pallas: bool, device: str, seed: int,
-                     arch: str = "convnext_tiny"):
+                     arch: str = "convnext_tiny", dwconv: bool = False,
+                     attack: str = "apgd"):
     """The training step as bench.py builds it, on the port: the arch with
     ConvStem (ConvNeXt-T-CvSt, or ViT-S-CvSt for vit_s) in bf16 with f32
     params, AdamW(wd 0.05, the family's decay rule) on the cosine schedule
     (lr 1e-3, peak epoch 20, 300 epochs, 5,000 iterations per epoch), mixup
-    with label smoothing 0.1, 2-step APGD Linf 4/255, EMA 0.9999."""
+    with label smoothing 0.1, 2-step APGD Linf 4/255 (or, attack='fgsm',
+    bench.py's RS-FGSM: alpha 1.25, 4/255), EMA 0.9999. dwconv: ConvNeXt-T-
+    CvSt with use_pallas_dwconv=1 (convnext_t_dwconv)."""
     from revisiting_at_tpu_torch.ckpt.convert import load_state_dict
     from revisiting_at_tpu_torch.data import MixupConfig
     from revisiting_at_tpu_torch.models import get_model
@@ -329,15 +386,19 @@ def build_train_step(torch, state_dict, *, use_pallas: bool, device: str, seed: 
                                                make_lr_schedule, make_optimizer,
                                                make_train_step)
 
-    model, meta = get_model(arch, not_original=True, dtype=torch.bfloat16,
-                            use_pallas=use_pallas)
+    if dwconv:
+        model, family = convnext_t_dwconv(torch, torch.bfloat16, use_pallas), "convnext"
+    else:
+        model, meta = get_model(arch, not_original=True, dtype=torch.bfloat16,
+                                use_pallas=use_pallas)
+        family = meta.family
     load_state_dict(model, state_dict)
     model.to(device).train()
     sched = make_lr_schedule(LRConfig(lr=1e-3, lr_peak_epoch=20, epochs=300), 5000)
-    opt = make_optimizer(model, optimizer="adamw", weight_decay=0.05, family=meta.family,
+    opt = make_optimizer(model, optimizer="adamw", weight_decay=0.05, family=family,
                          learning_rate=sched)
-    step = make_train_step(model, adv=AdvConfig(attack="apgd", norm="Linf", eps=4.0 / 255.0,
-                                                n_iter=2),
+    step = make_train_step(model, adv=AdvConfig(attack=attack, norm="Linf", eps=4.0 / 255.0,
+                                                n_iter=2, alpha=1.25),
                            mixup=MixupConfig(num_classes=1000, label_smoothing=0.1),
                            ema_decay=0.9999, seed=seed)
     return TrainState(model, opt, ema_init(model)), step
@@ -352,13 +413,39 @@ def run_steps(torch, state, step, x, y, n):
     return (time.time() - t0) * 1000 / n, [float(v) for v in losses]
 
 
+def steps_in_turns(torch, steps, x, y, order, warm):
+    """`warm` warm-up steps of each {name: (state, step)}, then runs of 5
+    steps in `order`. Returns ({name: ms per step of each run}, {name: the
+    losses})."""
+    losses = {name: run_steps(torch, *steps[name], x, y, warm)[1] for name in steps}
+    step_ms = {name: [] for name in steps}
+    for name in order:
+        ms, ls = run_steps(torch, *steps[name], x, y, 5)
+        step_ms[name].append(ms)
+        losses[name] += ls
+    return step_ms, losses
+
+
+def check_dw_per_step(launches, n_steps, attack) -> None:
+    """The dwconv launches per training step over n_steps steps, fatal
+    unless they are DW_PER_STEP[attack] (forward, dx, weight pass)."""
+    per_step = tuple(launches[k] / n_steps for k in DW_KERNELS[:3])
+    log(f"dwconv launches per {attack.upper()} training step ({n_steps} steps): forward "
+        f"{per_step[0]}, dx {per_step[1]}, weight pass {per_step[2]}, reductions "
+        f"{launches['dwconv_reduce'] / n_steps} (expected {DW_PER_STEP[attack]})")
+    if per_step != DW_PER_STEP[attack]:
+        raise AssertionError(f"dwconv launches per {attack} step {per_step}, "
+                             f"expected {DW_PER_STEP[attack]}")
+
+
 def check_step_against_cpu(torch, np, state_dict, seed, arch="convnext_tiny",
-                           probes=("stages.0.blocks.0.mlp.fc1.weight",)):
+                           probes=("stages.0.blocks.0.mlp.fc1.weight",), dwconv=False):
     """One kernel step on the card against the same step on the CPU, where
     every kernel takes its plain version, at batch 2: the loss and the
     global gradient norm within 2e-2, and the gradient of each probe (a
     block's W1: full-backward kernel; a ViT block's qkv weight: attention
-    backward) at cosine similarity above 0.99. bf16 convolutions and the
+    backward; a block's conv_dw weight on the dwconv route: dwconv weight
+    pass) at cosine similarity above 0.99. bf16 convolutions and the
     attack's sign steps round differently on the two devices, so this is a
     check of the path, not of the last bits."""
     rng = np.random.RandomState(seed + 1)
@@ -367,13 +454,14 @@ def check_step_against_cpu(torch, np, state_dict, seed, arch="convnext_tiny",
     out = {}
     for device in ("cuda", "cpu"):
         state, step = build_train_step(torch, state_dict, use_pallas=True, device=device,
-                                       seed=seed, arch=arch)
+                                       seed=seed, arch=arch, dwconv=dwconv)
         metrics = step(state, x.to(device), y.to(device))
         grads = [state.model.get_parameter(name).grad.float().cpu() for name in probes]
         out[device] = (float(metrics["loss"]), float(metrics["grad_norm"]), grads)
     (lc, nc, gc), (lp, np_, gp) = out["cuda"], out["cpu"]
     cos = [float((a * b).sum() / (a.norm() * b.norm())) for a, b in zip(gc, gp)]
-    log(f"{arch} train step vs CPU plain version (batch 2): loss {lc:.5f} / {lp:.5f}, "
+    log(f"{arch}{' (dwconv kernel)' if dwconv else ''} train step vs CPU plain version "
+        f"(batch 2): loss {lc:.5f} / {lp:.5f}, "
         f"grad_norm {nc:.4f} / {np_:.4f}, gradient cosine "
         + ", ".join(f"{n} {c:.5f}" for n, c in zip(probes, cos)))
     if not (abs(lc - lp) <= 2e-2 * abs(lp) and abs(nc - np_) <= 2e-2 * abs(np_)
@@ -381,22 +469,32 @@ def check_step_against_cpu(torch, np, state_dict, seed, arch="convnext_tiny",
         raise AssertionError(f"the {arch} training step disagrees with the CPU plain version")
 
 
-def profile_breakdown(torch, what: str, fn, n: int, label: str) -> None:
+def _depthwise_7x7(shapes) -> bool:
+    """A depthwise 7x7 weight [C, 1, 7, 7] among an op's input shapes."""
+    return any(isinstance(sh, list) and len(sh) == 4 and sh[1] == 1 and sh[2:] == [7, 7]
+               for sh in shapes)
+
+
+def profile_breakdown(torch, what: str, fn, n: int, label: str) -> dict:
     """torch.profiler over n calls of fn: wall and device time per call, the
-    device's busy share, and device time by kernel family. The profiler
-    inflates host time, so the shares are what to read."""
+    device's busy share, and device time by kernel family. The library's
+    depthwise 7x7 convolutions are split out of "conv" by their ops
+    (aten::convolution and aten::convolution_backward with a [C, 1, 7, 7]
+    weight; every kernel those ops launch). The profiler inflates host time,
+    so the shares are what to read. Returns the families in ms per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.time()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
         wall = (time.time() - t0) * 1000 / n
-    families = {"attention kernels": 0.0, "tail kernels": 0.0, "gemm": 0.0, "conv": 0.0,
-                "other": 0.0}
+    families = {"attention kernels": 0.0, "tail kernels": 0.0, "dwconv kernels": 0.0,
+                "gemm": 0.0, "conv": 0.0, "other": 0.0}
     top = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -406,6 +504,8 @@ def profile_breakdown(torch, what: str, fn, n: int, label: str) -> None:
         low = name.lower()
         if any(f"(anonymous namespace)::{k}" in name for k in ATT_KERNEL_NAMES):
             families["attention kernels"] += us
+        elif any(f"(anonymous namespace)::{k}" in name for k in DW_KERNEL_NAMES):
+            families["dwconv kernels"] += us
         elif any(f"(anonymous namespace)::{k}" in name for k in TAIL_KERNEL_NAMES):
             families["tail kernels"] += us
         elif any(k in low for k in ("conv", "dgrad", "wgrad", "fprop", "cudnn", "implicit")):
@@ -415,6 +515,9 @@ def profile_breakdown(torch, what: str, fn, n: int, label: str) -> None:
         else:
             families["other"] += us
         top.append((us, name[:70]))
+    lib_dw = sum(e.device_time_total for e in prof.key_averages(group_by_input_shape=True)
+                 if e.key in ("aten::convolution", "aten::convolution_backward")
+                 and e.device_type == DeviceType.CPU and _depthwise_7x7(e.input_shapes)) / n
     device = sum(families.values()) / 1000
     if device <= 0:
         raise AssertionError(f"profile {what}: the profiler saw no device time")
@@ -422,8 +525,14 @@ def profile_breakdown(torch, what: str, fn, n: int, label: str) -> None:
     log(f"profile {what}: wall {wall:.2f} ms, device {device:.2f} ms "
         f"(busy {100 * device / wall:.1f}%), "
         + ", ".join(f"{k} {v / 1000:.2f} ms" for k, v in families.items())
+        + f"; depthwise 7x7 convolutions: dwconv kernels {families['dwconv kernels'] / 1000:.2f}"
+        f" ms, library ops {lib_dw / 1000:.2f} ms (conv less those: "
+        f"{max(families['conv'] - lib_dw, 0.0) / 1000:.2f} ms)"
         + "; top: " + "; ".join(f"{name} {us / 1000:.2f} ms" for us, name in top[:6])
         + f" {label}")
+    out = {k: v / 1000 for k, v in families.items()}
+    out.update(wall=wall, device=device, library_depthwise=lib_dw / 1000)
+    return out
 
 
 def vit_eval_phase(torch, np, repo, seed) -> dict:
@@ -516,14 +625,8 @@ def vit_step_phase(torch, np, init, seed, label):
     probe = steps["kernel"][0].model.blocks[0].attn.qkv.weight
     before = probe.detach().clone()
     zero_launches()
-    losses = {"kernel": [], "plain": []}
-    for name in ("kernel", "plain"):  # warm-up
-        losses[name] += run_steps(torch, *steps[name], xb, yb, 2)[1]
-    step_ms = {"kernel": [], "plain": []}
-    for name in ("kernel", "plain", "plain", "kernel"):
-        ms, ls = run_steps(torch, *steps[name], xb, yb, 5)
-        step_ms[name].append(ms)
-        losses[name] += ls
+    step_ms, losses = steps_in_turns(torch, steps, xb, yb, ("kernel", "plain", "plain", "kernel"),
+                                     warm=2)
     launches = require_launches("the ViT training step (phase 10)", TAIL_KERNELS + ATT_KERNELS)
     for name, ls in losses.items():
         if not all(np.isfinite(ls)):
@@ -655,6 +758,310 @@ def attention_timings(torch, att, gen, label) -> dict:
     return out
 
 
+def dw_inputs(torch, B, H, W, C, dtype, gen):
+    """A map x [B, H, W, C] in dtype, tap-major weights w49 [49, C] and a
+    bias [C] in f32 (not symmetric: a transposed kernel would show), and a
+    cotangent dy in dtype."""
+    rnd = lambda *sh: torch.randn(*sh, generator=gen, device="cuda")  # noqa: E731
+    return (rnd(B, H, W, C).to(dtype), 0.2 * rnd(49, C), 0.1 * rnd(C),
+            rnd(B, H, W, C).to(dtype))
+
+
+def run_dwconv(dw, x, w49, b, dy):
+    """The dwconv kernels on one input: y, dx, dw, db."""
+    return (dw.fwd_cuda(x, w49, b), dw.dx_cuda(dy, w49), *dw.wgrad_cuda(x, dy))
+
+
+def check_dwconv(torch, dw, gen) -> dict:
+    """The dwconv kernels against their plain versions: ConvNeXt-T's gated
+    stages at batch 80, 224 and 320 px, in bf16; a ragged map (an odd
+    number of 14-row bands, a ragged column tile and channel group); once
+    in f32. y, dx, dw and db each within its own tolerance; the same bits
+    over two launches; and two planted faults rejected: a band's top halo
+    row read as zero (a seam), one block's partial left out of dw. Returns
+    the largest error per kernel."""
+    err = dict.fromkeys(DW_KERNELS, 0.0)
+    cases = [(f"stage {i} {px} px", TRAIN_BATCH, side * px // 224, C, torch.bfloat16)
+             for px in (224, 320) for i, (side, C) in enumerate(DW_STAGES)]
+    cases += [("ragged", 3, (37, 13), 40, torch.bfloat16),
+              ("stage 1 224 px, f32", 4, 28, 192, torch.float32)]
+    th = dw._lib().dwconv_tile_rows()
+    for i, (name, B, side, C, dtype) in enumerate(cases):
+        H, W = side if isinstance(side, tuple) else (side, side)
+        what = f"{name} B={B} {H}x{W} C={C} {dtype}"
+        x, w49, b, dy = dw_inputs(torch, B, H, W, C, dtype, gen)
+        got = run_dwconv(dw, x, w49, b, dy)
+        ref = (dw.fwd_plain(x, w49, b), dw.dx_plain(dy, w49, x.dtype), *dw.wgrad_plain(x, dy))
+        torch.cuda.synchronize()
+        for out, key, g, r in zip(("y", "dx", "dw", "db"),
+                                  ("dwconv_fwd", "dwconv_dx", "dwconv_wgrad", "dwconv_wgrad"),
+                                  got, ref):
+            err[key] = max(err[key], check(torch, f"dwconv {out:2s} {what}", g, r,
+                                           TOL[f"dw_{out}"]))
+        again = run_dwconv(dw, x, w49, b, dy)
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"dwconv {what}: two launches differ")
+        if i == 0:
+            # a seam: band 1's top halo row (input row 14 - 3) read as zero
+            x_seam = x.clone()
+            x_seam[:, th - 3] = 0
+            y_seam = ref[0].clone()
+            y_seam[:, th:2 * th] = dw.fwd_plain(x_seam, w49, b)[:, th:2 * th]
+            planted_fault(f"dwconv y with band 1's top halo row read as zero, {what}", y_seam,
+                          ref[0], TOL["dw_y"])
+            part = dw.wgrad_partials_cuda(x, dy)
+            dw_bad = dw.reduce_cuda(part[1:])[:49 * C].view(49, C)
+            planted_fault(f"dwconv dw without 1 of {part.shape[0]} block partials, {what}",
+                          dw_bad, ref[2], TOL["dw_dw"])
+            del x_seam, y_seam, part, dw_bad
+        del x, dy, got, ref, again
+        torch.cuda.empty_cache()
+    log(f"dwconv y, dx, dw, db: bitwise equal over two launches in all {len(cases)} cases")
+    # the reduction alone, on partials of stage 0's shape at the training batch
+    x, _, _, dy = dw_inputs(torch, TRAIN_BATCH, 56, 56, 96, torch.bfloat16, gen)
+    part = torch.randn(*dw.wgrad_partials_cuda(x, dy).shape, generator=gen, device="cuda")
+    err["dwconv_reduce"] = check(torch, f"dwconv reduce {tuple(part.shape)}",
+                                 dw.reduce_cuda(part), dw.reduce_plain(part), TOL["dw_reduce"])
+    del x, dy, part
+    torch.cuda.empty_cache()
+    return err
+
+
+def dwconv_timings(torch, dw, gen, label) -> dict:
+    """Phase 15: each dwconv kernel at ConvNeXt-T's gated stage shapes,
+    batch 80, 224 px, beside its bound, its plain version (kernel and plain
+    in turns p, k, k, p) and the library's depthwise conv: F.conv2d(groups=C)
+    on the channels_last bf16 map with bf16 weights for the forward, its
+    autograd backward with only the map requiring grad for dx, and with
+    only the weight and bias for dw/db; torch.sum for the reduction.
+    Returns {kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)} summed
+    over the three stages."""
+    import torch.nn.functional as F
+
+    keys = DW_KERNELS
+    tot = {k: [0.0, 0.0, 0.0, 0.0, 0.0] for k in keys}  # ms, plain, ops, bytes, library
+
+    def turns(k_fn, p_fn, iters=10):
+        p1, k1, k2, p2 = (time_ms(torch, f, iters) for f in (p_fn, k_fn, k_fn, p_fn))
+        return (k1 + k2) / 2, (p1 + p2) / 2
+
+    log(f"dwconv library timings: torch.backends.cudnn.allow_tf32 = "
+        f"{torch.backends.cudnn.allow_tf32} (bf16 maps: TF32 does not apply)")
+    for side, C in DW_STAGES:
+        B, n = TRAIN_BATCH, TRAIN_BATCH * side * side * C
+        x, w49, b, dy = dw_inputs(torch, B, side, side, C, torch.bfloat16, gen)
+        part = dw.wgrad_partials_cuda(x, dy)
+        # the library's operands: NCHW views of the NHWC maps (channels_last)
+        # and timm's [C, 1, 7, 7] weight in bf16
+        x_cl, dy_cl = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        w_lib = w49.t().reshape(C, 1, 7, 7).bfloat16()
+        b_lib = b.bfloat16()
+        x_leaf = x_cl.detach().requires_grad_(True)
+        y_dx = F.conv2d(x_leaf, w_lib, b_lib, padding=3, groups=C)
+        w_leaf, b_leaf = w_lib.detach().requires_grad_(True), b_lib.detach().requires_grad_(True)
+        y_dw = F.conv2d(x_cl, w_leaf, b_leaf, padding=3, groups=C)
+        runs = {
+            "dwconv_fwd": (lambda: dw.fwd_cuda(x, w49, b), lambda: dw.fwd_plain(x, w49, b),
+                           lambda: F.conv2d(x_cl, w_lib, b_lib, padding=3, groups=C),
+                           98 * n, 2 * n * 2 + 50 * C * 4),
+            "dwconv_dx": (lambda: dw.dx_cuda(dy, w49), lambda: dw.dx_plain(dy, w49, x.dtype),
+                          lambda: torch.autograd.grad(y_dx, x_leaf, dy_cl, retain_graph=True),
+                          98 * n, 2 * n * 2 + 49 * C * 4),
+            # dw and db: 98 + 1 flops per element against reading x and dy;
+            # the reduction writes the f32 results
+            "dwconv_wgrad": (lambda: dw.wgrad_partials_cuda(x, dy),
+                             lambda: dw.wgrad_plain(x, dy),
+                             lambda: torch.autograd.grad(y_dw, (w_leaf, b_leaf), dy_cl,
+                                                         retain_graph=True),
+                             99 * n, 2 * n * 2),
+            "dwconv_reduce": (lambda: dw.reduce_cuda(part), lambda: dw.reduce_plain(part),
+                              lambda: torch.sum(part, 0), 0, 50 * C * 4),
+        }
+        for k, (k_fn, p_fn, lib_fn, flops, nbytes) in runs.items():
+            k_ms, p_ms = turns(k_fn, p_fn)
+            lib_ms = time_ms(torch, lib_fn, 10)
+            t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_HBM * 1e3
+            for j, v in enumerate((k_ms, p_ms, t_ops, t_bytes, lib_ms)):
+                tot[k][j] += v
+            log(f"time {k:13s} B={B} {side}x{side} C={C:3d}: kernel {k_ms:.4f} ms"
+                + (f" ({flops / k_ms / 1e9:.1f} TFLOP/s fp32)" if flops else "")
+                + f", plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                f"{max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})"
+                f" {label}")
+        design = 2 * part.numel() * 4
+        log(f"dwconv B={B} {side}x{side} C={C}: partials {tuple(part.shape)}, "
+            f"{design / 1e6:.2f} MB written and read (the design's own traffic) {label}")
+        del x, dy, part, x_cl, dy_cl, x_leaf, y_dx, w_leaf, b_leaf, y_dw, runs
+        torch.cuda.empty_cache()
+    return {k: (v[0], v[1], max(v[2], v[3]), "operations" if v[2] >= v[3] else "bytes", v[4])
+            for k, v in tot.items()}
+
+
+def dwconv_model_phase(torch, np, run_dir, init, seed, label) -> dict:
+    """Phase 13: ConvNeXt-T-CvSt with use_pallas_dwconv=1 and use_pallas=1
+    (phase 4's weights): short AutoAttack on points labelled by the model,
+    its logits against the CPU plain version; the training step against
+    phase 6's library-conv step in turns, the dwconv launches per step,
+    both profiles, and one step against the CPU plain version. Returns the
+    training step's launches."""
+    from revisiting_at_tpu_torch.ckpt.convert import load_torch_checkpoint
+    from revisiting_at_tpu_torch.evals import AutoAttack, AutoAttackConfig
+    from revisiting_at_tpu_torch.train.train_step import input_grad_view
+
+    def load(device):
+        m = convnext_t_dwconv(torch, torch.bfloat16)
+        load_torch_checkpoint(run_dir / "weights.pt", m)
+        return input_grad_view(m.to(device).eval().requires_grad_(False))
+
+    fused = load("cuda")
+    x = np.random.RandomState(seed).uniform(0, 1, (32, 224, 224, 3)).astype(np.float32)
+    xt = torch.from_numpy(x).cuda()
+    zero_launches()
+    with torch.no_grad():
+        y = fused(xt).argmax(-1).cpu().numpy()
+    eps = 0.25 / 255.0  # points must survive APGD-CE for APGD-T to run
+    aa_log = Recorder()
+    aa = AutoAttack(fused, AutoAttackConfig(norm="Linf", eps=eps,
+                                            attacks_to_run=("apgd-ce", "apgd-t"), n_iter=10,
+                                            batch_size=32, seed=seed),
+                    logger=aa_log, device="cuda")
+    t0 = time.time()
+    x_adv, robust = aa.run_standard_evaluation(x, y)
+    torch.cuda.synchronize()
+    launches = require_launches("the dwconv eval path (phase 13)",
+                                ("dwconv_fwd", "dwconv_dx", "block_mlp_fwd",
+                                 "block_mlp_bwd_input"))
+    if launches["dwconv_wgrad"] or launches["dwconv_reduce"]:
+        raise AssertionError("the attack ran the dwconv weight pass: it needs dx only")
+    for attack in ("APGD-CE", "APGD-T"):
+        if not any(f"after {attack}:" in line for line in aa_log.lines):
+            raise AssertionError(f"{attack} did not run on the dwconv model")
+    if not np.isfinite(x_adv).all() or np.abs(x_adv - x).max() > eps * 1.001 + 1e-6:
+        raise AssertionError("dwconv model: x_adv is non-finite or leaves the eps ball")
+    log(f"autoattack short convnext_tiny dwconv kernel (eps 0.25/255): robust acc "
+        f"{robust.mean():.4f} on 32 pts labelled by the model, {time.time() - t0:.2f} s")
+    cpu_model = load("cpu")
+    with torch.no_grad():
+        ref = cpu_model(xt[:2].cpu())
+        got = fused(xt[:2]).cpu()
+    e, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    log(f"dwconv model logits vs CPU plain version (2 images): max_abs_err {e:.3e}, max|ref| "
+        f"{scale:.3e}, argmax equal {bool((got.argmax(-1) == ref.argmax(-1)).all())}")
+    if not (torch.isfinite(got).all() and e <= 5e-2 * scale):
+        raise AssertionError("dwconv model logits disagree with the CPU plain version")
+    del fused, cpu_model, xt
+    torch.cuda.empty_cache()
+
+    steps = {name: build_train_step(torch, init, use_pallas=True, device="cuda", seed=seed,
+                                    dwconv=name == "dwconv") for name in ("dwconv", "library")}
+    rng = np.random.RandomState(seed)
+    xb = torch.from_numpy(rng.uniform(0, 1, (TRAIN_BATCH, 224, 224, 3)).astype(np.float32))
+    yb = torch.from_numpy(rng.randint(0, 1000, TRAIN_BATCH))
+    xb, yb = xb.cuda(), yb.cuda()
+    model = steps["dwconv"][0].model
+    before = model.stages[0].blocks[0].conv_dw.weight.detach().clone()
+    zero_launches()
+    step_ms, losses = steps_in_turns(torch, steps, xb, yb,
+                                     ("dwconv", "library", "library", "dwconv"), warm=5)
+    launches = require_launches("the dwconv training step (phase 13)",
+                                DW_KERNELS + TAIL_KERNELS)
+    check_dw_per_step(launches, 5 + 10, "apgd")
+    for name, ls in losses.items():
+        if not all(np.isfinite(ls)):
+            raise AssertionError(f"{name} depthwise-conv step: non-finite loss {ls}")
+    if torch.equal(before, model.stages[0].blocks[0].conv_dw.weight.detach()):
+        raise AssertionError("the dwconv training step did not change the dwconv weights")
+    for si in range(3):  # the stages whose blocks take the dwconv kernel
+        for prm in ("conv_dw.weight", "conv_dw.bias"):
+            g = model.stages[si].blocks[0].get_parameter(prm).grad
+            if g is None or not torch.isfinite(g).all() or not g.abs().max() > 0:
+                raise AssertionError(f"stage {si} {prm}: no finite non-zero gradient")
+    for name, v in step_ms.items():
+        ms = sum(v) / len(v)
+        log(f"train step convnext_tiny+ConvStem bf16 B={TRAIN_BATCH} 224px 2-step APGD "
+            f"use_pallas=1, {name} depthwise conv: {ms:.2f} ms/step, {2000.0 / ms:.3f} "
+            f"attack-steps/s (runs of 5: {', '.join('%.2f' % t for t in v)}) {label}")
+    log(f"dwconv step losses: kernel {losses['dwconv'][:3]}..., library "
+        f"{losses['library'][:3]}...")
+    for name in ("dwconv", "library"):
+        profile_breakdown(torch, f"train step B={TRAIN_BATCH} ({name} depthwise conv, kernel "
+                          "tail), per step", lambda: steps[name][1](steps[name][0], xb, yb), 3,
+                          label)
+    del steps, model, before, xb, yb
+    torch.cuda.empty_cache()
+    check_step_against_cpu(torch, np, init, seed, dwconv=True,
+                           probes=("stages.0.blocks.0.conv_dw.weight",
+                                   "stages.2.blocks.0.conv_dw.weight",
+                                   "stages.0.blocks.0.mlp.fc1.weight"))
+    return launches
+
+
+def fgsm_phase(torch, np, repo, init, vit_init, seed, label) -> None:
+    """Phase 14: the FGSM training step (bench.py's RS-FGSM) on
+    ConvNeXt-T-CvSt with and without the dwconv kernel and on ViT-S-CvSt,
+    batch 80, in turns, with the dwconv launches per step; then the FGSM
+    train CLI on ConvNeXt-T-CvSt and cli.eval on its EMA weights."""
+    from revisiting_at_tpu_torch.cli import eval as eval_cli
+    from revisiting_at_tpu_torch.cli import train as train_cli
+
+    builds = {"convnext_tiny, dwconv kernel": dict(sd=init, dwconv=True),
+              "convnext_tiny, library conv": dict(sd=init),
+              "vit_s": dict(sd=vit_init, arch="vit_s")}
+    steps = {}
+    for name, kw in builds.items():
+        kw = dict(kw)
+        steps[name] = build_train_step(torch, kw.pop("sd"), use_pallas=True, device="cuda",
+                                       seed=seed, attack="fgsm", **kw)
+    rng = np.random.RandomState(seed)
+    xb = torch.from_numpy(rng.uniform(0, 1, (TRAIN_BATCH, 224, 224, 3)).astype(np.float32))
+    yb = torch.from_numpy(rng.randint(0, 1000, TRAIN_BATCH))
+    xb, yb = xb.cuda(), yb.cuda()
+    zero_launches()
+    names = list(steps)
+    step_ms, losses = steps_in_turns(torch, steps, xb, yb, names + names[::-1], warm=5)
+    launches = require_launches("the FGSM training steps (phase 14)",
+                                DW_KERNELS + TAIL_KERNELS + ATT_KERNELS)
+    check_dw_per_step(launches, 5 + 10, "fgsm")
+    for name, ls in losses.items():
+        if not all(np.isfinite(ls)):
+            raise AssertionError(f"FGSM step {name}: non-finite loss {ls}")
+        ms = sum(step_ms[name]) / len(step_ms[name])
+        log(f"train step FGSM {name}+ConvStem bf16 B={TRAIN_BATCH} 224px RS-FGSM 4/255 "
+            f"alpha 1.25, use_pallas=1: {ms:.2f} ms/step, {1000.0 / ms:.3f} attack-steps/s "
+            f"(= steps/s: one attack step per training step; runs of 5: "
+            f"{', '.join('%.2f' % t for t in step_ms[name])}) {label}")
+    del steps, xb, yb
+    torch.cuda.empty_cache()
+
+    zero_launches()
+    t0 = time.time()
+    trainer = train_cli.main([
+        "--model.arch", "convnext_tiny", "--model.not_original", "1",
+        "--model.add_normalization", "0", "--model.model_ema", "1", "--adv.attack", "fgsm",
+        "--data.dataset", "synthetic", "--training.batch_size", "16", "--training.epochs", "1",
+        "--training.use_pallas", "1", "--validation.batch_size", "16",
+        "--validation.max_batches", "2", "--logging.folder",
+        str(repo / "build" / "smoke_train_fgsm"), "--logging.log_every_steps", "2",
+        "--device", "cuda", "--synthetic_batches", "4"])
+    run = trainer.logger.dir
+    records = [json.loads(line) for line in (run / "log").read_text().splitlines()]
+    epoch = [r for r in records if "train_loss" in r]
+    if not (epoch and np.isfinite(epoch[0]["train_loss"])
+            and records[-1].get("event") == "final_val"):
+        raise AssertionError(f"cli.train --adv.attack fgsm: bad records {records}")
+    del trainer
+    torch.cuda.empty_cache()
+    res = eval_cli.main(["--run_dir", str(run), "--torch_ckpt",
+                         str(run / "ckpt" / "weights_ema_0.pt"), "--use_pallas", "1",
+                         "--synthetic", "--n_ex", "16", "--batch_size", "16", "--n_iter", "5",
+                         "--device", "cuda"])
+    if not 0.0 <= res["Linf"]["robust"] <= 1.0:
+        raise AssertionError(f"cli.eval on the FGSM-trained run: bad result {res}")
+    log(f"cli.train --adv.attack fgsm + cli.eval: epoch {epoch[0]}, eval {res}, "
+        f"{time.time() - t0:.1f} s")
+    require_launches("the FGSM train CLI (phase 14)", TAIL_KERNELS)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -675,6 +1082,7 @@ def main(argv=None) -> int:
     from revisiting_at_tpu_torch.ops import attention as att
     from revisiting_at_tpu_torch.ops import block_mlp as bm
     from revisiting_at_tpu_torch.ops import cuda_build
+    from revisiting_at_tpu_torch.ops import dwconv as dw
 
     # plain versions compare in true f32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -690,6 +1098,7 @@ def main(argv=None) -> int:
     libs = cuda_build.build()
     bm._lib()
     att._lib()
+    dw._lib()
     log(f"build: {time.time() - t0:.1f} s ({', '.join(p.name for p in libs.values())})")
     for path in libs.values():
         function = "?"  # the mangled name, as ptxas reports it before its spill line
@@ -776,6 +1185,7 @@ def main(argv=None) -> int:
     del x16, y16, part
     torch.cuda.empty_cache()
     att_err = check_attention(torch, att, gen)
+    dw_err = check_dwconv(torch, dw, gen)
     if args.kernels_only:
         return 0
 
@@ -878,14 +1288,8 @@ def main(argv=None) -> int:
     probe = steps["kernel"][0].model.stages[0].blocks[0].mlp.fc1.weight
     before = probe.detach().clone()
     zero_launches()
-    losses = {"kernel": [], "plain": []}
-    for name in ("kernel", "plain"):  # warm-up
-        losses[name] += run_steps(torch, *steps[name], xb, yb, 2)[1]
-    step_ms = {"kernel": [], "plain": []}
-    for name in ("kernel", "plain", "plain", "kernel"):
-        ms, ls = run_steps(torch, *steps[name], xb, yb, 5)
-        step_ms[name].append(ms)
-        losses[name] += ls
+    step_ms, losses = steps_in_turns(torch, steps, xb, yb, ("kernel", "plain", "plain", "kernel"),
+                                     warm=2)
     step_launches = require_launches("the training step (phase 6)", TAIL_KERNELS)
     for name, ls in losses.items():
         if not all(np.isfinite(ls)):
@@ -1075,6 +1479,11 @@ def main(argv=None) -> int:
     vit_cli_phase(torch, np, repo)
     att_times = attention_timings(torch, att, gen, label)
 
+    # ---------------------------------------------------------------- 13-15
+    dw_launches = dwconv_model_phase(torch, np, run_dir, init, args.seed, label)
+    fgsm_phase(torch, np, repo, init, vit_init, args.seed, label)
+    dw_times = dwconv_timings(torch, dw, gen, label)
+
     kernels = [dict(name=f"block_mlp_{k}", route="cuda", source=SOURCE[f"block_mlp_{k}"],
                     replaces=REPLACES[f"block_mlp_{k}"], launches=step_launches[f"block_mlp_{k}"],
                     max_abs_err=err[k], ms=ms[k], plain_ms=plain_ms[k], bound_ms=bound_ms[k],
@@ -1084,6 +1493,11 @@ def main(argv=None) -> int:
         k_ms, p_ms, b_ms, b_by, lib = att_times[k]
         kernels.append(dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
                             launches=vit_launches[k], max_abs_err=att_err[k], ms=k_ms,
+                            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    for k in DW_KERNELS:
+        k_ms, p_ms, b_ms, b_by, lib = dw_times[k]
+        kernels.append(dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
+                            launches=dw_launches[k], max_abs_err=dw_err[k], ms=k_ms,
                             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

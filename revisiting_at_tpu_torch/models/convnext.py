@@ -12,7 +12,13 @@ The block tail has two paths with one set of parameters: plain PyTorch ops
 with erf GELU, or the fused tail of ops/block_mlp.py (tanh GELU, bf16
 matmul operands) when `use_pallas` and `tail_fusable(C, grad_mode, wide)`.
 The flag keeps the JAX package's name. The 7x7 depthwise conv is
-PyTorch's, as the JAX package leaves it to XLA.
+PyTorch's (cuDNN on the card) on weights and bias cast to the compute
+dtype, as the JAX package leaves it to XLA; with `use_pallas_dwconv` a
+block of width C <= 384 takes ops/dwconv.py's kernel instead, on the f32
+weight and bias, as the JAX package's gate of the same name does. Neither
+factory nor config sets that flag, in either package: a caller builds
+ConvNeXt(use_pallas_dwconv=True) directly. The isotropic model has no such
+flag in JAX.
 
 DropPath is active in train mode (`model.train()`) for blocks with a
 non-zero rate: each block draws a per-sample keep of mask / keep_p, the
@@ -30,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.block_mlp import convnext_block_tail, tail_fusable
+from ..ops.dwconv import dwconv7x7
 from .layers import Conv, LayerNorm, to_nchw, to_nhwc, trunc_normal_
 from .stems import PatchifyStem
 
@@ -76,10 +83,11 @@ def drop_path_keep(batch: int, drop_path: float, generator: torch.Generator | No
 class ConvNeXtBlock(nn.Module):
     def __init__(self, dim: int, drop_path: float = 0.0, layer_scale_init: float = 1e-6,
                  dtype: torch.dtype = torch.float32, use_pallas: bool = False,
-                 wide_tail: bool = False):
+                 wide_tail: bool = False, use_pallas_dwconv: bool = False):
         super().__init__()
         self.dim, self.drop_path, self.dtype = dim, drop_path, dtype
         self.use_pallas, self.wide_tail = use_pallas, wide_tail
+        self.use_pallas_dwconv = use_pallas_dwconv
         self.conv_dw = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
         trunc_normal_(self.conv_dw.weight)
         nn.init.zeros_(self.conv_dw.bias)
@@ -96,8 +104,12 @@ class ConvNeXtBlock(nn.Module):
         keep = None
         if self.drop_path > 0.0 and self.training:
             keep = drop_path_keep(x.shape[0], self.drop_path, generator, x.device)
-        s = to_nhwc(F.conv2d(to_nchw(x.to(dt)), self.conv_dw.weight.to(dt),
-                             self.conv_dw.bias.to(dt), padding=3, groups=C))
+        if self.use_pallas_dwconv and C <= 384:
+            # the kernel route reads the f32 weight ([C, 1, 7, 7] -> [7, 7, 1, C]) and bias
+            s = dwconv7x7(x.to(dt), self.conv_dw.weight.permute(2, 3, 1, 0), self.conv_dw.bias)
+        else:
+            s = to_nhwc(F.conv2d(to_nchw(x.to(dt)), self.conv_dw.weight.to(dt),
+                                 self.conv_dw.bias.to(dt), padding=3, groups=C))
         ln_g, ln_b = self.norm.weight, self.norm.bias
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
         if self.use_pallas and tail_fusable(C, grad_mode, wide=self.wide_tail):
@@ -113,8 +125,9 @@ class ConvNeXt(nn.Module):
     returns a module mapping NHWC images to the stage-0 map (/4, dims[0]
     channels); default the patchify stem.
 
-    `grad_mode` ('full' or 'input') is handed to every block; the attacks
-    set 'input' through train.train_step.input_grad_view (eval) or
+    `use_pallas_dwconv` gives the blocks of width C <= 384 the dwconv
+    kernel. `grad_mode` ('full' or 'input') is handed to every block; the
+    attacks set 'input' through train.train_step.input_grad_view (eval) or
     attack_grad_mode (training, scoped). `drop_generator` feeds DropPath."""
 
     def __init__(self, depths: Sequence[int] = (3, 3, 9, 3),
@@ -123,7 +136,7 @@ class ConvNeXt(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  stem_factory: Callable[..., nn.Module] | None = None,
                  use_blurpool: bool = False, use_pallas: bool = False,
-                 wide_tail: bool = False):
+                 wide_tail: bool = False, use_pallas_dwconv: bool = False):
         super().__init__()
         self.dtype = dtype
         self.grad_mode = "full"
@@ -146,7 +159,7 @@ class ConvNeXt(nn.Module):
                 stage.downsample = nn.Identity()
             stage.blocks = nn.ModuleList(
                 ConvNeXtBlock(dim, dp_rates[cur + bi], layer_scale_init, dtype, use_pallas,
-                              wide_tail)
+                              wide_tail, use_pallas_dwconv)
                 for bi in range(depth)
             )
             cur += depth

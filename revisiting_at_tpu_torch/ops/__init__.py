@@ -1,3 +1,4 @@
+from .dwconv import dwconv7x7, dwconv7x7_v2
 from .losses import (
     ce_indiv,
     dlr_loss,
@@ -20,6 +21,8 @@ from .norms import (
 )
 
 __all__ = [
+    "dwconv7x7",
+    "dwconv7x7_v2",
     "ce_indiv",
     "dlr_loss",
     "dlr_loss_targeted",

@@ -2,11 +2,11 @@
 
 Each source in `SOURCES` is compiled by nvcc into a shared library with a
 plain C interface, bound with ctypes by the module that launches it
-(ops/block_mlp.py, ops/attention.py). `build()` compiles every source at
-once, one nvcc process each, all started together, into build/kernels/;
-a library is named by the hash of its source, the headers and the flags,
-so it is built once per version. Nothing here runs at import: the CPU
-tests import every module, and the CPU has no nvcc.
+(ops/block_mlp.py, ops/attention.py, ops/dwconv.py). `build()` compiles
+every source at once, one nvcc process each, all started together, into
+build/kernels/; a library is named by the hash of its source, the headers
+and the flags, so it is built once per version. Nothing here runs at
+import: the CPU tests import every module, and the CPU has no nvcc.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # one shared library per source
 SOURCES = {"block_mlp": CSRC / "block_mlp.cu", "block_mlp_bwd": CSRC / "block_mlp_bwd.cu",
-           "attention": CSRC / "attention.cu"}
+           "attention": CSRC / "attention.cu", "dwconv": CSRC / "dwconv.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # -Xptxas -v: registers, shared memory and spills per kernel, kept beside the library
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

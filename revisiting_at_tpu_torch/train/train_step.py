@@ -2,23 +2,28 @@
 (its mesh=None path).
 
 One call of the step:
-  mixup/cutmix -> APGD in eval mode with the block tail's input-only
-  backward -> training forward in train mode -> loss -> weight backward
-  (the tail's full backward) -> AdamW with the LR schedule -> EMA update.
+  mixup/cutmix -> APGD or FGSM in eval mode with the block tail's
+  input-only backward -> training forward in train mode -> loss -> weight
+  backward (the tail's full backward) -> AdamW with the LR schedule -> EMA
+  update.
 
 The JAX step is one pure jitted function; here the model, the optimizer and
 the EMA tensors are updated in place, and the step returns its metrics.
 Randomness per step: the mixup draws come from a CPU torch.Generator seeded
-from (seed, step), or from an injected `mixup_draws(step, h, w)`; DropPath
-draws from the model's `drop_generator`, seeded the same way per step.
+from (seed, step), or from an injected `mixup_draws(step, h, w)`; FGSM's
+random start from a generator on the batch's device seeded the same way,
+or from an injected `attack_draws(step, shape)`; DropPath draws from the
+model's `drop_generator`, seeded the same way per step.
 
 Semantics kept from the reference:
   * the model is deterministic (eval mode) while the attack runs and
     stochastic (DropPath) for the training forward;
   * training consumes the attack's best-loss point x_best, detached;
   * the loss is soft-target CE under mixup, else mean CE;
-  * adv_acc is APGD's accuracy against the mixup targets' argmax, and
-    train_acc the training logits' accuracy against the hard labels.
+  * adv_acc is APGD's accuracy against the mixup targets' argmax, but
+    FGSM's is one more eval forward at the FGSM point scored against the
+    hard labels (ROADMAP C3: the two arms differ in JAX, and here);
+    train_acc is the training logits' accuracy against the hard labels.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from typing import Callable
 import torch
 from torch import nn
 
-from ..attacks import apgd_attack
+from ..attacks import apgd_attack, fgsm_train
 from ..data.mixup import MixupConfig, MixupDraws, draw_mixup, mixup_cutmix
 from ..ops.losses import ce_indiv, soft_target_ce
 from .ema import ema_update
@@ -97,18 +102,21 @@ def to_unit_pixels(images: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class AdvConfig:
-    """The reference 'adv' config section, less the FGSM knobs (alpha,
-    noise_level, skip_projection) that come with FGSM training (A4)."""
+    """The reference 'adv' config section."""
 
-    attack: str = "none"  # 'none' | 'apgd' ('fgsm' raises)
+    attack: str = "none"  # 'none' | 'fgsm' | 'apgd'
     norm: str = "Linf"
     eps: float = 4.0 / 255.0
     n_iter: int = 2
+    alpha: float = 1.25  # fgsm step multiplier
+    noise_level: float = 1.0
+    skip_projection: bool = False
     loss: str = "ce"
 
 
 def step_seed(seed: int, step: int, stream: int) -> int:
-    """Seed of one random stream (1: mixup, 2: DropPath) at one step."""
+    """Seed of one random stream (1: mixup, 2: DropPath, 3: FGSM's start)
+    at one step."""
     return (seed * 1_000_003 + step * 8 + stream) % (2 ** 63 - 1)
 
 
@@ -120,15 +128,15 @@ def make_train_step(
     ema_decay: float = 0.0,
     seed: int = 0,
     mixup_draws: Callable[[int, int, int], MixupDraws] | None = None,
+    attack_draws: Callable[[int, tuple[int, ...]], torch.Tensor] | None = None,
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], dict[str, torch.Tensor]]:
     """Build the step: (state, images NHWC [0, 1] or uint8, int labels) ->
     metrics {loss, train_acc, adv_acc, grad_norm} as 0-d tensors. The state
     is updated in place and its step advanced by one.
 
-    mixup_draws(step, h, w), when given, replaces the generator's draws."""
-    if adv.attack == "fgsm":
-        raise NotImplementedError("adv.attack='fgsm': FGSM training is ROADMAP A4")
-    if adv.attack not in ("apgd", "none"):
+    mixup_draws(step, h, w), when given, replaces the generator's mixup
+    draws; attack_draws(step, shape), FGSM's raw U(0, 1) start draw."""
+    if adv.attack not in ("apgd", "fgsm", "none"):
         raise ValueError(f"unknown attack {adv.attack!r}")
     core = _grad_mode_owner(model) or model
 
@@ -154,6 +162,19 @@ def make_train_step(
                                   n_iter=adv.n_iter, loss=adv.loss, is_train=True)
             x_use = res.x_best.detach()
             adv_acc = res.acc.float().mean()
+        elif adv.attack == "fgsm":
+            noise = attack_draws(state.step, tuple(images.shape)) if attack_draws else None
+            gen = None
+            if noise is None:
+                gen = torch.Generator(device=images.device).manual_seed(
+                    step_seed(seed, state.step, 3))
+            with attack_grad_mode(m):
+                x_use = fgsm_train(m, images, targets, eps=adv.eps, noise=noise, generator=gen,
+                                   loss=adv.loss, alpha=adv.alpha, use_rs=True,
+                                   noise_level=adv.noise_level,
+                                   skip_projection=adv.skip_projection)
+                with torch.no_grad():  # one more eval forward, on the hard labels (C3)
+                    adv_acc = (m(x_use).argmax(-1) == labels).float().mean()
 
         m.train()
         if hasattr(core, "drop_generator"):

@@ -36,7 +36,7 @@ from .train_step import AdvConfig, make_eval_step, make_train_step
 
 def refuse_unported(cfg: Config) -> None:
     """Raise NotImplementedError for every option the port does not run yet
-    (grad_accum and FGSM raise where the optimizer and the step are built).
+    (grad_accum raises where the optimizer is built).
     A resolution ramp is ignored, as the JAX trainer ignores it for
     synthetic data."""
     d, dist, t, m = cfg.data, cfg.dist, cfg.training, cfg.model
@@ -114,8 +114,12 @@ class Trainer:
         use_ema = cfg.model.model_ema > 0
         self.state = TrainState(self.model, optimizer, ema_init(self.model) if use_ema else None)
 
+        # alpha is the config's for FGSM only, as in the JAX trainer
         adv = AdvConfig(attack=cfg.adv.attack, norm=cfg.adv.norm, eps=cfg.adv.eps,
-                        n_iter=cfg.adv.n_iter)
+                        n_iter=cfg.adv.n_iter,
+                        alpha=cfg.adv.alpha if cfg.adv.attack == "fgsm" else 1.25,
+                        noise_level=cfg.adv.noise_level,
+                        skip_projection=bool(cfg.adv.skip_projection))
         # mixup comes with data.augmentations, which is refused above (A10)
         self.train_step = make_train_step(
             self.model, adv=adv, mixup=None,

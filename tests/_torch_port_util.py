@@ -8,9 +8,21 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from revisiting_at_tpu.data import mixup as jmix
+from revisiting_at_tpu.models import ConvStem1 as JaxConvStem1
 from revisiting_at_tpu.models import get_model as jax_get_model
+from revisiting_at_tpu.models.convnext import ConvNeXt as JaxConvNeXt
+from revisiting_at_tpu.train import ema as jema
+from revisiting_at_tpu.train import optimizer as jopt
+from revisiting_at_tpu.train import schedule as jsched
+from revisiting_at_tpu.train.state import TrainState as JaxState
+from revisiting_at_tpu.train.train_step import make_train_step as jax_make_train_step
 from revisiting_at_tpu_torch.ckpt.convert import jax_params_to_state_dict, load_state_dict
+from revisiting_at_tpu_torch.data import MixupConfig, MixupDraws
+from revisiting_at_tpu_torch.models import ConvNeXt, ConvStem1
 from revisiting_at_tpu_torch.models import get_model as torch_get_model
+from revisiting_at_tpu_torch.train import (LRConfig, TrainState, ema_init, make_lr_schedule,
+                                           make_optimizer, make_train_step)
 
 torch.set_num_threads(1)
 NCLS = 10
@@ -127,3 +139,129 @@ def rel_err(got, ref):
     """max |got - ref| / max |ref|."""
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
     return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+# ------------------------------------------------------------- train step
+
+def jax_step_key(seed, step, i):
+    """Key i of the JAX step (0 mixup, 1 attack, 2 DropPath, 3 RandAugment):
+    split(fold_in(PRNGKey(seed), step), 4)[i]."""
+    return jax.random.split(jax.random.fold_in(jax.random.PRNGKey(seed), step), 4)[i]
+
+
+def jax_mixup_key(seed, step):
+    """The JAX step's mixup key."""
+    return jax_step_key(seed, step, 0)
+
+
+def jax_mixup_draws(seed, cfg):
+    """mixup_draws(step, h, w) replaying the JAX step's draws."""
+    def draws(step, h, w):
+        k_apply, k_switch, k_lam_m, k_lam_c, k_box = jax.random.split(jax_mixup_key(seed, step),
+                                                                      5)
+        ky, kx = jax.random.split(k_box)
+        return MixupDraws(
+            float(jax.random.uniform(k_apply)), float(jax.random.uniform(k_switch)),
+            float(jax.random.beta(k_lam_m, cfg.mixup_alpha, cfg.mixup_alpha)),
+            float(jax.random.beta(k_lam_c, cfg.cutmix_alpha, cfg.cutmix_alpha)),
+            int(jax.random.randint(ky, (), 0, h)), int(jax.random.randint(kx, (), 0, w)))
+    return draws
+
+
+def jax_attack_draws(seed):
+    """attack_draws(step, shape) replaying the JAX FGSM step's uniform start
+    draw, jax.random.uniform(k_attack, shape)."""
+    def draws(step, shape):
+        return torch.from_numpy(np.array(jax.random.uniform(jax_step_key(seed, step, 1), shape,
+                                                            jnp.float32)))
+    return draws
+
+
+def step_mismatches(state, step, trajectory, x, y):
+    """Run the port's steps on (x, y) beside a JAX trajectory of (metrics,
+    params, EMA) per step; list what disagrees: loss and grad_norm beyond
+    1e-4 relative, accuracies unequal, a parameter or EMA element beyond
+    1e-4."""
+    bad = []
+    for i, (ref, ref_params, ref_ema) in enumerate(trajectory):
+        metrics = step(state, torch.from_numpy(x), torch.from_numpy(y))
+        got = {k: float(v) for k, v in metrics.items()}
+        for k in ("loss", "grad_norm"):
+            if abs(got[k] - ref[k]) > 1e-4 * abs(ref[k]):
+                bad.append((i, k, got[k], ref[k]))
+        for k in ("adv_acc", "train_acc"):
+            if got[k] != ref[k]:
+                bad.append((i, k, got[k], ref[k]))
+        for name, p in state.model.named_parameters():
+            for what, mine, theirs in (("param", p.detach(), ref_params[name]),
+                                       ("ema", state.ema[name], ref_ema[name])):
+                e = float((mine - theirs).abs().max())
+                if e > 1e-4:
+                    bad.append((i, what, name, e))
+    return bad
+
+
+# --------------------------------------------- the dwconv route (ConvNeXt)
+
+MICRO = dict(depths=(1, 1, 1, 1), dims=(16, 32, 64, 128), num_classes=NCLS)
+STEP_LR = dict(lr=2e-3, schedule_type="cosine", lr_peak_epoch=1, epochs=3)
+STEP_WD, STEP_EMA = 0.5, 0.5
+
+
+def micro_dwconv_models(use_pallas=True):
+    """convnext_micro + ConvStem1(8) in fp32 with use_pallas_dwconv, built
+    directly (no factory or config flag sets it): the JAX module in
+    interpret mode and the port's module (weights not loaded)."""
+    jm = JaxConvNeXt(**MICRO, stem_factory=functools.partial(JaxConvStem1, siz=8),
+                     dtype=jnp.float32, use_pallas=use_pallas, use_pallas_dwconv=True,
+                     pallas_interpret=True)
+    tm = ConvNeXt(**MICRO, stem_factory=functools.partial(ConvStem1, siz=8), dtype=torch.float32,
+                  use_pallas=use_pallas, use_pallas_dwconv=True)
+    return jm, tm
+
+
+def dwconv_step_batch():
+    """4 images labelled with the model's clean predictions on them, so that
+    scores against the labels and against the mixup targets can differ (a
+    random model is right about no random label)."""
+    return images(n=4, seed=3), np.array([2, 2, 2, 4], np.int32)
+
+
+def jax_dwconv_trajectory(adv, steps):
+    """`steps` JAX steps (AdvConfig `adv`) on micro_dwconv_models' JAX
+    module with the fused tail, mixup, AdamW and EMA, on dwconv_step_batch:
+    (params, [(metrics, params, EMA) per step]) with params and EMA as port
+    state_dicts."""
+    jm, _ = micro_dwconv_models()
+    params = jax_params("convnext_micro", True, 32, 0)
+    tx = jopt.make_optimizer(optimizer="adamw", weight_decay=STEP_WD, family="convnext",
+                             learning_rate=jsched.make_lr_schedule(jsched.LRConfig(**STEP_LR),
+                                                                   2),
+                             params=params)
+    state = JaxState(step=jnp.zeros((), jnp.int32), params=params, opt_state=tx.init(params),
+                     ema_params=jema.ema_init(params))
+    step = jax_make_train_step(jm, tx, adv=adv, mixup=jmix.MixupConfig(num_classes=NCLS),
+                               ema_decay=STEP_EMA, seed=0, donate=False)
+    x, y = dwconv_step_batch()
+    out = []
+    for _ in range(steps):
+        state, metrics = step(state, jnp.asarray(x), jnp.asarray(y))
+        out.append(({k: float(v) for k, v in metrics.items()},
+                    jax_params_to_state_dict(jax.tree.map(np.asarray, state.params),
+                                             "convnext_micro"),
+                    jax_params_to_state_dict(jax.tree.map(np.asarray, state.ema_params),
+                                             "convnext_micro")))
+    return params, out
+
+
+def port_dwconv_step(params, adv):
+    """The port's state and step matching jax_dwconv_trajectory, with JAX's
+    mixup and attack draws injected."""
+    _, model = micro_dwconv_models()
+    load_state_dict(model, jax_params_to_state_dict(params, "convnext_micro"))
+    opt = make_optimizer(model, weight_decay=STEP_WD, family="convnext",
+                         learning_rate=make_lr_schedule(LRConfig(**STEP_LR), 2))
+    cfg = MixupConfig(num_classes=NCLS)
+    step = make_train_step(model, adv=adv, mixup=cfg, ema_decay=STEP_EMA, seed=0,
+                           mixup_draws=jax_mixup_draws(0, cfg), attack_draws=jax_attack_draws(0))
+    return TrainState(model, opt, ema_init(model)), step

@@ -29,8 +29,9 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from _torch_port_util import (NCLS, TAIL_ARGS, images, jax_params, jax_tail_cotangents,
-                              rel_err, tail_inputs)
+from _torch_port_util import (NCLS, TAIL_ARGS, images, jax_mixup_draws, jax_mixup_key,
+                              jax_params, jax_tail_cotangents, rel_err, step_mismatches,
+                              tail_inputs)
 from revisiting_at_tpu.data import mixup as jmix
 from revisiting_at_tpu.models import get_model as jax_get_model
 from revisiting_at_tpu.train import ema as jema
@@ -44,7 +45,7 @@ from revisiting_at_tpu_torch.ckpt.convert import jax_params_to_state_dict, load_
 from revisiting_at_tpu_torch.cli import eval as eval_cli
 from revisiting_at_tpu_torch.cli import train as train_cli
 from revisiting_at_tpu_torch.config import config_from_args
-from revisiting_at_tpu_torch.data import MixupConfig, MixupDraws, draw_mixup, mixup_cutmix
+from revisiting_at_tpu_torch.data import MixupConfig, draw_mixup, mixup_cutmix
 from revisiting_at_tpu_torch.models import get_model
 from revisiting_at_tpu_torch.models.convnext import ConvNeXtBlock, drop_path_keep
 from revisiting_at_tpu_torch.ops import block_mlp as tbm
@@ -85,25 +86,6 @@ def test_full_backward_matches_jax(M, C, B, keep, jax_mode):
 
 
 # ------------------------------------------------------------------ mixup
-
-def jax_mixup_key(seed, step):
-    """The JAX step's mixup key: split(fold_in(PRNGKey(seed), step), 4)[0]."""
-    return jax.random.split(jax.random.fold_in(jax.random.PRNGKey(seed), step), 4)[0]
-
-
-def jax_mixup_draws(seed, cfg):
-    """mixup_draws(step, h, w) replaying the JAX step's draws."""
-    def draws(step, h, w):
-        k_apply, k_switch, k_lam_m, k_lam_c, k_box = jax.random.split(jax_mixup_key(seed, step),
-                                                                      5)
-        ky, kx = jax.random.split(k_box)
-        return MixupDraws(
-            float(jax.random.uniform(k_apply)), float(jax.random.uniform(k_switch)),
-            float(jax.random.beta(k_lam_m, cfg.mixup_alpha, cfg.mixup_alpha)),
-            float(jax.random.beta(k_lam_c, cfg.cutmix_alpha, cfg.cutmix_alpha)),
-            int(jax.random.randint(ky, (), 0, h)), int(jax.random.randint(kx, (), 0, w)))
-    return draws
-
 
 @pytest.mark.parametrize("step,prob,branch", [
     (0, 1.0, "cutmix"),  # switch draw 0.08 < 0.5
@@ -281,23 +263,7 @@ def _port_step(params, *, learning_rate=None):
 
 def _step_mismatches(state, step, trajectory):
     """Run the port's steps beside the JAX trajectory; list what disagrees."""
-    x, y = _step_batch()
-    bad = []
-    for i, (ref, ref_params, ref_ema) in enumerate(trajectory):
-        got = {k: float(v) for k, v in step(state, T(x), T(y)).items()}
-        for k in ("loss", "grad_norm"):
-            if abs(got[k] - ref[k]) > 1e-4 * abs(ref[k]):
-                bad.append((i, k, got[k], ref[k]))
-        for k in ("adv_acc", "train_acc"):
-            if got[k] != ref[k]:
-                bad.append((i, k, got[k], ref[k]))
-        for name, p in state.model.named_parameters():
-            for what, mine, theirs in (("param", p.detach(), ref_params[name]),
-                                       ("ema", state.ema[name], ref_ema[name])):
-                e = float((mine - theirs).abs().max())
-                if e > 1e-4:
-                    bad.append((i, what, name, e))
-    return bad
+    return step_mismatches(state, step, trajectory, *_step_batch())
 
 
 def test_train_step_matches_jax(jax_trajectory):
@@ -437,7 +403,7 @@ def test_train_cli_end_to_end_on_cpu(tmp_path):
     (["--training.remat", "1"], NotImplementedError),
     (["--misc.log_flops", "1"], NotImplementedError),
     (["--misc.profile_steps", "1"], NotImplementedError),
-    (["--adv.attack", "fgsm"], NotImplementedError),
+    (["--model.arch", "convnext_iso"], NotImplementedError),
     (["--adv.attack", "pgd"], ValueError),
     (["--training.batch_size"], ValueError),
 ])
