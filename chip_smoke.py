@@ -13,17 +13,21 @@ Phases, each fatal on failure:
      at batch 32; its full backward (row pass, weight pass, reductions, and
      the host recovery of dW2, db2, dgamma) on all nine cotangents at stages
      0-2 at batch 80; both also at a ragged M, in f32 once, with a per-sample
-     keep once, and at the other widths built (ConvNeXt-B/L); the attention
+     keep once, at the other widths built (ConvNeXt-B/L) and at
+     convnext_iso's C = 432; the weight pass with its reduction alone, both
+     products, at WGRAD_CASES (the stage shapes, a ragged M, ViT-S, C = 432,
+     every other width); the attention
      forward and backward (dq, dk, dv) at ViT-S, M and B at batch 80 and 197
      tokens, ViT-S at 401 tokens, and ViT-S with every score below 0; the
      7x7 depthwise conv's forward, dx, weight pass and reduction at
      ConvNeXt-T's gated stages (0-2) at batch 80, 224 and 320 px, on a
-     ragged map and once in f32; each output within its own tolerance
-     (TOL). Two launches must give the same bits (every kernel), and five
-     planted faults (a slice of M left out of dW1, a row group left out of
-     db1, one zero key past N left unmasked in the attention, a dwconv
-     band's top halo row read as zero, one block's partial left out of the
-     dwconv's dw) must fail the check;
+     ragged map and once in f32, and its one-launch reduction at the three
+     stages' partial shapes and a ragged one; each output within its own
+     tolerance (TOL). Two launches must give the same bits (every kernel),
+     and five planted faults (a slice of M left out of dW1, a row group left
+     out of db1, one zero key past N left unmasked in the attention, a
+     dwconv band's top halo row read as zero, one block's partial left out
+     of the dwconv's dw) must fail the check;
   4. the ConvNeXt evaluation path through its entry point: ConvNeXt-T-CvSt at
      full width and 224 px with random weights from --seed, written to a run
      dir as params.json + .pt, evaluated by `cli.eval.main` (short
@@ -42,7 +46,9 @@ Phases, each fatal on failure:
      weights it wrote;
   8. timings of the block-tail kernels beside their plain versions, bounds
      and the plain model path's tail, at the stage shapes (forward and input
-     backward at batch 200, full backward at batch 80), and ms per APGD
+     backward at batch 200, full backward at batch 80; the weight pass alone
+     and with its reduction beside torch.matmul on the same operands, with
+     the profiler's device times and its slices of M), and ms per APGD
      iteration at batch 32 with and without the kernels; torch.profiler
      breakdowns of the training step (phase 6) and of APGD by kernel family;
   9. the ViT evaluation path: ViT-S-CvSt (vit_s, not_original=1) at full
@@ -67,17 +73,19 @@ Phases, each fatal on failure:
      library, dwconv, after 5 warm-up steps, with both profiles (the
      convolutions split into depthwise and the rest) and one step against
      the CPU plain version at batch 2; each dwconv kernel's launches per
-     step (60 forwards, 45 dx, 15 weight passes);
+     step (60 forwards, 45 dx, 15 weight passes, one reduction each);
  14. FGSM training (bench.py's single-step RS-FGSM, alpha 1.25, 4/255):
      the step on ConvNeXt-T-CvSt with and without the dwconv kernel and on
      ViT-S-CvSt (bench.py's vit_s_fgsm_at), batch 80, timed in turns; the
-     dwconv launches per step (45 forwards, 30 dx, 15 weight passes); then
+     dwconv launches per step (45 forwards, 30 dx, 15 weight passes, one
+     reduction each); then
      `cli.train.main --adv.attack fgsm` on ConvNeXt-T-CvSt and
      `cli.eval.main` on its EMA weights;
  15. timings of the dwconv kernels at the gated stage shapes, batch 80,
      beside their bounds, plain versions and the library's depthwise conv
      (F.conv2d(groups=C) on the channels_last bf16 map, and its autograd
-     backward for dx and for dw/db).
+     backward for dx and for dw/db; torch.sum for the reduction, both also
+     by the profiler's device time).
 
 The launch counters are zeroed just before each path (phases 4-5, 6, 7, 9,
 10, 11, 13 and 14) and read just after it: every kernel the path runs must
@@ -114,7 +122,9 @@ TOL = {
     # db2 is the same host code on the same kdy on both sides (reading 0)
     "db2": 1e-6,
     # the weight pass and the reduction alone, on the same operands: f32
-    # summation order only (largest readings 2.9e-6 and 2.6e-7)
+    # summation order only (largest readings 2.9e-6 and 2.6e-7; the TMA +
+    # wgmma weight pass, which sums up to 5,760 rows per slice in its
+    # accumulators, 6.2e-6 at stage 0, so 3.2 times under this bound)
     "wgrad": 2e-5, "reduce": 2e-6,
     # attention, bf16 outputs: a score one f32 ulp apart can flip the bf16
     # rounding of p or ds16, which moves an output by one bf16 ulp of a term
@@ -125,13 +135,23 @@ TOL = {
     # the kernel's made of fused multiply-adds, the plain version's of
     # separate ones, so a bf16 rounding can flip by one ulp (largest
     # readings: y 3.7e-3, dx 3.7e-3); dw, db and the reduction are f32 sums
-    # in another order (largest readings: dw 5.1e-7, db 3.1e-7, 2.4e-7)
+    # in another order (largest readings: dw 5.1e-7, db 3.1e-7, 2.4e-7; the
+    # one-launch reduction 1.7e-7)
     "dw_y": 2e-2, "dw_dx": 2e-2, "dw_dw": 3e-6, "dw_db": 2e-6, "dw_reduce": 1.5e-6,
 }
 
+TRAIN_BATCH = 80  # the training step's batch (bench.py's configuration)
 # ConvNeXt-T stage shapes: (rows per image at 224 px, C)
 STAGES = [(3136, 96), (784, 192), (196, 384), (49, 768)]
-TRAIN_BATCH = 80  # the training step's batch (bench.py's configuration)
+# convnext_iso (updated=1): 14x14 tokens at 224 px, C = 432
+ISO_ROWS = 196
+# weight-pass checks (name, M, C): ConvNeXt-T's stages 0-2 at the training
+# batch, a ragged M, ViT-S (197 tokens), convnext_iso, the other widths built
+WGRAD_CASES = [("stage 0", 3136 * TRAIN_BATCH, 96), ("stage 1", 784 * TRAIN_BATCH, 192),
+               ("stage 2", 196 * TRAIN_BATCH, 384), ("ragged", 3136 * 2 + 40, 96),
+               ("ViT-S", 197 * TRAIN_BATCH, 384), ("convnext_iso", ISO_ROWS * TRAIN_BATCH, 432),
+               ("C=128", 3136 + 40, 128), ("C=256", 784 + 40, 256), ("C=512", 196 * 2 + 8, 512),
+               ("C=768", 49 * 2 + 5, 768), ("C=1024", 49 * 2 + 5, 1024)]
 # the port's CUDA kernels (anonymous namespace of csrc/*.cu), for profiles
 TAIL_KERNEL_NAMES = ("fwd_kernel", "bwd_kernel", "wgrad_kernel", "reduce_kernel")
 ATT_KERNEL_NAMES = ("attn_fwd_kernel", "attn_bwd_rows_kernel", "attn_bwd_cols_kernel")
@@ -239,6 +259,28 @@ def time_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, n) -> float:
+    """Device time per call of fn from torch.profiler over n calls: the mean
+    duration of each CUDA kernel the call launches, summed over the kernels
+    (each launched once per call). Means, not totals: kernels launched just
+    as tracing starts can go unrecorded. Beside time_ms's event loop it
+    shows whether a call is bound by the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total / e.count for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.count)
+    if us <= 0:
+        raise AssertionError("device_ms: the profiler saw no device time")
+    return us / 1000
+
+
 def run_full(bm, d, kernel: bool):
     """The full backward's nine cotangents (keep gets none), kernel or plain."""
     w2g16 = (d["w2"].bfloat16().float() * d["gamma"]).bfloat16()
@@ -302,6 +344,41 @@ def require_launches(path: str, kernels) -> dict:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on {path}")
     return launches
+
+
+def wgrad_operands(torch, M, C, gen):
+    """The weight pass's operands as the row pass leaves them: bf16 [Mpad, C]
+    and [Mpad, 4C], Mpad = M rounded up to 64, rows past M zero."""
+    m_pad = -(-M // 64) * 64
+    u = torch.randn(m_pad, C, generator=gen, device="cuda").bfloat16()
+    h = torch.randn(m_pad, 4 * C, generator=gen, device="cuda").bfloat16()
+    u[M:] = 0
+    h[M:] = 0
+    return u, h
+
+
+def check_wgrad(torch, bm, gen) -> float:
+    """The weight pass with its reduction against wgrad_plain, for both
+    products (dW1 = u16^T @ dh16 [C, 4C], A = g16^T @ kdy16 [4C, C]) at
+    WGRAD_CASES: each within TOL["wgrad"], the same bits over two launches.
+    Logs the slices of M per product. Returns the largest error."""
+    worst = 0.0
+    for name, M, C in WGRAD_CASES:
+        u, h = wgrad_operands(torch, M, C, gen)
+        for x16, y16 in ((u, h), (h, u)):
+            what = (f"wgrad {name} M={M} {tuple(x16.shape)}^T @ {tuple(y16.shape)[1:]}, "
+                    f"{bm.wgrad_plan(*x16.shape, y16.shape[1])[1]} slices of M")
+            got = bm.wgrad_cuda(x16, y16)
+            ref = bm.wgrad_plain(x16, y16)
+            torch.cuda.synchronize()
+            worst = max(worst, check(torch, what, got, ref, TOL["wgrad"]))
+            if not torch.equal(got, bm.wgrad_cuda(x16, y16)):
+                raise AssertionError(f"{what}: two launches differ")
+            del got, ref
+        del u, h
+        torch.cuda.empty_cache()
+    log(f"wgrad: bitwise equal over two launches in all {2 * len(WGRAD_CASES)} products")
+    return worst
 
 
 def att_inputs(torch, B, N, H, gen, negative=False):
@@ -428,14 +505,15 @@ def steps_in_turns(torch, steps, x, y, order, warm):
 
 def check_dw_per_step(launches, n_steps, attack) -> None:
     """The dwconv launches per training step over n_steps steps, fatal
-    unless they are DW_PER_STEP[attack] (forward, dx, weight pass)."""
-    per_step = tuple(launches[k] / n_steps for k in DW_KERNELS[:3])
+    unless they are DW_PER_STEP[attack] (forward, dx, weight pass) and the
+    reductions are one per weight pass."""
+    per_step = tuple(launches[k] / n_steps for k in DW_KERNELS)
     log(f"dwconv launches per {attack.upper()} training step ({n_steps} steps): forward "
         f"{per_step[0]}, dx {per_step[1]}, weight pass {per_step[2]}, reductions "
-        f"{launches['dwconv_reduce'] / n_steps} (expected {DW_PER_STEP[attack]})")
-    if per_step != DW_PER_STEP[attack]:
+        f"{per_step[3]} (expected {DW_PER_STEP[attack]} and one reduction per weight pass)")
+    if per_step[:3] != DW_PER_STEP[attack] or per_step[3] != per_step[2]:
         raise AssertionError(f"dwconv launches per {attack} step {per_step}, "
-                             f"expected {DW_PER_STEP[attack]}")
+                             f"expected {DW_PER_STEP[attack]} and reductions = weight passes")
 
 
 def check_step_against_cpu(torch, np, state_dict, seed, arch="convnext_tiny",
@@ -817,12 +895,27 @@ def check_dwconv(torch, dw, gen) -> dict:
         del x, dy, got, ref, again
         torch.cuda.empty_cache()
     log(f"dwconv y, dx, dw, db: bitwise equal over two launches in all {len(cases)} cases")
-    # the reduction alone, on partials of stage 0's shape at the training batch
-    x, _, _, dy = dw_inputs(torch, TRAIN_BATCH, 56, 56, 96, torch.bfloat16, gen)
-    part = torch.randn(*dw.wgrad_partials_cuda(x, dy).shape, generator=gen, device="cuda")
-    err["dwconv_reduce"] = check(torch, f"dwconv reduce {tuple(part.shape)}",
-                                 dw.reduce_cuda(part), dw.reduce_plain(part), TOL["dw_reduce"])
-    del x, dy, part
+    # the reduction alone, in one launch: on partials of each gated stage's
+    # shape at the training batch, and of a ragged shape (37 rows, a strip of
+    # columns cut short)
+    shapes = []
+    for side, C in DW_STAGES:
+        x, _, _, dy = dw_inputs(torch, TRAIN_BATCH, side, side, C, torch.bfloat16, gen)
+        shapes.append(tuple(dw.wgrad_partials_cuda(x, dy).shape))
+        del x, dy
+    for R, N in shapes + [(37, 50 * 40)]:
+        part = torch.randn(R, N, generator=gen, device="cuda")
+        before = dw.LAUNCHES["reduce"]
+        got = dw.reduce_cuda(part)
+        if dw.LAUNCHES["reduce"] != before + 1:
+            raise AssertionError(f"dwconv reduce {R}x{N}: not one launch")
+        err["dwconv_reduce"] = max(err["dwconv_reduce"], check(
+            torch, f"dwconv reduce {R}x{N} (one launch)", got, dw.reduce_plain(part),
+            TOL["dw_reduce"]))
+        if not torch.equal(got, dw.reduce_cuda(part)):
+            raise AssertionError(f"dwconv reduce {R}x{N}: two launches differ")
+        del part, got
+    log(f"dwconv reduce: bitwise equal over two launches at {shapes + [(37, 50 * 40)]}")
     torch.cuda.empty_cache()
     return err
 
@@ -840,6 +933,7 @@ def dwconv_timings(torch, dw, gen, label) -> dict:
 
     keys = DW_KERNELS
     tot = {k: [0.0, 0.0, 0.0, 0.0, 0.0] for k in keys}  # ms, plain, ops, bytes, library
+    dev_tot = [0.0, 0.0]  # the reduction's and torch.sum's device time
 
     def turns(k_fn, p_fn, iters=10):
         p1, k1, k2, p2 = (time_ms(torch, f, iters) for f in (p_fn, k_fn, k_fn, p_fn))
@@ -874,8 +968,9 @@ def dwconv_timings(torch, dw, gen, label) -> dict:
                              lambda: torch.autograd.grad(y_dw, (w_leaf, b_leaf), dy_cl,
                                                          retain_graph=True),
                              99 * n, 2 * n * 2),
+            # the reduction reads the partials once and writes the f32 dw and db
             "dwconv_reduce": (lambda: dw.reduce_cuda(part), lambda: dw.reduce_plain(part),
-                              lambda: torch.sum(part, 0), 0, 50 * C * 4),
+                              lambda: torch.sum(part, 0), 0, part.numel() * 4 + 50 * C * 4),
         }
         for k, (k_fn, p_fn, lib_fn, flops, nbytes) in runs.items():
             k_ms, p_ms = turns(k_fn, p_fn)
@@ -883,9 +978,15 @@ def dwconv_timings(torch, dw, gen, label) -> dict:
             t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_HBM * 1e3
             for j, v in enumerate((k_ms, p_ms, t_ops, t_bytes, lib_ms)):
                 tot[k][j] += v
+            dev = ""
+            if k == "dwconv_reduce":  # a few microseconds: is the event loop timing the host?
+                dev_k, dev_lib = device_ms(torch, k_fn, 20), device_ms(torch, lib_fn, 20)
+                dev_tot[0] += dev_k
+                dev_tot[1] += dev_lib
+                dev = f" (device {dev_k:.4f} ms, torch.sum's {dev_lib:.4f} ms)"
             log(f"time {k:13s} B={B} {side}x{side} C={C:3d}: kernel {k_ms:.4f} ms"
                 + (f" ({flops / k_ms / 1e9:.1f} TFLOP/s fp32)" if flops else "")
-                + f", plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                + f"{dev}, plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
                 f"{max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})"
                 f" {label}")
         design = 2 * part.numel() * 4
@@ -893,6 +994,10 @@ def dwconv_timings(torch, dw, gen, label) -> dict:
             f"{design / 1e6:.2f} MB written and read (the design's own traffic) {label}")
         del x, dy, part, x_cl, dy_cl, x_leaf, y_dx, w_leaf, b_leaf, y_dw, runs
         torch.cuda.empty_cache()
+    r = tot["dwconv_reduce"]
+    log(f"dwconv reduction over the three stage shapes: event loop {r[0]:.4f} ms (torch.sum "
+        f"{r[4]:.4f} ms), device {dev_tot[0]:.4f} ms (torch.sum {dev_tot[1]:.4f} ms), bound "
+        f"{r[3]:.4f} ms {label}")
     return {k: (v[0], v[1], max(v[2], v[3]), "operations" if v[2] >= v[3] else "bytes", v[4])
             for k, v in tot.items()}
 
@@ -1119,6 +1224,10 @@ def main(argv=None) -> int:
     # the other widths built for ConvNeXt-B/L, at a few ragged tiles each
     cases += [(3136 + 40, 128, torch.bfloat16, 0), (784 + 40, 256, torch.bfloat16, 0),
               (196 * 2 + 8, 512, torch.bfloat16, 0), (49 * 2 + 5, 1024, torch.bfloat16, 0)]
+    # convnext_iso's C = 432 (14x14 tokens): batch 32, ragged with a keep, f32
+    cases += [(ISO_ROWS * 32, 432, torch.bfloat16, 0),
+              (ISO_ROWS * 3, 432, torch.bfloat16, ISO_ROWS),
+              (ISO_ROWS * 2 + 5, 432, torch.float32, 0)]
     for i, (M, C, dtype, keep_rows) in enumerate(cases):
         d = tail_inputs(torch, M, C, dtype, gen, keep_rows)
         for which in ("fwd", "bwd_input"):
@@ -1127,9 +1236,9 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             what = f"{which} M={M} C={C} {dtype} keep={bool(keep_rows)}"
             err[which] = max(err[which], check(torch, what, got, ref, TOL[which]))
-            if i == 0 and not torch.equal(got, run_tail(bm, d, which, kernel=True)):
+            if (i == 0 or C == 432) and not torch.equal(got, run_tail(bm, d, which, kernel=True)):
                 raise AssertionError(f"{what}: two launches differ")
-        if i == 0:
+        if i == 0 or C == 432:
             log(f"fwd, bwd_input M={M} C={C}: bitwise equal over two launches")
     # the full backward: ConvNeXt-T's stages 0-2 at the training batch, where
     # tail_fusable(C, "full") admits the kernel, then ragged M, f32 I/O, a
@@ -1140,6 +1249,10 @@ def main(argv=None) -> int:
                    (3136 + 40, 128, torch.bfloat16, 0), (784 + 40, 256, torch.bfloat16, 0),
                    (196 * 2 + 8, 512, torch.bfloat16, 0), (49 * 2 + 5, 768, torch.bfloat16, 0),
                    (49 * 2 + 5, 1024, torch.bfloat16, 0)]
+    # convnext_iso's C = 432 at the training batch (full mode admits C <= 512),
+    # and ragged with a keep
+    full_cases += [(ISO_ROWS * TRAIN_BATCH, 432, torch.bfloat16, 0),
+                   (ISO_ROWS * 3, 432, torch.bfloat16, ISO_ROWS)]
     for i, (M, C, dtype, keep_rows) in enumerate(full_cases):
         d = tail_inputs(torch, M, C, dtype, gen, keep_rows)
         got = run_full(bm, d, kernel=True)
@@ -1149,6 +1262,12 @@ def main(argv=None) -> int:
         for name, g, r in zip(FULL_COTANGENTS, got, ref):
             e = check(torch, f"bwd_full {name:6s} {what}", g, r, TOL[name])
             err[FULL_ERR_KEY[name]] = max(err[FULL_ERR_KEY[name]], e)
+        if C == 432 and not keep_rows:
+            again = run_full(bm, d, kernel=True)
+            if not all(torch.equal(g, h) for g, h in zip(got, again)):
+                raise AssertionError(f"bwd_full {what}: two launches differ")
+            log(f"bwd_full {what}: all nine cotangents bitwise equal over two launches")
+            del again
         if i == 0:  # stage 0 at the training batch
             # every cotangent is the same bits from run to run
             again = run_full(bm, d, kernel=True)
@@ -1173,16 +1292,13 @@ def main(argv=None) -> int:
                           bm.reduce_cuda(db1_p[1:]), ref[j("db1")], TOL["db1"])
             del u16, dh16, db1_p, part, dw1_bad
         del d, got, ref
-    # the weight pass and the reduction alone, at stage 0's training shapes
+    err["wgrad"] = max(err["wgrad"], check_wgrad(torch, bm, gen))
+    # the reduction alone, on partials of the row pass's shape at stage 0
     m0 = STAGES[0][0] * TRAIN_BATCH
-    x16 = torch.randn(m0, 96, generator=gen, device="cuda").bfloat16()
-    y16 = torch.randn(m0, 384, generator=gen, device="cuda").bfloat16()
-    err["wgrad"] = max(err["wgrad"], check(torch, f"wgrad M={m0} 96x384", bm.wgrad_cuda(x16, y16),
-                                           bm.wgrad_plain(x16, y16), TOL["wgrad"]))
     part = torch.randn(m0 // 64, 384, generator=gen, device="cuda")
     err["reduce"] = max(err["reduce"], check(torch, f"reduce {m0 // 64}x384", bm.reduce_cuda(part),
                                              bm.reduce_plain(part), TOL["reduce"]))
-    del x16, y16, part
+    del part
     torch.cuda.empty_cache()
     att_err = check_attention(torch, att, gen)
     dw_err = check_dwconv(torch, dw, gen)
@@ -1347,6 +1463,7 @@ def main(argv=None) -> int:
     # (bf16 cuBLAS matmuls, erf GELU); kernel and plain in turns p, k, k, p.
     ms = {k: 0.0 for k in bm.LAUNCHES}
     plain_ms = dict(ms)
+    ms["bwd_full"] = 0.0  # the whole full backward, logged only
     library_ms = {k: None for k in bm.LAUNCHES}
     library_ms.update(wgrad=0.0, reduce=0.0)
     bounds = {k: [0.0, 0.0] for k in bm.LAUNCHES}  # summed op and byte times, ms
@@ -1390,14 +1507,18 @@ def main(argv=None) -> int:
         del d, s_in, r_in, y_model, model_fn
         torch.cuda.empty_cache()
 
-    # The full backward's bound is that of the work `_bwd_kernel` does: 40 *
-    # M * C^2 flops (h, dg, du; dW1, A) against reading s, dy, W1, w2g and the
-    # vectors and writing ds and the f32 gradients. Each of its three kernels
-    # is booked the part of that work it does: the row pass the first 24 *
-    # M * C^2 flops and the activations, the weight pass the other 16 * M *
-    # C^2, the reduction (which writes the final f32 gradients) their bytes.
-    # The side buffers and partials between them are the two-pass design's
-    # own traffic, not part of any bound; they are logged beside it.
+    # Bounds. The row pass is booked its part of `_bwd_kernel`'s own work: 24 *
+    # M * C^2 flops (h, dg, du) against reading s, dy, the weights and the
+    # vectors and writing ds. The weight pass and the reduction consume
+    # operands that lie in HBM, so each is booked what it must move: the
+    # weight pass the larger of its 8 * M * C^2 flops per product and its
+    # bytes (x16 and y16 read once, its f32 partials written once), a
+    # reduction its partials read once and its row written once. The whole
+    # backward's bound, the work of `_bwd_kernel` (40 * M * C^2 flops against
+    # s, dy, the weights, ds and the f32 gradients), is logged beside them;
+    # the side buffers are the two-pass design's own traffic.
+    wg = dict.fromkeys(("pass", "with_reduce", "matmul", "pass_dev", "with_reduce_dev",
+                        "matmul_dev", "bound"), 0.0)
     for rows, C in STAGES[:3]:  # the full backward runs in stages 0-2
         M = rows * TRAIN_BATCH
         d = tail_inputs(torch, M, C, torch.bfloat16, gen)
@@ -1408,22 +1529,38 @@ def main(argv=None) -> int:
         p_rows = time_ms(torch, lambda: bm.bwd_full_rows_plain(*a), 5)
         ms["bwd_full_rows"] += k_rows
         plain_ms["bwd_full_rows"] += p_rows
-        part_ops = {"bwd_full_rows": (24 * M * C * C, 3 * M * C * 2 + 2 * 4 * C * C * 2 + 6 * C * 4),
-                    "wgrad": (16 * M * C * C, 0),
-                    "reduce": (0, (2 * 4 * C * C + 4 * C + 2 * C) * 4)}
-        for k, (flops, nbytes) in part_ops.items():
-            add_bound(k, flops, nbytes)
+        whole = {"bwd_full_rows": (24 * M * C * C, 3 * M * C * 2 + 2 * 4 * C * C * 2 + 6 * C * 4),
+                 "wgrad": (16 * M * C * C, 0),
+                 "reduce": (0, (2 * 4 * C * C + 4 * C + 2 * C) * 4)}
+        add_bound("bwd_full_rows", *whole["bwd_full_rows"])
         w_parts = []
         for x16, y16 in ((u16, dh16), (g16, kdy16)):
             part = bm.wgrad_partials_cuda(x16, y16)
             w_parts.append(part.view(part.shape[0], -1))
-            ms["wgrad"] += time_ms(torch, lambda: bm.wgrad_partials_cuda(x16, y16), 10)
+            (m_pad, P), Q = x16.shape, y16.shape[1]
+            k_pass = time_ms(torch, lambda: bm.wgrad_partials_cuda(x16, y16), 10)
+            k_both = time_ms(torch, lambda: bm.wgrad_cuda(x16, y16), 10)
+            lib = time_ms(torch, lambda: torch.matmul(x16.t(), y16), 10)
+            dev_pass = device_ms(torch, lambda: bm.wgrad_partials_cuda(x16, y16), 10)
+            dev_both = device_ms(torch, lambda: bm.wgrad_cuda(x16, y16), 10)
+            dev_lib = device_ms(torch, lambda: torch.matmul(x16.t(), y16), 10)
+            nbytes = (x16.numel() + y16.numel()) * 2 + part.numel() * 4
+            bnd = add_bound("wgrad", 2 * m_pad * P * Q, nbytes)
+            ms["wgrad"] += k_pass
             plain_ms["wgrad"] += time_ms(torch, lambda: bm.wgrad_plain(x16, y16), 5)
-            library_ms["wgrad"] += time_ms(torch, lambda: torch.matmul(x16.t(), y16), 10)
+            library_ms["wgrad"] += lib
+            for k, v in zip(wg, (k_pass, k_both, lib, dev_pass, dev_both, dev_lib, bnd)):
+                wg[k] += v
+            log(f"time wgrad     B={TRAIN_BATCH} M={M:6d} {P:4d}x{Q:4d}: {part.shape[0]} slices of "
+                f"M; pass {k_pass:.4f} ms (device {dev_pass:.4f}), pass + reduction {k_both:.4f} "
+                f"ms (device {dev_both:.4f}), torch.matmul {lib:.4f} ms (device {dev_lib:.4f}), "
+                f"bound {bnd:.4f} ms ({nbytes / 1e6:.1f} MB; {2 * m_pad * P * Q / 1e9:.1f} GFLOP) "
+                f"{label}")
         for part in col_parts + w_parts:
             ms["reduce"] += time_ms(torch, lambda: bm.reduce_cuda(part), 10)
             plain_ms["reduce"] += time_ms(torch, lambda: bm.reduce_plain(part), 10)
             library_ms["reduce"] += time_ms(torch, lambda: torch.sum(part, 0), 10)
+            add_bound("reduce", 0, part.numel() * 4 + part.shape[1] * 4)
         # the side buffers written once and read once, the partials likewise
         design = 2 * sum(t.numel() * t.element_size() for t in (u16, kdy16, g16, dh16))
         design += 2 * sum(t.numel() * 4 for t in col_parts + w_parts)
@@ -1436,15 +1573,26 @@ def main(argv=None) -> int:
         y_model = plain_tail(*leaves, torch.bfloat16)
         m_full = time_ms(torch, lambda: torch.autograd.grad(y_model, leaves, d["dy"],
                                                             retain_graph=True), 10)
-        b_full = max(sum(f for f, _ in part_ops.values()) / PEAK_BF16,
-                     sum(b for _, b in part_ops.values()) / PEAK_HBM) * 1e3
+        b_full = max(sum(f for f, _ in whole.values()) / PEAK_BF16,
+                     sum(b for _, b in whole.values()) / PEAK_HBM) * 1e3
+        ms["bwd_full"] += k_full
+        bound_ms["bwd_full"] += b_full
         log(f"time bwd_full  B={TRAIN_BATCH} M={M:6d} C={C:4d}: kernels {k_full:.3f} ms "
             f"({40 * M * C * C / k_full / 1e9:.1f} TFLOP/s; rows pass {k_rows:.3f}), "
             f"plain {p_full:.3f} ms, model bf16 path weight backward {m_full:.3f} ms, "
-            f"bound {b_full:.3f} ms; the design's own traffic (side buffers, partials) "
-            f"{design / 1e6:.1f} MB, {design / PEAK_HBM * 1e3:.3f} ms at the HBM rate {label}")
+            f"bound of _bwd_kernel's work {b_full:.3f} ms; the design's own traffic (side "
+            f"buffers, partials) {design / 1e6:.1f} MB, {design / PEAK_HBM * 1e3:.3f} ms at the "
+            f"HBM rate {label}")
         del d, a, ds, u16, kdy16, g16, dh16, col_parts, w_parts, leaves, y_model
         torch.cuda.empty_cache()
+    log(f"wgrad over the six products of stages 0-2 (B={TRAIN_BATCH}): pass {wg['pass']:.4f} ms "
+        f"(device {wg['pass_dev']:.4f}), pass + reductions {wg['with_reduce']:.4f} ms (device "
+        f"{wg['with_reduce_dev']:.4f}), torch.matmul {wg['matmul']:.4f} ms (device "
+        f"{wg['matmul_dev']:.4f}), bound "
+        f"{wg['bound']:.4f} ms: pass + reductions at {100 * wg['bound'] / wg['with_reduce']:.1f}% "
+        f"of the bound, {wg['with_reduce'] / wg['matmul']:.3f}x torch.matmul; the whole full "
+        f"backward {ms['bwd_full']:.3f} ms against _bwd_kernel's bound {bound_ms['bwd_full']:.3f}"
+        f" ms {label}")
 
     plain = load_model(False)
     yb = torch.from_numpy(y).cuda()

@@ -17,95 +17,169 @@
 //      input backward computes it, plus bf16 side outputs u16, kdy16, g16 and
 //      dh16 ([Mpad, C] and [Mpad, 4C]) and per-block column sums of the f32 dh
 //      (db1, summed before the bf16 cast as JAX does), of du * xhat and of du.
-//   2. wgrad_kernel, the weight pass: out[P, Q] = X^T @ Y over the M rows with
-//      bf16 operands and f32 accumulation, for dW1 (X = u16, Y = dh16) and A
-//      (X = g16, Y = kdy16). Stage 0's dW1 is 96 x 384: without a split of M
-//      the card would sit mostly idle, so each block sums a slice of M rows
-//      for one output tile into its own f32 partial.
+//   2. wgrad_kernel, the weight pass: f32 partials of X^T @ Y over slices of
+//      the M rows, for dW1 (X = u16, Y = dh16) and A (X = g16, Y = kdy16).
 //   3. reduce_kernel sums partials over their leading axis in a fixed order.
 // No float atomics anywhere: ds and the weight cotangents are the same bits
 // from run to run. Rows past M (padding to a multiple of 64) are written as
 // zeros by the row pass, so they add nothing to any column sum or product.
 //
-// What bounds it on the H100: 40 * M * C^2 flops (h, dg and du in the row
-// pass, dW1 and A in the weight pass) against s, dy and ds, so the tensor
-// cores, as for the forward. The side buffers are this design's cost: 2 * 4C
-// bf16 values per row written once and read once (193 MB each at stage 0,
-// batch 80). The weight pass stages 32-row slices of X and Y in shared
-// memory with 16-byte loads and runs WMMA on them; it has no pipelining yet.
+// What bounds the weight pass on the H100: it must read its two bf16
+// operands once from HBM, M * 5C * 2 bytes per product (240.8 MB at stage 0,
+// batch 80), against 8 * M * C^2 flops: 72 us of bytes against 19 us of
+// tensor cores at stage 0, so bytes, at every width. Its design:
+//   * TMA (cp.async.bulk.tensor) loads 64-row slices of M of both operands,
+//     in 64-column boxes with 128-byte swizzle, into a ring of 4 shared-memory
+//     stages guarded by mbarriers; one producer warp keeps the ring full.
+//   * Two consumer warpgroups run wgmma.mma_async (bf16 in, f32 accumulators
+//     in registers) straight on the swizzled tiles: both operands MN-major,
+//     as the side buffers lie. The [M, 4C] operand is wgmma's 64-row side
+//     (one warpgroup per 64 columns of 4C, 128 per block) and the [M, C]
+//     operand its N side, whole up to C = 256 (N padded to a multiple of 64
+//     by TMA's zero fill past C), else in chunks of at most 256, so both
+//     products take one template; dW1's epilogue writes the tile transposed.
+//   * The wide operand is read once; the narrow one is re-read by each block
+//     of the same M slice, and those blocks have adjacent indices and run in
+//     the same wave, so the re-reads hit L2.
+//   * The M axis is cut into at most 64 slices, chosen from the shapes alone
+//     (ops/block_mlp.py wgrad_plan) so that blocks fill the 132 SMs in one
+//     wave; reduce_kernel then sums the partials in one launch per product.
+// 288 threads (two warpgroups and the producer warp) leave each thread 224
+// registers, enough for a 64 x 256 f32 accumulator, so no setmaxnreg. On
+// the H100, three consumer warpgroups (192 wide columns per block, a fifth
+// less re-read from L2), a ring as deep as shared memory holds (5-7
+// stages) and one stage of wgmma kept in flight were no faster. At stage 2
+// (C = 384) the pass is near both of its limits: 18.7 us of tensor-core
+// time against 18 us of bytes.
+// The side buffers themselves are the two-pass design's cost (2 * 5C bf16
+// values per row, written once by the row pass and read once here): the
+// TPU kernel accumulates dW1 and A in VMEM inside its row loop.
 //
 // Plain C interface for ctypes: each entry point returns cudaGetLastError()
-// after its launch (or -1 for a shape it was not built for).
+// after its launch (or -1 for a shape it was not built for, -2 when
+// cuTensorMapEncodeTiled fails).
+
+#include <cuda.h>  // CUtensorMap and its enums (cuTensorMapEncodeTiled is looked up at run time)
 
 #include "block_mlp_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kWThreads = 128;  // four warps, each a 32 x 32 output tile
-constexpr int kWDepth = 32;     // rows of M per shared-memory stage
+constexpr int kWRows = 64;        // rows of M per ring stage: the TMA box depth
+constexpr int kWBox = 64;         // box width: 64 bf16, one 128-byte swizzled row
+constexpr int kWStages = 4;       // ring depth
+constexpr int kWTileP = 128;      // columns of the wide operand per block: 2 x 64
+constexpr int kWConsumers = 256;  // two warpgroups
+constexpr int kWThreads = kWConsumers + 32;  // and the producer warp
+constexpr uint32_t kBoxBytes = kWBox * kWRows * 2;  // 8 KB
 
-// out_part[split, P, Q] = X[m, p0:p0+TP]^T @ Y[m, q0:q0+TQ] over this split's
-// rows m. X is [Mpad, P], Y is [Mpad, Q], both bf16 row-major.
-template <int TP, int TQ>
-__global__ void __launch_bounds__(kWThreads)
-wgrad_kernel(const bf16* __restrict__ x, int P, const bf16* __restrict__ y, int Q,
-             int64_t Mpad, int64_t rows_per_split, float* __restrict__ part) {
-  constexpr int WQ = TQ / 32;
-  static_assert((TP / 32) * WQ == 4, "four warps of 32 x 32");
-  constexpr int LDX = TP + 8, LDY = TQ + 8;
-  __shared__ __align__(128) bf16 xs[kWDepth * LDX];
-  __shared__ __align__(128) bf16 ys[kWDepth * LDY];
-  const int tiles_q = Q / TQ;
-  const int p0 = (blockIdx.x / tiles_q) * TP, q0 = (blockIdx.x % tiles_q) * TQ;
-  const int64_t m_begin = static_cast<int64_t>(blockIdx.y) * rows_per_split;
+template <int NCH>  // columns of the narrow operand per block: 128, 192 or 256
+struct WCfg {
+  static constexpr int NB = NCH / kWBox;  // narrow boxes per stage
+  static constexpr uint32_t STAGE = (2 + NB) * kBoxBytes;
+  // the ring, its barriers, and slack to align the ring to 1024 bytes
+  static constexpr size_t SMEM = kWStages * STAGE + 2 * kWStages * 8 + 1024;
+};
+
+// Block b: slice b / tiles of M, tile b % tiles; tile t covers columns
+// [128 * (t / n_chunks), + 128) of the wide operand (P of them) and
+// [NCH * (t % n_chunks), + NCH) of the narrow one (C of them). It writes
+// part[slice] of the f32 partials [n_split, P, C], or [n_split, C, P] when
+// `transposed`, over rows [slice * rows_per_split, + rows_per_split) of M.
+template <int NCH>
+__global__ void __launch_bounds__(kWThreads, 1)
+wgrad_kernel(const __grid_constant__ CUtensorMap wide, const __grid_constant__ CUtensorMap narrow,
+             int P, int C, int n_chunks, int64_t Mpad, int64_t rows_per_split, int transposed,
+             float* __restrict__ part) {
+  using W = WCfg<NCH>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kWStages * W::STAGE);
+  uint64_t* empty = full + kWStages;
+
+  const int tiles = ((P + kWTileP - 1) / kWTileP) * n_chunks;
+  const int split = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int p0 = (tile / n_chunks) * kWTileP, q0 = (tile % n_chunks) * NCH;
+  const int64_t m_begin = split * rows_per_split;
   const int64_t m_end = m_begin + rows_per_split < Mpad ? m_begin + rows_per_split : Mpad;
-  const int warp = threadIdx.x / 32;
-  const int wp = warp / WQ, wq = warp % WQ;
+  const int n_k = static_cast<int>((m_end - m_begin) / kWRows);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  AccFrag acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kWStages; ++st) {
+      mbar_init(&full[st], 1);                   // the producer's arrive with its bytes
+      mbar_init(&empty[st], kWConsumers / 32);   // one arrive per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  for (int64_t m0 = m_begin; m0 < m_end; m0 += kWDepth) {
-    for (int v = threadIdx.x; v < kWDepth * (TP / 8); v += kWThreads) {
-      const int r = v / (TP / 8), c8 = (v % (TP / 8)) * 8;
-      *reinterpret_cast<uint4*>(xs + r * LDX + c8) =
-          *reinterpret_cast<const uint4*>(x + (m0 + r) * P + p0 + c8);
+  if (warp == kWConsumers / 32) {
+    // producer: one thread keeps the ring full; boxes wholly past P or C
+    // are not loaded (their columns are never stored)
+    if (lane == 0) {
+      int n_wide = 0, n_narrow = 0;
+      for (int w = 0; w < 2; ++w) n_wide += p0 + w * kWBox < P;
+      for (int j = 0; j < W::NB; ++j) n_narrow += q0 + j * kWBox < C;
+      const uint32_t bytes = (n_wide + n_narrow) * kBoxBytes;
+      for (int kb = 0; kb < n_k; ++kb) {
+        const int st = kb % kWStages, round = kb / kWStages;
+        if (round > 0) mbar_wait(&empty[st], (round - 1) & 1);
+        unsigned char* stage = ring + st * W::STAGE;
+        const int m = static_cast<int>(m_begin + kb * kWRows);
+        mbar_arrive_expect_tx(&full[st], bytes);
+        for (int w = 0; w < n_wide; ++w)
+          tma_load_2d(stage + w * kBoxBytes, &wide, &full[st], p0 + w * kWBox, m);
+        for (int j = 0; j < n_narrow; ++j)
+          tma_load_2d(stage + (2 + j) * kBoxBytes, &narrow, &full[st], q0 + j * kWBox, m);
+      }
     }
-    for (int v = threadIdx.x; v < kWDepth * (TQ / 8); v += kWThreads) {
-      const int r = v / (TQ / 8), c8 = (v % (TQ / 8)) * 8;
-      *reinterpret_cast<uint4*>(ys + r * LDY + c8) =
-          *reinterpret_cast<const uint4*>(y + (m0 + r) * Q + q0 + c8);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kWDepth; k += 16) {
-      AColFrag a[2];  // X^T[p, m] = xs[m * LDX + p]: column-major with ld LDX
-      BRowFrag b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], xs + k * LDX + wp * 32 + i * 16, LDX);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], ys + k * LDY + wq * 32 + j * 16, LDY);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    return;
   }
 
-  float* out = part + static_cast<size_t>(blockIdx.y) * P * Q;
+  // consumers: warpgroup g owns wide columns p0 + 64 g .. + 64
+  const int g = warp / 4;
+  float acc[NCH / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < NCH / 2; ++i) acc[i] = 0.0f;
+  for (int kb = 0; kb < n_k; ++kb) {
+    const int st = kb % kWStages;
+    mbar_wait(&full[st], (kb / kWStages) & 1);
+    const unsigned char* stage = ring + st * W::STAGE;
+    fence_acc(acc);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(
-          out + static_cast<size_t>(p0 + wp * 32 + i * 16) * Q + q0 + wq * 32 + j * 16,
-          acc[i][j], Q, wmma::mem_row_major);
+    for (int k = 0; k < kWRows / 16; ++k) {  // 16 rows of M = 2048 bytes of a box
+      const uint64_t a = desc_mn_sw128(stage + g * kBoxBytes + k * 2048, kBoxBytes);
+      const uint64_t b = desc_mn_sw128(stage + 2 * kBoxBytes + k * 2048, kBoxBytes);
+      wgmma_bf16<NCH>(acc, a, b);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // acc[i]: wide column p, narrow column q of this warpgroup's 64 x NCH tile
+  float* out = part + static_cast<size_t>(split) * P * C;
+  const int wq = warp % 4;
+#pragma unroll
+  for (int i = 0; i < NCH / 2; i += 2) {
+    const int p = p0 + g * 64 + wq * 16 + lane / 4 + 8 * ((i / 2) % 2);
+    const int q = q0 + 8 * (i / 4) + 2 * (lane % 4);
+    if (p < P && q < C) {
+      if (transposed) {
+        out[static_cast<size_t>(q) * P + p] = acc[i];
+        out[static_cast<size_t>(q + 1) * P + p] = acc[i + 1];
+      } else {
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(p) * C + q) =
+            make_float2(acc[i], acc[i + 1]);
+      }
+    }
+  }
 }
 
 // out[g, n] = sum of part[r, n] over r in [g * G, min(R, (g + 1) * G)), in
@@ -122,13 +196,56 @@ reduce_kernel(const float* __restrict__ part, int64_t R, int64_t N, int G,
   out[static_cast<int64_t>(blockIdx.y) * N + n] = acc;
 }
 
-template <int TP, int TQ>
-int launch_wgrad(const void* x, int P, const void* y, int Q, int64_t Mpad,
-                 int64_t rows_per_split, int n_split, void* part, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((P / TP) * (Q / TQ)), static_cast<unsigned>(n_split));
-  wgrad_kernel<TP, TQ><<<grid, kWThreads, 0, stream>>>(
-      static_cast<const bf16*>(x), P, static_cast<const bf16*>(y), Q, Mpad, rows_per_split,
-      static_cast<float*>(part));
+// cuTensorMapEncodeTiled, looked up at run time through the runtime's entry
+// point query, so the library needs no -lcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                     &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a row-major bf16 [rows, cols] matrix in 64 x 64 boxes, 128-byte swizzle;
+// boxes reaching past cols are zero-filled
+bool make_map(CUtensorMap* map, const void* base, int64_t rows, int cols) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {kWBox, kWRows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NCH>
+int launch_wgrad(const CUtensorMap& wide, const CUtensorMap& narrow, int P, int C, int n_chunks,
+                 int64_t Mpad, int64_t rows_per_split, int n_split, int transposed, void* part,
+                 cudaStream_t stream) {
+  constexpr size_t smem = WCfg<NCH>::SMEM;
+  auto kern = wgrad_kernel<NCH>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = ((P + kWTileP - 1) / kWTileP) * n_chunks;
+  kern<<<static_cast<unsigned>(tiles * n_split), kWThreads, smem, stream>>>(
+      wide, narrow, P, C, n_chunks, Mpad, rows_per_split, transposed, static_cast<float*>(part));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -177,20 +294,36 @@ int block_mlp_bwd_full_rows(int C, int dtype, const void* s, const void* keep,
   return -1;
 }
 
-// The weight pass: part[n_split, P, Q], split k summing rows
-// [k * rows_per_split, min(Mpad, (k + 1) * rows_per_split)) of x [Mpad, P] and
-// y [Mpad, Q] (bf16). One of P, Q is a multiple of 32, the other of 128;
-// Mpad and rows_per_split are multiples of 32.
+// The weight pass: part[n_split, P, Q] (f32), split k summing rows
+// [k * rows_per_split, min(Mpad, (k + 1) * rows_per_split)) of
+// x[Mpad, P]^T @ y[Mpad, Q] (bf16, row-major). One of P, Q is 4 times the
+// other (C, a multiple of 8 from 72 to 1024: every width the row pass is
+// built for); Mpad and rows_per_split are multiples of 64 and every split
+// holds rows.
 int block_mlp_wgrad(const void* x, int P, const void* y, int Q, int64_t Mpad,
                     int64_t rows_per_split, int n_split, void* part, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Mpad % kWDepth != 0 || rows_per_split % kWDepth != 0 || n_split <= 0 ||
-      static_cast<int64_t>(n_split - 1) * rows_per_split >= Mpad)
+  const bool x_wide = P == 4 * Q;
+  if (!x_wide && Q != 4 * P) return -1;
+  const int C = x_wide ? Q : P;
+  if (C <= 0 || C % 8 != 0 || C > 1024 || Mpad % kWRows != 0 || rows_per_split <= 0 ||
+      rows_per_split % kWRows != 0 || n_split <= 0 ||
+      static_cast<int64_t>(n_split - 1) * rows_per_split >= Mpad ||
+      static_cast<int64_t>(n_split) * rows_per_split < Mpad || Mpad >= (int64_t{1} << 31))
     return -1;
-  if (P % 32 == 0 && Q % 128 == 0 && P <= Q)
-    return launch_wgrad<32, 128>(x, P, y, Q, Mpad, rows_per_split, n_split, part, st);
-  if (P % 128 == 0 && Q % 32 == 0)
-    return launch_wgrad<128, 32>(x, P, y, Q, Mpad, rows_per_split, n_split, part, st);
+  // the narrow operand in n_chunks chunks of NCH columns, NCH a multiple of 64
+  const int n_chunks = (C + 255) / 256;
+  const int nch = ((C + n_chunks - 1) / n_chunks + kWBox - 1) / kWBox * kWBox;
+  CUtensorMap wide, narrow;
+  if (!make_map(&wide, x_wide ? x : y, Mpad, 4 * C) || !make_map(&narrow, x_wide ? y : x, Mpad, C))
+    return -2;
+  const int transposed = x_wide ? 0 : 1;  // dW1 = u16^T @ dh16 is [C, 4C]
+#define LAUNCH(N)                                                                          \
+  if (nch == N)                                                                            \
+    return launch_wgrad<N>(wide, narrow, 4 * C, C, n_chunks, Mpad, rows_per_split, n_split, \
+                           transposed, part, st);
+  LAUNCH(128) LAUNCH(192) LAUNCH(256)
+#undef LAUNCH
   return -1;
 }
 

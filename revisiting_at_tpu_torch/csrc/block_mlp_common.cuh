@@ -18,6 +18,11 @@
 // fragments straight from global memory: they stay in L2, and every block
 // reuses each fragment for all of its BM rows. Per-C tiles (Cfg) keep the
 // register accumulator at <= 12 fragments per warp up to C = 768.
+//
+// Widths that are not a multiple of 32 (C = 432, convnext_iso's width with
+// updated=1: 27 column tiles over 9 warps) leave the last lanes of a row
+// without a channel; the row code masks them behind `if constexpr`, so the
+// code built for the other widths is what it was.
 
 #pragma once
 
@@ -39,17 +44,17 @@ template <int C>
 struct Cfg {
   static constexpr int H = 4 * C;
   static constexpr int NT = C / 16;                   // 16-wide column tiles of C
-  static constexpr int NW = (NT % 8 == 0) ? 8 : 6;    // warps per block
+  static constexpr int NW = NT % 8 == 0 ? 8 : (NT % 6 == 0 ? 6 : 9);  // warps per block
   static constexpr int NTHREADS = NW * 32;
   static constexpr int BM = C <= 384 ? 64 : (C <= 768 ? 32 : 16);  // rows per block
   static constexpr int MT = BM / 16;                  // 16-row tiles per block
   static constexpr int BH = 16 * NW;                  // 4C chunk: one tile per warp
   static constexpr int CPW = NT / NW;                 // C column tiles per warp
-  static constexpr int VPL = C / 32;                  // values per lane in a row
+  static constexpr int VPL = (C + 31) / 32;           // values per lane in a row
   static constexpr int LDU = C + 8;                   // bf16 [BM][C] row stride
   static constexpr int LDH = BH + 4;                  // f32 [BM][BH] row stride
   static constexpr int LDG = BH + 8;                  // bf16 [BM][BH] row stride
-  static_assert(C % 32 == 0, "C must be a multiple of 32");
+  static_assert(C % 16 == 0, "C must be a multiple of 16");
   static_assert(NT % NW == 0, "column tiles must split evenly over warps");
   static_assert(H % BH == 0, "4C must split into whole chunks");
   static_assert(NTHREADS == 2 * BH, "each thread owns one column of a chunk");
@@ -66,6 +71,17 @@ __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
+
+// Whether value i of a lane's row values (channel lane + 32 * i) is a
+// channel: always where C is a multiple of 32, else only below C.
+template <int C>
+__device__ __forceinline__ bool lane_in_row(int c) {
+  if constexpr (C % 32 == 0) {
+    return true;
+  } else {
+    return c < C;
+  }
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -116,7 +132,8 @@ __device__ void layer_norm_rows(const T* __restrict__ s, const float* __restrict
     bf16* urow = u16 + rr * K::LDU;
     if (row >= M) {
 #pragma unroll
-      for (int i = 0; i < K::VPL; ++i) urow[lane + 32 * i] = __float2bfloat16(0.0f);
+      for (int i = 0; i < K::VPL; ++i)
+        if (lane_in_row<C>(lane + 32 * i)) urow[lane + 32 * i] = __float2bfloat16(0.0f);
       if (lane == 0 && mean_out) { mean_out[rr] = 0.0f; inv_out[rr] = 0.0f; }
       continue;
     }
@@ -124,16 +141,22 @@ __device__ void layer_norm_rows(const T* __restrict__ s, const float* __restrict
     float v[K::VPL];
     float sum = 0.0f;
 #pragma unroll
-    for (int i = 0; i < K::VPL; ++i) { v[i] = to_f32(srow[lane + 32 * i]); sum += v[i]; }
+    for (int i = 0; i < K::VPL; ++i) {
+      v[i] = lane_in_row<C>(lane + 32 * i) ? to_f32(srow[lane + 32 * i]) : 0.0f;
+      sum += v[i];
+    }
     const float mu = warp_sum(sum) / C;
     float sq = 0.0f;
 #pragma unroll
-    for (int i = 0; i < K::VPL; ++i) { float d = v[i] - mu; sq += d * d; }
+    for (int i = 0; i < K::VPL; ++i) {
+      float d = lane_in_row<C>(lane + 32 * i) ? v[i] - mu : 0.0f;
+      sq += d * d;
+    }
     const float inv = rsqrtf(warp_sum(sq) / C + kEps);
 #pragma unroll
     for (int i = 0; i < K::VPL; ++i) {
       const int c = lane + 32 * i;
-      urow[c] = __float2bfloat16((v[i] - mu) * inv * ln_g[c] + ln_b[c]);
+      if (lane_in_row<C>(c)) urow[c] = __float2bfloat16((v[i] - mu) * inv * ln_g[c] + ln_b[c]);
     }
     if (lane == 0 && mean_out) { mean_out[rr] = mu; inv_out[rr] = inv; }
   }
@@ -407,5 +430,5 @@ int launch_bwd(const void* s, const float* keep, int rows_per_keep, const float*
 }  // namespace
 
 // Channel widths built: every ConvNeXt stage width the gates admit
-// (T/S: 96-768, B: 128-1024, L: 192-768).
-#define BLOCK_MLP_WIDTHS(X) X(96) X(128) X(192) X(256) X(384) X(512) X(768) X(1024)
+// (T/S: 96-768, B: 128-1024, L: 192-768) and convnext_iso's 432.
+#define BLOCK_MLP_WIDTHS(X) X(96) X(128) X(192) X(256) X(384) X(432) X(512) X(768) X(1024)

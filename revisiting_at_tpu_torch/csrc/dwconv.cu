@@ -12,7 +12,8 @@
 //   dwconv_fwd_kernel<T, true>  <- _bwd_kernel's dx (the same stencil on dy,
 //                                  flipped taps, no bias)
 //   dwconv_wgrad_kernel, then dwconv_reduce_kernel
-//                               <- _bwd_kernel's dw and db
+//                               <- _bwd_kernel's dw and db (the TPU grid
+//                                  carries them in VMEM from step to step)
 // and their v2 twins (_fwd_kernel_v2, _bwd_kernel_v2), which differ from v1
 // only in how the TPU schedules its sublane shifts: the same function.
 //
@@ -45,9 +46,20 @@
 //     registers over a chunk of (image, band) tiles, with its column's 14 dy
 //     values in registers; then the 8 columns are summed in shared memory in
 //     a fixed order and the block writes one partial row [50, C slice].
-//     dwconv_reduce_kernel sums the partial rows in a fixed order. No float
-//     atomics: dw and db are the same bits on every launch.
+//     No float atomics: dw and db are the same bits on every launch.
 // The halo (2.5x the tile's outputs) is re-read from L2, not from HBM.
+//
+// dwconv_reduce_kernel sums the weight pass's R partial rows of N = 50 * C
+// f32 values (R = 322, 160, 80 at ConvNeXt-T's stages 0-2, batch 80) in one
+// launch, whatever R. It is bound by the bytes it must move, the partials
+// read once and the row written once (6.2 MB at stage 0, 1.8 us at HBM
+// rate), but at that size a launch lasts a few microseconds, so what counts
+// is how many loads are in flight: a block owns a strip of 32 columns
+// (16-byte loads, 8 lanes to a 128-byte row segment), each of its 8 warps a
+// fixed contiguous range of rows, 4 rows at a time with 8 independent loads
+// in flight per thread; the 4 row lanes are added by shuffles and the warps'
+// sums in shared memory in warp order. The order depends on (R, N) only, so
+// the sum is the same bits every launch; N / 32 blocks (150 at stage 0).
 //
 // Plain C interface for ctypes: each entry point returns cudaGetLastError()
 // after its launch, or -1 for a shape it does not take (C a multiple of 8
@@ -221,18 +233,57 @@ dwconv_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy, int H, in
   }
 }
 
-// out[g, n] = sum of part[r, n] over r in [g * G, min(R, (g + 1) * G)), in
-// ascending r: one thread per column, consecutive threads on consecutive n.
-__global__ void __launch_bounds__(256)
-dwconv_reduce_kernel(const float* __restrict__ part, int64_t R, int64_t N, int G,
+constexpr int kRedWarps = 8;
+constexpr int kRedStrip = 32;    // columns per block: 8 lanes of 4
+constexpr int kRedBatch = 8;     // loads in flight per thread
+
+// out[n] = sum over r of part[r, n] for the block's 32 columns. Warp w sums
+// rows [R * w / 8, R * (w + 1) / 8); its row lane l (lane / 8) takes every
+// fourth of them from the l-th on.
+__global__ void __launch_bounds__(kRedWarps * 32)
+dwconv_reduce_kernel(const float* __restrict__ part, int64_t R, int64_t N,
                      float* __restrict__ out) {
-  const int64_t n = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
-  if (n >= N) return;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * G;
-  const int64_t r1 = r0 + G < R ? r0 + G : R;
-  float acc = 0.0f;
-  for (int64_t r = r0; r < r1; ++r) acc += part[r * N + n];
-  out[static_cast<int64_t>(blockIdx.y) * N + n] = acc;
+  __shared__ float4 sums[kRedWarps][kRedStrip / 4];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rl = lane / 8, cl = lane % 8;
+  const int64_t n = static_cast<int64_t>(blockIdx.x) * kRedStrip + 4 * cl;
+  const int64_t r0 = R * warp / kRedWarps, r1 = R * (warp + 1) / kRedWarps;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (n < N) {
+    const float* col = part + n;
+    int64_t r = r0 + rl;
+    for (; r + 4 * (kRedBatch - 1) < r1; r += 4 * kRedBatch) {
+      float4 v[kRedBatch];
+#pragma unroll
+      for (int i = 0; i < kRedBatch; ++i)
+        v[i] = __ldg(reinterpret_cast<const float4*>(col + (r + 4 * i) * N));
+#pragma unroll
+      for (int i = 0; i < kRedBatch; ++i) {
+        acc.x += v[i].x; acc.y += v[i].y; acc.z += v[i].z; acc.w += v[i].w;
+      }
+    }
+    for (; r < r1; r += 4) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(col + r * N));
+      acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
+    }
+  }
+#pragma unroll
+  for (int o = 8; o < 32; o <<= 1) {
+    acc.x += __shfl_xor_sync(0xffffffffu, acc.x, o);
+    acc.y += __shfl_xor_sync(0xffffffffu, acc.y, o);
+    acc.z += __shfl_xor_sync(0xffffffffu, acc.z, o);
+    acc.w += __shfl_xor_sync(0xffffffffu, acc.w, o);
+  }
+  if (rl == 0) sums[warp][cl] = acc;
+  __syncthreads();
+  if (threadIdx.x < kRedStrip / 4 && n < N) {
+    float4 t = sums[0][threadIdx.x];
+    for (int w = 1; w < kRedWarps; ++w) {
+      const float4 v = sums[w][threadIdx.x];
+      t.x += v.x; t.y += v.y; t.z += v.z; t.w += v.w;
+    }
+    *reinterpret_cast<float4*>(out + n) = t;
+  }
 }
 
 bool shape_ok(int B, int H, int W, int C) {
@@ -305,14 +356,15 @@ int dwconv_wgrad(int dtype, const void* x, const void* dy, int B, int H, int W, 
                     : launch_wgrad<bf16>(x, dy, B, H, W, C, per_chunk, n_chunks, part, st);
 }
 
-// out[ceil(R / G), N] = sums of G consecutive rows of part[R, N] (f32).
-int dwconv_reduce(const void* part, int64_t R, int64_t N, int G, void* out, void* stream) {
-  if (R <= 0 || N <= 0 || G <= 0) return -1;
-  const int64_t groups = (R + G - 1) / G;
-  if (groups > 65535) return -1;
-  const dim3 grid(static_cast<unsigned>((N + 255) / 256), static_cast<unsigned>(groups));
-  dwconv_reduce_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part), R, N, G, static_cast<float*>(out));
+// out[N] = the sum of part[R, N] over R (f32), in one launch. N is a
+// multiple of 4 and both pointers are 16-byte aligned.
+int dwconv_reduce(const void* part, int64_t R, int64_t N, void* out, void* stream) {
+  if (R <= 0 || N <= 0 || N % 4 != 0 || reinterpret_cast<uintptr_t>(part) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 || (N + kRedStrip - 1) / kRedStrip >= (1 << 30))
+    return -1;
+  dwconv_reduce_kernel<<<static_cast<unsigned>((N + kRedStrip - 1) / kRedStrip),
+                         kRedWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), R, N, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

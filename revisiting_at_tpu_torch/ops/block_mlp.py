@@ -11,10 +11,10 @@ csrc/ replace its TPU kernels:
     with gamma folded into a bf16 W2 as the JAX wrapper does (same file);
   * the full backward replaces `_bwd_kernel` (csrc/block_mlp_bwd.cu): a row
     pass (ds, bf16 side outputs, per-block column sums), a weight pass
-    (dW1 and A = g16^T @ kdy16 over slices of M) and a fixed-order
-    reduction. The JAX package's two-pass variant of that kernel
-    (`_bwd_split`, its `split_bwd` knob) computes the same cotangents, so
-    the port has no second variant.
+    (dW1 and A = g16^T @ kdy16 over slices of M from `wgrad_plan`, TMA and
+    wgmma) and a fixed-order reduction. The JAX package's two-pass variant
+    of that kernel (`_bwd_split`, its `split_bwd` knob) computes the same
+    cotangents, so the port has no second variant.
 
 The kernels are bound to PyTorch with ctypes and built with nvcc at first
 use into build/kernels/ (ops/cuda_build.py). The sources name what bounds
@@ -46,6 +46,37 @@ _EPS = 1e-6
 
 # rows summed per thread in one level of the fixed-order reduction
 _REDUCE_GROUP = 64
+
+# The weight pass's tiling (csrc/block_mlp_bwd.cu): 64-row slices of M per
+# ring stage; 128 columns of the wide operand (4C) per block, two consumer
+# warpgroups of 64; the narrow operand (C columns) in chunks of at most 256,
+# each a multiple of 64; at most 64 slices of M (one reduction level);
+# blocks for the H100's 132 SMs.
+WGRAD_DEPTH = 64
+_WGRAD_SMS = 132
+
+
+def _wgrad_tiles(C: int) -> int:
+    """Blocks per slice of M: output tiles of 128 x chunk."""
+    return -(-4 * C // 128) * -(-C // 256)
+
+
+def wgrad_plan(m_pad: int, P: int, Q: int) -> tuple[int, int]:
+    """(rows per slice, slices) of the M axis for the weight pass on
+    x [m_pad, P]^T @ y [m_pad, Q], one of P, Q four times the other.
+
+    Chosen from the shapes alone, so the partials and their fixed-order sum
+    are the same bits on every run: as many slices as let the blocks (one
+    per output tile and slice) fill the 132 SMs in one wave, at most 64 so
+    that one reduction launch sums them, each a whole number of 64-row ring
+    stages; every slice holds rows."""
+    C = min(P, Q)
+    if max(P, Q) != 4 * C or m_pad <= 0 or m_pad % WGRAD_DEPTH:
+        raise ValueError(f"wgrad_plan: expected [m_pad, C] and [m_pad, 4C] with m_pad a "
+                         f"multiple of {WGRAD_DEPTH}, got m_pad={m_pad}, P={P}, Q={Q}")
+    n_split = max(1, min(_REDUCE_GROUP, _WGRAD_SMS // _wgrad_tiles(C), m_pad // WGRAD_DEPTH))
+    rows = -(-m_pad // n_split // WGRAD_DEPTH) * WGRAD_DEPTH
+    return rows, -(-m_pad // rows)
 
 
 def tail_fusable(C: int, grad_mode: str, wide: bool = False) -> bool:
@@ -221,13 +252,24 @@ def _ptr(t):
 
 
 def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of t's device as a raw handle, without building a
+    torch.cuda.Stream (which costs more host time than the launch itself)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def _call_on(dev, fn, *args):
+    """fn(*args) in dev's context, entered only when dev is not current."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
 
 
 def _raise_on(err, what):
     if err != 0:
+        cause = {-1: "unsupported width", -2: "cuTensorMapEncodeTiled failed"}
         raise RuntimeError(f"block_mlp {what} kernel launch failed: "
-                           f"{'unsupported width' if err == -1 else f'cudaError {err}'}")
+                           f"{cause.get(err, f'cudaError {err}')}")
 
 
 def fwd_cuda(s, r, keep, rows_per_keep, ln_g, ln_b, w1_16, b1, w2_16, b2, gamma):
@@ -294,21 +336,17 @@ def bwd_full_rows_cuda(s, keep, rows_per_keep, ln_g, ln_b, w1_16, b1, w2g16, dy)
 
 def wgrad_partials_cuda(x16, y16):
     """Launch the weight pass: per-slice partials [n_split, P, Q] (f32) of
-    x16^T @ y16 from bf16 x16 [Mpad, P] and y16 [Mpad, Q]. The M axis is cut
-    into slices so that about 768 blocks fill the card; the cut depends on
-    the shapes only, so the summed result is the same bits every run."""
+    x16^T @ y16 from bf16 x16 [Mpad, P] and y16 [Mpad, Q], one of P, Q four
+    times the other, Mpad a multiple of 64. The slices of M are
+    `wgrad_plan`'s."""
     m_pad, P = x16.shape
     Q = y16.shape[1]
     _check("x16", x16, (m_pad, P), torch.bfloat16, x16.device)
     _check("y16", y16, (m_pad, Q), torch.bfloat16, x16.device)
-    tiles = P * Q // 4096  # 32 x 128 output tiles
-    n_split = max(1, min(-(-768 // tiles), m_pad // 256))
-    rows = -(-m_pad // n_split // 32) * 32
-    n_split = -(-m_pad // rows)
+    rows, n_split = wgrad_plan(m_pad, P, Q)
     part = torch.empty(n_split, P, Q, dtype=torch.float32, device=x16.device)
-    with torch.cuda.device(x16.device):
-        err = _lib().block_mlp_wgrad(_ptr(x16), P, _ptr(y16), Q, m_pad, rows, n_split,
-                                     _ptr(part), _stream(x16))
+    err = _call_on(x16.device, _lib().block_mlp_wgrad, _ptr(x16), P, _ptr(y16), Q, m_pad, rows,
+                   n_split, _ptr(part), _stream(x16))
     _raise_on(err, "weight-gradient")
     LAUNCHES["wgrad"] += 1
     return part
@@ -329,9 +367,8 @@ def reduce_cuda(part):
     while part.shape[0] > 1:
         R, N = part.shape
         out = torch.empty(-(-R // _REDUCE_GROUP), N, dtype=torch.float32, device=part.device)
-        with torch.cuda.device(part.device):
-            err = _lib().block_mlp_reduce(_ptr(part), R, N, _REDUCE_GROUP, _ptr(out),
-                                          _stream(part))
+        err = _call_on(part.device, _lib().block_mlp_reduce, _ptr(part), R, N, _REDUCE_GROUP,
+                       _ptr(out), _stream(part))
         _raise_on(err, "reduction")
         LAUNCHES["reduce"] += 1
         part = out

@@ -10,7 +10,8 @@ Hand-written Hopper kernels in csrc/dwconv.cu replace its TPU kernels:
     replaces `_bwd_kernel`'s input cotangent (the forward kernel with a
     template flag);
   * dw and db replace the rest of `_bwd_kernel`: a weight pass writes
-    per-block partials and a reduction sums them in a fixed order.
+    per-block partials and a reduction sums them in a fixed order, in one
+    launch whatever their number.
 
 The JAX package's `dwconv7x7_v2` runs other TPU kernels (`_fwd_kernel_v2`,
 `_bwd_kernel_v2`) that differ from v1 only in how the TPU schedules its
@@ -49,8 +50,6 @@ TAPS = K * K
 # Launches of each kernel, counted where the wrapper launches it.
 LAUNCHES = {"fwd": 0, "dx": 0, "wgrad": 0, "reduce": 0}
 
-# rows summed per thread in one level of the fixed-order reduction
-_REDUCE_GROUP = 64
 # blocks the weight pass aims for: the (image, band) tiles are cut into
 # chunks, one per block and column tile, so that about this many fill the card
 _WGRAD_BLOCKS = 1024
@@ -123,7 +122,7 @@ def _lib():
             "dwconv_parts": [],
             "dwconv_fwd": [I, I, Pt, Pt, Pt, Pt, I, I, I, I, Pt],
             "dwconv_wgrad": [I, Pt, Pt, I, I, I, I, L, I, Pt, Pt],
-            "dwconv_reduce": [Pt, L, L, I, Pt, Pt],
+            "dwconv_reduce": [Pt, L, L, Pt, Pt],
         }))
     return _lib_handle
 
@@ -156,7 +155,17 @@ def _check_vec(name, t, shape, device):
 
 
 def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of t's device as a raw handle, without building a
+    torch.cuda.Stream (which costs more host time than the launch itself)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def _call_on(dev, fn, *args):
+    """fn(*args) in dev's context, entered only when dev is not current."""
+    if dev.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
 
 
 def _raise_on(err, what):
@@ -216,21 +225,20 @@ def wgrad_partials_cuda(x, dy):
 
 
 def reduce_cuda(part):
-    """Sum part [R, N] f32 over R in a fixed order: levels of the reduction
-    kernel, each summing groups of consecutive rows, until one row is left."""
+    """Sum part [R, N] f32 over R in a fixed order, in one launch: [N].
+    The host work is one allocation and one call (the device context only
+    when the tensor is not on the current device)."""
     if part.dtype != torch.float32 or part.dim() != 2 or not part.is_contiguous():
         raise ValueError(f"part: expected contiguous float32 [R, N], got {part.dtype} "
                          f"{tuple(part.shape)}")
-    while part.shape[0] > 1:
-        R, N = part.shape
-        out = torch.empty(-(-R // _REDUCE_GROUP), N, dtype=torch.float32, device=part.device)
-        with torch.cuda.device(part.device):
-            err = _lib().dwconv_reduce(part.data_ptr(), R, N, _REDUCE_GROUP, out.data_ptr(),
-                                       _stream(part))
-        _raise_on(err, "reduction")
-        LAUNCHES["reduce"] += 1
-        part = out
-    return part[0]
+    R, N = part.shape
+    dev = part.device
+    out = part.new_empty(N)
+    # the kernel refuses an N that is not a multiple of 4 or a misaligned row
+    err = _call_on(dev, _lib().dwconv_reduce, part.data_ptr(), R, N, out.data_ptr(), _stream(part))
+    _raise_on(err, "reduction")
+    LAUNCHES["reduce"] += 1
+    return out
 
 
 def wgrad_cuda(x, dy):

@@ -162,6 +162,7 @@ def _rel(a, b):
     (40, 16, 1, None),           # M not a multiple of any power-of-two tile
     (147, 768, 1, None),         # one ConvNeXt-T stage-3 block at 3 x 7x7
     (2 * 24, 16, 2, [1.0, 0.5]),  # per-sample DropPath scale
+    (2 * 12, 432, 2, [1.0, 0.5]),  # convnext_iso's width (updated=1): C % 32 != 0
 ])
 def test_block_tail_plain_matches_jax_interpret(M, C, B, keep):
     d = tail_inputs(M, C)
@@ -228,6 +229,66 @@ def test_full_backward_never_falls_back():
         tbm.block_mlp_bwd_full(m["s"], None, 8, m["ln_g"], m["ln_b"], m["w1"], m["b1"],
                                m["w2"], m["b2"], m["gamma"], m["dy"])
     assert tbm.LAUNCHES == before
+
+
+def _built_widths():
+    """The widths the tail kernels are built for (BLOCK_MLP_WIDTHS in csrc)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tbm.__file__).resolve().parents[1] / "csrc" / "block_mlp_common.cuh").read_text()
+    line = next(ln for ln in src.splitlines() if ln.startswith("#define BLOCK_MLP_WIDTHS"))
+    return [int(w) for w in re.findall(r"X\((\d+)\)", line)]
+
+
+def _row_pad(M):
+    return -(-M // tbm.WGRAD_DEPTH) * tbm.WGRAD_DEPTH
+
+
+# the main path's full-backward shapes (M rows, C): ConvNeXt-T stages 0-2 at
+# batch 80 and 200, ViT-S at batch 80 (197 tokens), convnext_iso's C = 432 at
+# batch 80, and tiny M
+WGRAD_PLAN_SHAPES = ([(rows * b, C) for b in (80, 200) for rows, C in ((3136, 96), (784, 192),
+                                                                       (196, 384))]
+                     + [(197 * 80, 384), (196 * 80, 432), (1, 96), (64, 384), (65, 432)])
+
+
+@pytest.mark.parametrize("M,C", WGRAD_PLAN_SHAPES + [(196 * 2 + 8, None)])
+def test_wgrad_plan_covers_m_in_whole_stages(M, C):
+    """The weight pass's slices of M: they cover [0, Mpad) exactly, each a
+    whole number of 64-row ring stages and none empty, at most 64 of them
+    (one reduction launch), as many as fill the 132 SMs with one block per
+    output tile and slice; the same for both products (dW1 [C, 4C] and A
+    [4C, C]) and from the shapes alone. C None: every built width."""
+    assert 432 in _built_widths()
+    for c in ([C] if C else _built_widths()):
+        m_pad = _row_pad(M)
+        plans = {tbm.wgrad_plan(m_pad, c, 4 * c), tbm.wgrad_plan(m_pad, 4 * c, c),
+                 tbm.wgrad_plan(m_pad, c, 4 * c)}
+        assert len(plans) == 1, (M, c, plans)
+        rows, n_split = plans.pop()
+        assert rows % tbm.WGRAD_DEPTH == 0 and rows > 0
+        assert 1 <= n_split <= 64
+        assert (n_split - 1) * rows < m_pad <= n_split * rows  # every slice holds rows
+        tiles = tbm._wgrad_tiles(c)
+        assert n_split * tiles <= 132 or n_split == 1, (c, n_split, tiles)
+        if m_pad >= 64 * 64:  # enough rows: the card is filled
+            assert (n_split + 1) * tiles > 132 or n_split == 64, (c, n_split, tiles)
+
+
+def test_wgrad_plan_main_path_values():
+    """The slices the H100 runs at ConvNeXt-T's stages 0-2 and ViT-S,
+    batch 80 (3, 6, 24 and 24 tiles of 128 x 128 or 192 columns): 44, 22,
+    5 and 5 of them, so one reduction launch each."""
+    assert [tbm._wgrad_tiles(c) for c in (96, 192, 384, 432)] == [3, 6, 24, 28]
+    assert tbm.wgrad_plan(250880, 96, 384) == (5760, 44)
+    assert tbm.wgrad_plan(62720, 192, 768) == (2880, 22)
+    assert tbm.wgrad_plan(15680, 1536, 384) == (3136, 5)
+    assert tbm.wgrad_plan(_row_pad(15760), 384, 1536) == (3200, 5)
+    with pytest.raises(ValueError):
+        tbm.wgrad_plan(100, 96, 384)  # not a multiple of 64
+    with pytest.raises(ValueError):
+        tbm.wgrad_plan(128, 96, 96)  # not [C] x [4C]
 
 
 @pytest.mark.parametrize("mode", ["input", "full"])

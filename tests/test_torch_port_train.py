@@ -67,6 +67,7 @@ T = torch.from_numpy
     (2 * 24, 16, 2, [1.0, 0.5], "full"),  # per-sample DropPath scale
     (196, 384, 1, None, "full"),          # one ConvNeXt-T stage-2 block at 14x14
     (2 * 24, 16, 2, [1.0, 0.5], "split"),  # the JAX package's _bwd_split
+    (2 * 12, 432, 2, [1.0, 0.5], "full"),  # convnext_iso's width (updated=1): C % 32 != 0
 ])
 def test_full_backward_matches_jax(M, C, B, keep, jax_mode):
     """All nine cotangents (keep gets none) of the port's full backward on
