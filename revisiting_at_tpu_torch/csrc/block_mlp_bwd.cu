@@ -19,7 +19,8 @@
 //      (db1, summed before the bf16 cast as JAX does), of du * xhat and of du.
 //   2. wgrad_kernel, the weight pass: f32 partials of X^T @ Y over slices of
 //      the M rows, for dW1 (X = u16, Y = dh16) and A (X = g16, Y = kdy16).
-//   3. reduce_kernel sums partials over their leading axis in a fixed order.
+//   3. reduce_kernel sums partials over their leading axis in a fixed order
+//      (the weight pass's in the same call that launches the pass).
 // No float atomics anywhere: ds and the weight cotangents are the same bits
 // from run to run. Rows past M (padding to a multiple of 64) are written as
 // zeros by the row pass, so they add nothing to any column sum or product.
@@ -42,15 +43,14 @@
 //     of the same M slice, and those blocks have adjacent indices and run in
 //     the same wave, so the re-reads hit L2.
 //   * The M axis is cut into at most 64 slices, chosen from the shapes alone
-//     (ops/block_mlp.py wgrad_plan) so that blocks fill the 132 SMs in one
-//     wave; reduce_kernel then sums the partials in one launch per product.
+//     (ops/block_mlp.py wgrad_plan): one wave of as many blocks as keep HBM
+//     busy (84 of the 132 SMs, measured) or as the tensor work needs where
+//     that is more (C >= 384: all 132). reduce_kernel then sums the
+//     partials, launched in the same call as the pass.
 // 288 threads (two warpgroups and the producer warp) leave each thread 224
-// registers, enough for a 64 x 256 f32 accumulator, so no setmaxnreg. On
-// the H100, three consumer warpgroups (192 wide columns per block, a fifth
-// less re-read from L2), a ring as deep as shared memory holds (5-7
-// stages) and one stage of wgmma kept in flight were no faster. At stage 2
-// (C = 384) the pass is near both of its limits: 18.7 us of tensor-core
-// time against 18 us of bytes.
+// registers, enough for a 64 x 256 f32 accumulator, so no setmaxnreg. At
+// stage 2 (C = 384) the pass is near both of its limits: 18.7 us of
+// tensor-core time against 18 us of bytes.
 // The side buffers themselves are the two-pass design's cost (2 * 5C bf16
 // values per row, written once by the row pass and read once here): the
 // TPU kernel accumulates dW1 and A in VMEM inside its row loop.
@@ -299,9 +299,11 @@ int block_mlp_bwd_full_rows(int C, int dtype, const void* s, const void* keep,
 // x[Mpad, P]^T @ y[Mpad, Q] (bf16, row-major). One of P, Q is 4 times the
 // other (C, a multiple of 8 from 72 to 1024: every width the row pass is
 // built for); Mpad and rows_per_split are multiples of 64 and every split
-// holds rows.
+// holds rows. When out is not null, reduce_kernel then sums the partials
+// in split order into out[P, Q] (f32), in the same call: the wrapper's host
+// work is one call for the whole product.
 int block_mlp_wgrad(const void* x, int P, const void* y, int Q, int64_t Mpad,
-                    int64_t rows_per_split, int n_split, void* part, void* stream) {
+                    int64_t rows_per_split, int n_split, void* part, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool x_wide = P == 4 * Q;
   if (!x_wide && Q != 4 * P) return -1;
@@ -318,13 +320,18 @@ int block_mlp_wgrad(const void* x, int P, const void* y, int Q, int64_t Mpad,
   if (!make_map(&wide, x_wide ? x : y, Mpad, 4 * C) || !make_map(&narrow, x_wide ? y : x, Mpad, C))
     return -2;
   const int transposed = x_wide ? 0 : 1;  // dW1 = u16^T @ dh16 is [C, 4C]
-#define LAUNCH(N)                                                                          \
-  if (nch == N)                                                                            \
-    return launch_wgrad<N>(wide, narrow, 4 * C, C, n_chunks, Mpad, rows_per_split, n_split, \
-                           transposed, part, st);
+  int err = -1;
+#define LAUNCH(N)                                                                         \
+  if (nch == N)                                                                           \
+    err = launch_wgrad<N>(wide, narrow, 4 * C, C, n_chunks, Mpad, rows_per_split, n_split, \
+                          transposed, part, st);
   LAUNCH(128) LAUNCH(192) LAUNCH(256)
 #undef LAUNCH
-  return -1;
+  if (err != 0 || out == nullptr) return err;
+  const int64_t N = int64_t{P} * Q;  // one group of n_split rows
+  reduce_kernel<<<dim3(static_cast<unsigned>((N + 255) / 256), 1), 256, 0, st>>>(
+      static_cast<const float*>(part), n_split, N, n_split, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out[ceil(R / G), N] = sums of G consecutive rows of part[R, N] (f32).

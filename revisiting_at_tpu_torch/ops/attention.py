@@ -159,10 +159,6 @@ def _check_like(name, t, shape, dtype, device):
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _raise_on(err, what):
     if err != 0:
         raise RuntimeError(f"attention {what} kernel launch failed: "
@@ -173,8 +169,7 @@ def attention_fwd_cuda(qkv, num_heads):
     """Launch the forward kernel: o [B, N, D] bf16."""
     B, N, H = _check_qkv(qkv, num_heads)
     o = torch.empty(B, N, qkv.shape[-1] // 3, dtype=qkv.dtype, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        err = _lib().attention_fwd(qkv.data_ptr(), o.data_ptr(), B, N, H, _stream(qkv))
+    err = cuda_build.launch(qkv, _lib().attention_fwd, qkv.data_ptr(), o.data_ptr(), B, N, H)
     _raise_on(err, "forward")
     LAUNCHES["fwd"] += 1
     return o
@@ -188,9 +183,8 @@ def attention_bwd_rows_cuda(qkv, do, num_heads):
     _check_like("do", do, (B, N, qkv.shape[-1] // 3), qkv.dtype, qkv.device)
     stats = torch.empty(B, H, 3, -(-N // 64) * 64, dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)
-    with torch.cuda.device(qkv.device):
-        err = _lib().attention_bwd_rows(qkv.data_ptr(), do.data_ptr(), stats.data_ptr(),
-                                        dqkv.data_ptr(), B, N, H, _stream(qkv))
+    err = cuda_build.launch(qkv, _lib().attention_bwd_rows, qkv.data_ptr(), do.data_ptr(),
+                            stats.data_ptr(), dqkv.data_ptr(), B, N, H)
     _raise_on(err, "backward row")
     LAUNCHES["bwd_rows"] += 1
     return dqkv, stats
@@ -203,9 +197,8 @@ def attention_bwd_cols_cuda(qkv, do, num_heads, stats, dqkv):
     _check_like("do", do, (B, N, qkv.shape[-1] // 3), qkv.dtype, qkv.device)
     _check_like("stats", stats, (B, H, 3, -(-N // 64) * 64), torch.float32, qkv.device)
     _check_like("dqkv", dqkv, qkv.shape, qkv.dtype, qkv.device)
-    with torch.cuda.device(qkv.device):
-        err = _lib().attention_bwd_cols(qkv.data_ptr(), do.data_ptr(), stats.data_ptr(),
-                                        dqkv.data_ptr(), B, N, H, _stream(qkv))
+    err = cuda_build.launch(qkv, _lib().attention_bwd_cols, qkv.data_ptr(), do.data_ptr(),
+                            stats.data_ptr(), dqkv.data_ptr(), B, N, H)
     _raise_on(err, "backward column")
     LAUNCHES["bwd_cols"] += 1
     return dqkv

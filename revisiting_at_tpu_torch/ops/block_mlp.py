@@ -51,14 +51,41 @@ _REDUCE_GROUP = 64
 # ring stage; 128 columns of the wide operand (4C) per block, two consumer
 # warpgroups of 64; the narrow operand (C columns) in chunks of at most 256,
 # each a multiple of 64; at most 64 slices of M (one reduction level);
-# blocks for the H100's 132 SMs.
+# blocks for the H100's 132 SMs, in one wave.
 WGRAD_DEPTH = 64
 _WGRAD_SMS = 132
+# Blocks that keep HBM busy in the weight pass where the tensor cores have
+# time to spare. On the H100, 84 blocks (28 and 14 slices at ConvNeXt-T's
+# stages 0 and 1, batch 80) beat a full wave (44 and 22 slices) by 3-5% of
+# device time, more than the spread over five rounds, and beat 48-66 blocks
+# too (tools/wgrad_slices.py); more blocks only add partials.
+_WGRAD_HBM_BLOCKS = 84
+# the H100 SXM's HBM rate over its dense bf16 tensor-core rate: bytes per flop
+_WGRAD_BYTES_PER_FLOP = 3.35e12 / 989e12
+
+
+def _wgrad_chunks(C: int) -> tuple[int, int]:
+    """(chunks, columns per chunk) of the narrow operand: at most 256
+    columns each, padded to a multiple of 64."""
+    n = -(-C // 256)
+    per_chunk = -(-C // n)
+    return n, -(-per_chunk // 64) * 64
 
 
 def _wgrad_tiles(C: int) -> int:
     """Blocks per slice of M: output tiles of 128 x chunk."""
-    return -(-4 * C // 128) * -(-C // 256)
+    return -(-4 * C // 128) * _wgrad_chunks(C)[0]
+
+
+def _wgrad_blocks(C: int) -> int:
+    """Blocks the weight pass aims to run at width C, in one wave: those
+    that keep HBM busy, or as many as its tensor work needs where that is
+    more. Per row of M it reads 10 * C bytes and issues 8 * C * (chunks *
+    columns per chunk) flops; the ratio of their times at the peak rates is
+    the share of the SMs that the tensor work needs."""
+    chunks, width = _wgrad_chunks(C)
+    ops_share = 0.8 * chunks * width * _WGRAD_BYTES_PER_FLOP
+    return min(_WGRAD_SMS, max(_WGRAD_HBM_BLOCKS, math.ceil(ops_share * _WGRAD_SMS)))
 
 
 def wgrad_plan(m_pad: int, P: int, Q: int) -> tuple[int, int]:
@@ -67,14 +94,15 @@ def wgrad_plan(m_pad: int, P: int, Q: int) -> tuple[int, int]:
 
     Chosen from the shapes alone, so the partials and their fixed-order sum
     are the same bits on every run: as many slices as let the blocks (one
-    per output tile and slice) fill the 132 SMs in one wave, at most 64 so
-    that one reduction launch sums them, each a whole number of 64-row ring
+    per output tile and slice) reach `_wgrad_blocks`, at most 64 so that
+    one reduction launch sums them, each a whole number of 64-row ring
     stages; every slice holds rows."""
     C = min(P, Q)
     if max(P, Q) != 4 * C or m_pad <= 0 or m_pad % WGRAD_DEPTH:
         raise ValueError(f"wgrad_plan: expected [m_pad, C] and [m_pad, 4C] with m_pad a "
                          f"multiple of {WGRAD_DEPTH}, got m_pad={m_pad}, P={P}, Q={Q}")
-    n_split = max(1, min(_REDUCE_GROUP, _WGRAD_SMS // _wgrad_tiles(C), m_pad // WGRAD_DEPTH))
+    n_split = max(1, min(_REDUCE_GROUP, _wgrad_blocks(C) // _wgrad_tiles(C),
+                         m_pad // WGRAD_DEPTH))
     rows = -(-m_pad // n_split // WGRAD_DEPTH) * WGRAD_DEPTH
     return rows, -(-m_pad // rows)
 
@@ -210,7 +238,7 @@ def _lib():
             "block_mlp_row_pad": [],
             "block_mlp_bwd_full_rows": [I, I, P, P, I, P, P, P, P, P, P, P, L, L,
                                         P, P, P, P, P, P, P, P],
-            "block_mlp_wgrad": [P, I, P, I, L, L, I, P, P],
+            "block_mlp_wgrad": [P, I, P, I, L, L, I, P, P, P],
             "block_mlp_reduce": [P, L, L, I, P, P],
         }))
         _lib_handle = types.SimpleNamespace(**fns)
@@ -251,20 +279,6 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _stream(t):
-    """The current stream of t's device as a raw handle, without building a
-    torch.cuda.Stream (which costs more host time than the launch itself)."""
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
-
-
-def _call_on(dev, fn, *args):
-    """fn(*args) in dev's context, entered only when dev is not current."""
-    if dev.index == torch.cuda.current_device():
-        return fn(*args)
-    with torch.cuda.device(dev):
-        return fn(*args)
-
-
 def _raise_on(err, what):
     if err != 0:
         cause = {-1: "unsupported width", -2: "cuTensorMapEncodeTiled failed"}
@@ -282,11 +296,10 @@ def fwd_cuda(s, r, keep, rows_per_keep, ln_g, ln_b, w1_16, b1, w2_16, b2, gamma)
     y = torch.empty_like(s)
     if M == 0:
         return y
-    with torch.cuda.device(s.device):
-        err = _lib().block_mlp_fwd(
-            C, _DTYPE_CODE[s.dtype], _ptr(s), _ptr(r), _ptr(keep), rows_per_keep,
-            _ptr(ln_g), _ptr(ln_b), _ptr(w1_16), _ptr(b1), _ptr(w2_16), _ptr(b2),
-            _ptr(gamma), _ptr(y), M, _stream(s))
+    err = cuda_build.launch(
+        s, _lib().block_mlp_fwd, C, _DTYPE_CODE[s.dtype], _ptr(s), _ptr(r), _ptr(keep),
+        rows_per_keep, _ptr(ln_g), _ptr(ln_b), _ptr(w1_16), _ptr(b1), _ptr(w2_16), _ptr(b2),
+        _ptr(gamma), _ptr(y), M)
     _raise_on(err, "forward")
     LAUNCHES["fwd"] += 1
     return y
@@ -300,10 +313,10 @@ def bwd_input_cuda(s, keep, rows_per_keep, ln_g, ln_b, w1_16, b1, w2g16, dy):
     ds = torch.empty_like(s)
     if M == 0:
         return ds
-    with torch.cuda.device(s.device):
-        err = _lib().block_mlp_bwd_input(
-            C, _DTYPE_CODE[s.dtype], _ptr(s), _ptr(keep), rows_per_keep, _ptr(ln_g),
-            _ptr(ln_b), _ptr(w1_16), _ptr(b1), _ptr(w2g16), _ptr(dy), _ptr(ds), M, _stream(s))
+    err = cuda_build.launch(
+        s, _lib().block_mlp_bwd_input, C, _DTYPE_CODE[s.dtype], _ptr(s), _ptr(keep),
+        rows_per_keep, _ptr(ln_g), _ptr(ln_b), _ptr(w1_16), _ptr(b1), _ptr(w2g16), _ptr(dy),
+        _ptr(ds), M)
     _raise_on(err, "input-backward")
     LAUNCHES["bwd_input"] += 1
     return ds
@@ -324,14 +337,30 @@ def bwd_full_rows_cuda(s, keep, rows_per_keep, ln_g, ln_b, w1_16, b1, w2g16, dy)
               (m_pad // bm, 4 * C, f32), (m_pad // bm, C, f32), (m_pad // bm, C, f32))
     side = tuple(torch.empty(r, c, dtype=t, device=s.device) for r, c, t in shapes)
     ds = torch.empty_like(s)
-    with torch.cuda.device(s.device):
-        err = lib.block_mlp_bwd_full_rows(
-            C, _DTYPE_CODE[s.dtype], _ptr(s), _ptr(keep), rows_per_keep, _ptr(ln_g), _ptr(ln_b),
-            _ptr(w1_16), _ptr(b1), _ptr(w2g16), _ptr(dy), _ptr(ds), M, m_pad,
-            *(_ptr(t) for t in side), _stream(s))
+    err = cuda_build.launch(
+        s, lib.block_mlp_bwd_full_rows, C, _DTYPE_CODE[s.dtype], _ptr(s), _ptr(keep),
+        rows_per_keep, _ptr(ln_g), _ptr(ln_b), _ptr(w1_16), _ptr(b1), _ptr(w2g16), _ptr(dy),
+        _ptr(ds), M, m_pad, *(_ptr(t) for t in side))
     _raise_on(err, "full-backward row")
     LAUNCHES["bwd_full_rows"] += 1
     return (ds,) + side
+
+
+def _wgrad_launch(x16, y16, summed: bool):
+    m_pad, P = x16.shape
+    Q = y16.shape[1]
+    _check("x16", x16, (m_pad, P), torch.bfloat16, x16.device)
+    _check("y16", y16, (m_pad, Q), torch.bfloat16, x16.device)
+    rows, n_split = wgrad_plan(m_pad, P, Q)
+    part = torch.empty(n_split, P, Q, dtype=torch.float32, device=x16.device)
+    out = torch.empty(P, Q, dtype=torch.float32, device=x16.device) if summed else None
+    err = cuda_build.launch(x16, _lib().block_mlp_wgrad, _ptr(x16), P, _ptr(y16), Q, m_pad, rows,
+                            n_split, _ptr(part), _ptr(out))
+    _raise_on(err, "weight-gradient")
+    LAUNCHES["wgrad"] += 1
+    if summed:
+        LAUNCHES["reduce"] += 1
+    return out if summed else part
 
 
 def wgrad_partials_cuda(x16, y16):
@@ -339,25 +368,14 @@ def wgrad_partials_cuda(x16, y16):
     x16^T @ y16 from bf16 x16 [Mpad, P] and y16 [Mpad, Q], one of P, Q four
     times the other, Mpad a multiple of 64. The slices of M are
     `wgrad_plan`'s."""
-    m_pad, P = x16.shape
-    Q = y16.shape[1]
-    _check("x16", x16, (m_pad, P), torch.bfloat16, x16.device)
-    _check("y16", y16, (m_pad, Q), torch.bfloat16, x16.device)
-    rows, n_split = wgrad_plan(m_pad, P, Q)
-    part = torch.empty(n_split, P, Q, dtype=torch.float32, device=x16.device)
-    err = _call_on(x16.device, _lib().block_mlp_wgrad, _ptr(x16), P, _ptr(y16), Q, m_pad, rows,
-                   n_split, _ptr(part), _stream(x16))
-    _raise_on(err, "weight-gradient")
-    LAUNCHES["wgrad"] += 1
-    return part
+    return _wgrad_launch(x16, y16, summed=False)
 
 
 def wgrad_cuda(x16, y16):
-    """x16^T @ y16 [P, Q] in f32: the weight pass, then the fixed-order sum
-    of its partials. Types as wgrad_plain."""
-    part = wgrad_partials_cuda(x16, y16)
-    n_split, P, Q = part.shape
-    return reduce_cuda(part.view(n_split, P * Q)).view(P, Q)
+    """x16^T @ y16 [P, Q] in f32: the weight pass, then the reduction kernel
+    summing its partials in slice order, both launched by one call. Types as
+    wgrad_plain."""
+    return _wgrad_launch(x16, y16, summed=True)
 
 
 def reduce_cuda(part):
@@ -367,8 +385,8 @@ def reduce_cuda(part):
     while part.shape[0] > 1:
         R, N = part.shape
         out = torch.empty(-(-R // _REDUCE_GROUP), N, dtype=torch.float32, device=part.device)
-        err = _call_on(part.device, _lib().block_mlp_reduce, _ptr(part), R, N, _REDUCE_GROUP,
-                       _ptr(out), _stream(part))
+        err = cuda_build.launch(part, _lib().block_mlp_reduce, _ptr(part), R, N, _REDUCE_GROUP,
+                                _ptr(out))
         _raise_on(err, "reduction")
         LAUNCHES["reduce"] += 1
         part = out

@@ -19,6 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # one shared library per source
 SOURCES = {"block_mlp": CSRC / "block_mlp.cu", "block_mlp_bwd": CSRC / "block_mlp_bwd.cu",
@@ -79,6 +81,19 @@ def build() -> dict[str, Path]:
         if failed:
             raise RuntimeError("\n".join(failed))
     return libs
+
+
+def launch(t, fn, *args) -> int:
+    """fn(*args, stream) for a kernel on t's device: stream is the raw handle
+    of that device's current stream (no torch.cuda.Stream is built, which
+    would cost more host time than the launch), and the device context is
+    entered only when t's device is not the current one. Every ctypes launch
+    of the port goes through here; returns fn's error code."""
+    stream = torch._C._cuda_getCurrentRawStream(t.device.index)
+    if t.device.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(t.device):
+        return fn(*args, stream)
 
 
 def load(name: str, signatures: dict[str, list]) -> dict[str, ctypes._CFuncPtr]:

@@ -154,20 +154,6 @@ def _check_vec(name, t, shape, device):
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _stream(t):
-    """The current stream of t's device as a raw handle, without building a
-    torch.cuda.Stream (which costs more host time than the launch itself)."""
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
-
-
-def _call_on(dev, fn, *args):
-    """fn(*args) in dev's context, entered only when dev is not current."""
-    if dev.index == torch.cuda.current_device():
-        return fn(*args)
-    with torch.cuda.device(dev):
-        return fn(*args)
-
-
 def _raise_on(err, what):
     if err != 0:
         raise RuntimeError(f"dwconv {what} kernel launch failed: "
@@ -180,10 +166,9 @@ def _launch_stencil(src, w49, b, dx: bool):
     if not dx:
         _check_vec("b", b, (C,), src.device)
     out = torch.empty_like(src)
-    with torch.cuda.device(src.device):
-        err = _lib().dwconv_fwd(_DTYPE_CODE[src.dtype], int(dx), src.data_ptr(), w49.data_ptr(),
-                                None if dx else b.data_ptr(), out.data_ptr(), B, H, W, C,
-                                _stream(src))
+    err = cuda_build.launch(src, _lib().dwconv_fwd, _DTYPE_CODE[src.dtype], int(dx),
+                            src.data_ptr(), w49.data_ptr(), None if dx else b.data_ptr(),
+                            out.data_ptr(), B, H, W, C)
     _raise_on(err, "dx" if dx else "forward")
     LAUNCHES["dx" if dx else "fwd"] += 1
     return out
@@ -216,9 +201,8 @@ def wgrad_partials_cuda(x, dy):
     n_chunks = -(-items // per_chunk)
     part = torch.empty(n_chunks * ctiles, lib.dwconv_parts() * C, dtype=torch.float32,
                        device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.dwconv_wgrad(_DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(), B, H, W, C,
-                               per_chunk, n_chunks, part.data_ptr(), _stream(x))
+    err = cuda_build.launch(x, lib.dwconv_wgrad, _DTYPE_CODE[x.dtype], x.data_ptr(),
+                            dy.data_ptr(), B, H, W, C, per_chunk, n_chunks, part.data_ptr())
     _raise_on(err, "weight-gradient")
     LAUNCHES["wgrad"] += 1
     return part
@@ -232,10 +216,9 @@ def reduce_cuda(part):
         raise ValueError(f"part: expected contiguous float32 [R, N], got {part.dtype} "
                          f"{tuple(part.shape)}")
     R, N = part.shape
-    dev = part.device
     out = part.new_empty(N)
     # the kernel refuses an N that is not a multiple of 4 or a misaligned row
-    err = _call_on(dev, _lib().dwconv_reduce, part.data_ptr(), R, N, out.data_ptr(), _stream(part))
+    err = cuda_build.launch(part, _lib().dwconv_reduce, part.data_ptr(), R, N, out.data_ptr())
     _raise_on(err, "reduction")
     LAUNCHES["reduce"] += 1
     return out

@@ -257,9 +257,10 @@ WGRAD_PLAN_SHAPES = ([(rows * b, C) for b in (80, 200) for rows, C in ((3136, 96
 def test_wgrad_plan_covers_m_in_whole_stages(M, C):
     """The weight pass's slices of M: they cover [0, Mpad) exactly, each a
     whole number of 64-row ring stages and none empty, at most 64 of them
-    (one reduction launch), as many as fill the 132 SMs with one block per
-    output tile and slice; the same for both products (dW1 [C, 4C] and A
-    [4C, C]) and from the shapes alone. C None: every built width."""
+    (one reduction launch), as many as reach the width's block target (at
+    most the 132 SMs, one wave) with one block per output tile and slice;
+    the same for both products (dW1 [C, 4C] and A [4C, C]) and from the
+    shapes alone. C None: every built width."""
     assert 432 in _built_widths()
     for c in ([C] if C else _built_widths()):
         m_pad = _row_pad(M)
@@ -270,21 +271,26 @@ def test_wgrad_plan_covers_m_in_whole_stages(M, C):
         assert rows % tbm.WGRAD_DEPTH == 0 and rows > 0
         assert 1 <= n_split <= 64
         assert (n_split - 1) * rows < m_pad <= n_split * rows  # every slice holds rows
-        tiles = tbm._wgrad_tiles(c)
-        assert n_split * tiles <= 132 or n_split == 1, (c, n_split, tiles)
-        if m_pad >= 64 * 64:  # enough rows: the card is filled
-            assert (n_split + 1) * tiles > 132 or n_split == 64, (c, n_split, tiles)
+        tiles, blocks = tbm._wgrad_tiles(c), tbm._wgrad_blocks(c)
+        assert 84 <= blocks <= 132, (c, blocks)
+        assert n_split * tiles <= blocks or n_split == 1, (c, n_split, tiles)
+        if m_pad >= 64 * 64:  # enough rows: the target is reached
+            assert (n_split + 1) * tiles > blocks or n_split == 64, (c, n_split, tiles)
 
 
 def test_wgrad_plan_main_path_values():
     """The slices the H100 runs at ConvNeXt-T's stages 0-2 and ViT-S,
-    batch 80 (3, 6, 24 and 24 tiles of 128 x 128 or 192 columns): 44, 22,
-    5 and 5 of them, so one reduction launch each."""
+    batch 80 (3, 6, 24 and 24 tiles of 128 x 128 or 192 columns): 28 and
+    14 (84 blocks, enough for HBM where the tensor cores idle), 5 and 5
+    (one full wave, which the tensor work needs at C = 384), so one
+    reduction launch each; convnext_iso's C = 432, 4."""
     assert [tbm._wgrad_tiles(c) for c in (96, 192, 384, 432)] == [3, 6, 24, 28]
-    assert tbm.wgrad_plan(250880, 96, 384) == (5760, 44)
-    assert tbm.wgrad_plan(62720, 192, 768) == (2880, 22)
+    assert [tbm._wgrad_blocks(c) for c in (96, 192, 384, 432)] == [84, 84, 132, 132]
+    assert tbm.wgrad_plan(250880, 96, 384) == (8960, 28)
+    assert tbm.wgrad_plan(62720, 192, 768) == (4480, 14)
     assert tbm.wgrad_plan(15680, 1536, 384) == (3136, 5)
     assert tbm.wgrad_plan(_row_pad(15760), 384, 1536) == (3200, 5)
+    assert tbm.wgrad_plan(15680, 432, 1728) == (3968, 4)
     with pytest.raises(ValueError):
         tbm.wgrad_plan(100, 96, 384)  # not a multiple of 64
     with pytest.raises(ValueError):
