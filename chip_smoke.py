@@ -13,12 +13,13 @@ Phases, each fatal on failure:
      at batch 32; its full backward (row pass, weight pass, reductions, and
      the host recovery of dW2, db2, dgamma) on all nine cotangents at stages
      0-2 at batch 80; both also at a ragged M, in f32 once, with a per-sample
-     keep once, at the other widths built (ConvNeXt-B/L) and at
-     convnext_iso's C = 432; the weight pass with its reduction alone, both
-     products, at WGRAD_CASES (the stage shapes, a ragged M, ViT-S, C = 432,
-     every other width); the attention
-     forward and backward (dq, dk, dv) at ViT-S, M and B at batch 80 and 197
-     tokens, ViT-S at 401 tokens, and ViT-S with every score below 0; the
+     keep once, at the other widths built (ConvNeXt-B/L), at convnext_iso's
+     C = 432 and at the micro models' C = 16, 32, 64; the weight pass with
+     its reduction alone, both products, at WGRAD_CASES (the stage shapes, a
+     ragged M, ViT-S, C = 432, every other width); the attention forward and
+     backward (dq, dk, dv) at ATT_CASES (ViT-S, M and B at batch 80 and 197
+     tokens, ViT-S at 401 and 577 tokens, vit_micro's head width 16, the
+     widths 32, 80 and 128, one token) and ViT-S with every score below 0; the
      7x7 depthwise conv's forward, dx, weight pass and reduction at
      ConvNeXt-T's gated stages (0-2) at batch 80, 224 and 320 px, on a
      ragged map and once in f32, and its one-launch reduction at the three
@@ -54,17 +55,21 @@ Phases, each fatal on failure:
   9. the ViT evaluation path: ViT-S-CvSt (vit_s, not_original=1) at full
      width and 224 px with random weights from --seed, evaluated by
      `cli.eval.main` (short AutoAttack, --use_pallas 1), once more at 320 px
-     (401 tokens, pos_embed resized); the logits checked against the CPU
-     plain version on a small input;
+     and at 384 px (401 and 577 tokens, pos_embed resized); the logits
+     checked against the CPU plain version on a small input;
  10. the ViT training step as bench.py builds its vit_s_cvst_at row: the
      step of phase 6 on ViT-S-CvSt, kernel path and use_pallas=0 in turns,
-     one step checked against the CPU plain version at batch 2;
+     one step checked against the CPU plain version at batch 2; then one
+     step each of vit_micro and convnext_micro (use_pallas=1, 224 px)
+     against the CPU plain version;
  11. the ViT train CLI: `cli.train.main` on ViT-S-CvSt, then `cli.eval.main`
      on its EMA weights;
  12. timings of the attention kernels beside their bounds, plain versions,
      the model path's attention (use_pallas=0) and
-     scaled_dot_product_attention, at the training shapes; torch.profiler's
-     breakdown of the ViT step (phase 10) by kernel family;
+     scaled_dot_product_attention (in turns over ATT_ROUNDS rounds: medians
+     and spreads; and each call's device time from the profiler), at the
+     training shapes; torch.profiler's breakdown of the ViT step (phase 10)
+     by kernel family;
  13. ConvNeXt-T-CvSt built directly with use_pallas_dwconv=1 and
      use_pallas=1 (no factory or CLI flag sets it): short AutoAttack on
      points labelled by the model, its logits against the CPU plain
@@ -130,7 +135,8 @@ TOL = {
     # attention, bf16 outputs: a score one f32 ulp apart can flip the bf16
     # rounding of p or ds16, which moves an output by one bf16 ulp of a term
     # (largest readings over the ATT_CASES and the all-negative scores: o
-    # 2.4e-3, dq 1.3e-3, dk 2.3e-3, dv 2.2e-3)
+    # 3.3e-3, dq 2.0e-3, dk 2.1e-3, dv 2.8e-3 with the TMA + wgmma kernels,
+    # which form e and p within a few f32 ulp of the plain version's)
     "att_o": 1e-2, "att_dq": 8e-3, "att_dk": 1e-2, "att_dv": 1e-2,
     # dwconv: y and dx round an f32 sum to the map's type on both sides,
     # the kernel's made of fused multiply-adds, the plain version's of
@@ -152,7 +158,8 @@ WGRAD_CASES = [("stage 0", 3136 * TRAIN_BATCH, 96), ("stage 1", 784 * TRAIN_BATC
                ("stage 2", 196 * TRAIN_BATCH, 384), ("ragged", 3136 * 2 + 40, 96),
                ("ViT-S", 197 * TRAIN_BATCH, 384), ("convnext_iso", ISO_ROWS * TRAIN_BATCH, 432),
                ("C=128", 3136 + 40, 128), ("C=256", 784 + 40, 256), ("C=512", 196 * 2 + 8, 512),
-               ("C=768", 49 * 2 + 5, 768), ("C=1024", 49 * 2 + 5, 1024)]
+               ("C=768", 49 * 2 + 5, 768), ("C=1024", 49 * 2 + 5, 1024),
+               ("C=16", 3136 * 2 + 40, 16), ("C=32", 784 * 2 + 8, 32), ("C=64", 196 * 4 + 5, 64)]
 # the port's CUDA kernels (anonymous namespace of csrc/*.cu), for profiles
 TAIL_KERNEL_NAMES = ("fwd_kernel", "bwd_kernel", "wgrad_kernel", "reduce_kernel")
 ATT_KERNEL_NAMES = ("attn_fwd_kernel", "attn_bwd_rows_kernel", "attn_bwd_cols_kernel")
@@ -160,11 +167,20 @@ DW_KERNEL_NAMES = ("dwconv_fwd_kernel", "dwconv_wgrad_kernel", "dwconv_reduce_ke
 TAIL_KERNELS = ("block_mlp_fwd", "block_mlp_bwd_input", "block_mlp_bwd_full_rows",
                 "block_mlp_wgrad", "block_mlp_reduce")
 ATT_KERNELS = ("attention_fwd", "attention_bwd_rows", "attention_bwd_cols")
-# attention checks: (name, heads, tokens) at the training batch; hd = 64
-ATT_CASES = [("ViT-S", 6, 197), ("ViT-M", 8, 197), ("ViT-B", 12, 197), ("ViT-S@320", 6, 401)]
+# attention checks: (name, batch, tokens, heads, head width): ViT-S/M/B at
+# the training batch, 224, 320 and 384 px; vit_micro's head width 16; the
+# other widths built (32 and 128 at ViT-S's width, 80 with a second,
+# partial TMA box); one token
+ATT_CASES = [("ViT-S", TRAIN_BATCH, 197, 6, 64), ("ViT-M", TRAIN_BATCH, 197, 8, 64),
+             ("ViT-B", TRAIN_BATCH, 197, 12, 64), ("ViT-S@320", TRAIN_BATCH, 401, 6, 64),
+             ("ViT-S@384", TRAIN_BATCH, 577, 6, 64), ("vit_micro", TRAIN_BATCH, 197, 2, 16),
+             ("hd=32", TRAIN_BATCH, 197, 12, 32), ("hd=128", TRAIN_BATCH, 197, 3, 128),
+             ("hd=80", 8, 300, 2, 80), ("N=1", TRAIN_BATCH, 1, 6, 64)]
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 outside
 # the tensor cores, HBM
 PEAK_BF16, PEAK_FP32, PEAK_HBM = 989e12, 67e12, 3.35e12
+# rounds of the attention kernels against scaled_dot_product_attention in phase 12
+ATT_ROUNDS = 5
 DW_KERNELS = ("dwconv_fwd", "dwconv_dx", "dwconv_wgrad", "dwconv_reduce")
 # ConvNeXt-T's stages the dwconv gate (C <= 384) admits: (map side at 224 px, C)
 DW_STAGES = [(56, 96), (28, 192), (14, 384)]
@@ -303,7 +319,8 @@ def check(torch, what, got, ref, tol) -> float:
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{what}: non-finite kernel output")
     e, scale = compare(got, ref)
-    log(f"check {what}: max_abs_err={e:.3e} max|ref|={scale:.3e} ({e / scale:.2e} of it, "
+    rel = e / scale if scale else (0.0 if e == 0 else float("inf"))  # an all-zero reference
+    log(f"check {what}: max_abs_err={e:.3e} max|ref|={scale:.3e} ({rel:.2e} of it, "
         f"tolerance {tol:.1e})")
     if not e <= tol * scale:
         raise AssertionError(f"{what}: error {e} > {tol} * {scale}")
@@ -387,11 +404,11 @@ def check_wgrad(torch, bm, gen) -> float:
     return worst
 
 
-def att_inputs(torch, B, N, H, gen, negative=False):
-    """bf16 qkv [B, N, 3D] and a cotangent do [B, N, D], D = 64 * H. With
+def att_inputs(torch, B, N, H, hd, gen, negative=False):
+    """bf16 qkv [B, N, 3D] and a cotangent do [B, N, D], D = hd * H. With
     `negative`, q >= 0 and k <= 0, so every score is about -20: softmax is
     shift-invariant, but a key that wrongly scores 0 then takes the mass."""
-    D = 64 * H
+    D = hd * H
     qkv = torch.randn(B, N, 3 * D, generator=gen, device="cuda")
     if negative:
         qkv[..., :D] = 2.0 * qkv[..., :D].abs()
@@ -400,18 +417,18 @@ def att_inputs(torch, B, N, H, gen, negative=False):
 
 
 def check_attention(torch, att, gen) -> dict:
-    """The attention kernels against their plain versions in bf16 at the
-    ViT shapes (ATT_CASES, batch 80) and with every score below 0: o, dq,
-    dk and dv each within its own tolerance; the same bits over two
-    launches; and the planted fault (one zero key past N left unmasked)
-    rejected. Returns the largest error per kernel."""
+    """The attention kernels against their plain versions in bf16 at
+    ATT_CASES and with every score below 0: o, dq, dk and dv each within its
+    own tolerance; the same bits over two launches; and the planted fault
+    (one zero key past N left unmasked) rejected. Returns the largest error
+    per kernel."""
     err = dict.fromkeys(ATT_KERNELS, 0.0)
-    cases = [(name, H, N, False) for name, H, N in ATT_CASES] + [("ViT-S, scores < 0", 6, 197,
-                                                                   True)]
-    for i, (name, H, N, negative) in enumerate(cases):
-        qkv, do = att_inputs(torch, TRAIN_BATCH, N, H, gen, negative)
-        D = 64 * H
-        what = f"{name} B={TRAIN_BATCH} N={N} H={H}"
+    cases = [case + (False,) for case in ATT_CASES]
+    cases += [("ViT-S, scores < 0", TRAIN_BATCH, 197, 6, 64, True)]
+    for i, (name, B, N, H, hd, negative) in enumerate(cases):
+        qkv, do = att_inputs(torch, B, N, H, hd, gen, negative)
+        D = hd * H
+        what = f"{name} B={B} N={N} H={H} hd={hd}"
         o = att.attention_fwd_cuda(qkv, H)
         o_ref = att.attention_qkv_fwd_plain(qkv, H)
         torch.cuda.synchronize()
@@ -426,7 +443,7 @@ def check_attention(torch, att, gen) -> dict:
                       TOL[f"att_{part}"])
             key = "attention_bwd_rows" if part == "dq" else "attention_bwd_cols"
             err[key] = max(err[key], e)
-        if i == 0 or negative:
+        if i == 0 or negative or hd != 64:
             if not (torch.equal(o, att.attention_fwd_cuda(qkv, H))
                     and torch.equal(d, att.attention_bwd_cuda(qkv, do, H))):
                 raise AssertionError(f"attention {what}: two launches differ")
@@ -652,8 +669,11 @@ def vit_eval_phase(torch, np, repo, seed) -> dict:
     res = eval_cli.main(base + ["--n_ex", "32", "--batch_size", "32", "--n_iter", "10"])
     res320 = eval_cli.main(base + ["--n_ex", "8", "--batch_size", "8", "--n_iter", "2",
                                    "--img_size", "320"])
-    log(f"cli.eval vit_s: {res}; at 320 px (401 tokens): {res320}; {time.time() - t0:.1f} s")
-    for r, n in ((res, 32), (res320, 8)):
+    res384 = eval_cli.main(base + ["--n_ex", "8", "--batch_size", "8", "--n_iter", "2",
+                                   "--img_size", "384"])
+    log(f"cli.eval vit_s: {res}; at 320 px (401 tokens): {res320}; at 384 px (577 tokens): "
+        f"{res384}; {time.time() - t0:.1f} s")
+    for r, n in ((res, 32), (res320, 8), (res384, 8)):
         if not 0.0 <= r["Linf"]["robust"] <= 1.0 or r["Linf"]["n"] != n:
             raise AssertionError(f"bad eval result {r}")
 
@@ -736,6 +756,34 @@ def vit_step_phase(torch, np, init, seed, label):
     return launches
 
 
+def micro_phase(torch, np, seed) -> None:
+    """Phase 10, the micro models: vit_micro (head width 16, tail at C = 32)
+    and convnext_micro (tail at C = 16, 32, 64, 128) with ConvStem at 224
+    px, random weights from the seed (LayerScale from U(0.1, 1)), one
+    training step with use_pallas=1 on the card against the same step on
+    the CPU (check_step_against_cpu); every tail kernel, and for vit_micro
+    every attention kernel, must launch on the card."""
+    from revisiting_at_tpu_torch.models import get_model
+
+    probes = {"vit_micro": ("blocks.0.mlp.fc1.weight", "blocks.0.attn.qkv.weight"),
+              "convnext_micro": ("stages.0.blocks.0.mlp.fc1.weight",
+                                 "stages.2.blocks.0.mlp.fc1.weight")}
+    for arch, names in probes.items():
+        torch.manual_seed(seed)
+        model, _ = get_model(arch, not_original=True, dtype=torch.float32)
+        with torch.no_grad():
+            for name, prm in model.named_parameters():
+                if name.endswith("gamma"):
+                    prm.uniform_(0.1, 1.0)
+        init = model.state_dict()
+        zero_launches()
+        check_step_against_cpu(torch, np, init, seed, arch=arch, probes=names)
+        require_launches(f"the {arch} training step (phase 10)",
+                         TAIL_KERNELS + (ATT_KERNELS if arch == "vit_micro" else ()))
+        del model, init
+    torch.cuda.empty_cache()
+
+
 def vit_cli_phase(torch, np, repo) -> None:
     """Phase 11: cli.train on ViT-S-CvSt for one short epoch, then cli.eval
     on the EMA weights it wrote."""
@@ -774,19 +822,26 @@ def attention_timings(torch, att, gen, label) -> dict:
     """Phase 12: each attention kernel at the training shapes (ViT-S, batch
     80, 197 tokens) beside its plain version, its bound, the model path's
     attention (use_pallas=0, models/vit.py plain_attention) and
-    scaled_dot_product_attention; kernel and plain in turns p, k, k, p.
-    Returns {kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
+    scaled_dot_product_attention. The kernels and the library are timed in
+    turns over ATT_ROUNDS rounds (the library's small calls move by up to 2x
+    between runs), each round kernel then library or library then kernel
+    by turns: medians and [min, max] are reported, the medians kept. Plain
+    versions in turns p, k, k, p. Each call's device time also comes from
+    the profiler. Returns {kernel: (ms, plain_ms, bound_ms, bound_by,
+    library_ms)} and {kernel: (device_ms, library_device_ms)}."""
+    import statistics
+
     import torch.nn.functional as F
     from revisiting_at_tpu_torch.models.vit import plain_attention
 
     B, N, H, hd = TRAIN_BATCH, 197, 6, 64
     D = H * hd
-    qkv, do = att_inputs(torch, B, N, H, gen)
+    qkv, do = att_inputs(torch, B, N, H, hd, gen)
     dqkv, stats = att.attention_bwd_rows_cuda(qkv, do, H)
 
-    def turns(k_fn, p_fn, iters=10):
+    def plain_turns(k_fn, p_fn, iters=10):
         p1, k1, k2, p2 = (time_ms(torch, f, iters) for f in (p_fn, k_fn, k_fn, p_fn))
-        return (k1 + k2) / 2, (p1 + p2) / 2
+        return (p1 + p2) / 2
 
     def bound(flops, nbytes):
         t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_HBM * 1e3
@@ -796,50 +851,72 @@ def attention_timings(torch, att, gen, label) -> dict:
         q, k, v = x.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
         return F.scaled_dot_product_attention(q, k, v)
 
+    leaf = qkv.detach().requires_grad_(True)
+    o_lib = sdpa(leaf)
+    do_lib = do.view(B, N, H, hd).permute(0, 2, 1, 3)
+    fns = {"fwd": lambda: att.attention_fwd_cuda(qkv, H),
+           "sdpa": lambda: sdpa(qkv),
+           "bwd": lambda: att.attention_bwd_cuda(qkv, do, H),
+           "rows": lambda: att.attention_bwd_rows_cuda(qkv, do, H),
+           "cols": lambda: att.attention_bwd_cols_cuda(qkv, do, H, stats, dqkv),
+           "sdpa_bwd": lambda: torch.autograd.grad(o_lib, leaf, do_lib, retain_graph=True)}
+    pairs = (("fwd", "sdpa"), ("bwd", "sdpa_bwd"), ("rows", "cols"))
+    runs = {k: [] for k in fns}
+    for r in range(ATT_ROUNDS):
+        for first, second in pairs:
+            for k in ((first, second) if r % 2 == 0 else (second, first)):
+                runs[k].append(time_ms(torch, fns[k], 20))
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    spread = {k: f"[{min(v):.4f}, {max(v):.4f}]" for k, v in runs.items()}
+    # the profiler's device time per call: the event loop also times the
+    # host where a call's own dispatch outlasts its device work (SDPA's does)
+    dev = {k: device_ms(torch, fns[k], 10) for k in fns}
+
     flop = B * H * N * N * hd
     out = {}
-    k_ms, p_ms = turns(lambda: att.attention_fwd_cuda(qkv, H),
-                       lambda: att.attention_qkv_fwd_plain(qkv, H))
+    p_ms = plain_turns(fns["fwd"], lambda: att.attention_qkv_fwd_plain(qkv, H))
     model_ms = time_ms(torch, lambda: plain_attention(qkv, H, torch.bfloat16), 10)
-    lib_ms = time_ms(torch, lambda: sdpa(qkv), 10)
-    out["attention_fwd"] = (k_ms, p_ms, *bound(4 * flop, B * N * 4 * D * 2), lib_ms)
-    log(f"time attention fwd B={B} N={N} H={H}: kernel {k_ms:.4f} ms "
-        f"({4 * flop / k_ms / 1e9:.1f} TFLOP/s), plain {p_ms:.4f} ms, model path {model_ms:.4f} "
-        f"ms, sdpa {lib_ms:.4f} ms, bound {out['attention_fwd'][2]:.4f} ms "
+    out["attention_fwd"] = (med["fwd"], p_ms, *bound(4 * flop, B * N * 4 * D * 2), med["sdpa"])
+    log(f"time attention fwd B={B} N={N} H={H}, {ATT_ROUNDS} rounds in turns: kernel median "
+        f"{med['fwd']:.4f} ms {spread['fwd']} ({4 * flop / med['fwd'] / 1e9:.1f} TFLOP/s), sdpa "
+        f"median {med['sdpa']:.4f} ms {spread['sdpa']}, kernel / sdpa "
+        f"{med['fwd'] / med['sdpa']:.3f}; device time kernel {dev['fwd']:.4f} ms, sdpa "
+        f"{dev['sdpa']:.4f} ms, kernel / sdpa {dev['fwd'] / dev['sdpa']:.3f}; plain {p_ms:.4f} ms, "
+        f"model path {model_ms:.4f} ms, bound {out['attention_fwd'][2]:.4f} ms "
         f"({out['attention_fwd'][3]}) {label}")
 
-    rows_ms, rows_p = turns(lambda: att.attention_bwd_rows_cuda(qkv, do, H),
-                            lambda: att.attention_bwd_rows_plain(qkv, do, H))
-    cols_ms, cols_p = turns(lambda: att.attention_bwd_cols_cuda(qkv, do, H, stats, dqkv),
-                            lambda: att.attention_bwd_cols_plain(qkv, do, H))
-    whole_ms, whole_p = turns(lambda: att.attention_bwd_cuda(qkv, do, H),
-                              lambda: att.attention_qkv_bwd_plain(qkv, do, H))
-    leaf = qkv.detach().requires_grad_(True)
+    rows_p = plain_turns(fns["rows"], lambda: att.attention_bwd_rows_plain(qkv, do, H))
+    cols_p = plain_turns(fns["cols"], lambda: att.attention_bwd_cols_plain(qkv, do, H))
+    whole_p = plain_turns(fns["bwd"], lambda: att.attention_qkv_bwd_plain(qkv, do, H))
     o_model = plain_attention(leaf, H, torch.bfloat16)
     model_bwd = time_ms(torch, lambda: torch.autograd.grad(o_model, leaf, do, retain_graph=True),
                         10)
-    o_lib = sdpa(leaf)
-    do_lib = do.view(B, N, H, hd).permute(0, 2, 1, 3)
-    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(o_lib, leaf, do_lib, retain_graph=True),
-                      10)
     lib_both = time_ms(torch, lambda: torch.autograd.grad(sdpa(leaf), leaf, do_lib), 10)
     # the backward's work (10 * B*H*N^2*hd; qkv and dO read, dqkv written),
-    # split over the two kernels: the row pass s, dp and dq and the reads,
-    # the column pass dv, dk and their writes
-    out["attention_bwd_rows"] = (rows_ms, rows_p, *bound(6 * flop, B * N * 5 * D * 2), lib_bwd)
-    out["attention_bwd_cols"] = (cols_ms, cols_p, *bound(4 * flop, B * N * 2 * D * 2), None)
+    # split over the two kernels: the dq pass s, dp and dq and the reads,
+    # the dk/dv pass dv, dk and their writes
+    out["attention_bwd_rows"] = (med["rows"], rows_p, *bound(6 * flop, B * N * 5 * D * 2),
+                                 med["sdpa_bwd"])
+    out["attention_bwd_cols"] = (med["cols"], cols_p, *bound(4 * flop, B * N * 2 * D * 2), None)
     whole_bound = bound(10 * flop, B * N * 7 * D * 2)
     design = 2 * stats.numel() * 4
-    log(f"time attention bwd B={B} N={N} H={H}: kernels {whole_ms:.4f} ms "
-        f"({10 * flop / whole_ms / 1e9:.1f} TFLOP/s; row pass {rows_ms:.4f}, column pass "
-        f"{cols_ms:.4f}), plain {whole_p:.4f} ms (row {rows_p:.4f}, column {cols_p:.4f}), "
-        f"model path backward {model_bwd:.4f} ms, sdpa backward {lib_bwd:.4f} ms (forward + "
-        f"backward {lib_both:.4f} ms), bound {whole_bound[0]:.4f} ms ({whole_bound[1]}); the "
-        f"design's own work: side buffer {design / 1e6:.2f} MB, recomputed products "
-        f"{6 * flop / 1e9:.2f} GFLOP {label}")
+    log(f"time attention bwd B={B} N={N} H={H}, {ATT_ROUNDS} rounds in turns: kernels median "
+        f"{med['bwd']:.4f} ms {spread['bwd']} ({10 * flop / med['bwd'] / 1e9:.1f} TFLOP/s; dq pass "
+        f"{med['rows']:.4f} {spread['rows']}, dk/dv pass {med['cols']:.4f} {spread['cols']}), "
+        f"sdpa backward median {med['sdpa_bwd']:.4f} ms {spread['sdpa_bwd']}, kernels / sdpa "
+        f"{med['bwd'] / med['sdpa_bwd']:.3f}; device time kernels {dev['bwd']:.4f} ms (dq "
+        f"{dev['rows']:.4f}, dk/dv {dev['cols']:.4f}), sdpa backward {dev['sdpa_bwd']:.4f} ms, "
+        f"kernels / sdpa {dev['bwd'] / dev['sdpa_bwd']:.3f}; plain {whole_p:.4f} ms (dq "
+        f"{rows_p:.4f}, dk/dv {cols_p:.4f}), model path backward {model_bwd:.4f} ms, sdpa forward + "
+        f"backward {lib_both:.4f} ms, bound {whole_bound[0]:.4f} ms ({whole_bound[1]}); the design's own "
+        f"work: side buffer {design / 1e6:.2f} MB, recomputed products {8 * flop / 1e9:.2f} "
+        f"GFLOP {label}")
     del qkv, do, dqkv, stats, leaf, o_model, o_lib
     torch.cuda.empty_cache()
-    return out
+    device = {"attention_fwd": (dev["fwd"], dev["sdpa"]),
+              "attention_bwd_rows": (dev["rows"], dev["sdpa_bwd"]),
+              "attention_bwd_cols": (dev["cols"], None)}
+    return out, device
 
 
 def dw_inputs(torch, B, H, W, C, dtype, gen):
@@ -1234,6 +1311,12 @@ def main(argv=None) -> int:
     cases += [(ISO_ROWS * 32, 432, torch.bfloat16, 0),
               (ISO_ROWS * 3, 432, torch.bfloat16, ISO_ROWS),
               (ISO_ROWS * 2 + 5, 432, torch.float32, 0)]
+    # the micro models' widths: convnext_micro's stages 0-2 at 224 px, batch
+    # 32 (3136, 784, 196 rows an image), vit_micro's 32 (197 tokens), ragged
+    # and f32 once
+    cases += [(3136 * 32, 16, torch.bfloat16, 0), (784 * 32, 32, torch.bfloat16, 0),
+              (196 * 32, 64, torch.bfloat16, 0), (197 * 32, 32, torch.bfloat16, 197),
+              (3136 + 40, 16, torch.float32, 0), (196 * 2 + 5, 64, torch.bfloat16, 0)]
     for i, (M, C, dtype, keep_rows) in enumerate(cases):
         d = tail_inputs(torch, M, C, dtype, gen, keep_rows)
         for which in ("fwd", "bwd_input"):
@@ -1242,9 +1325,10 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             what = f"{which} M={M} C={C} {dtype} keep={bool(keep_rows)}"
             err[which] = max(err[which], check(torch, what, got, ref, TOL[which]))
-            if (i == 0 or C == 432) and not torch.equal(got, run_tail(bm, d, which, kernel=True)):
+            if (i == 0 or C in (432, 16)) and not torch.equal(
+                    got, run_tail(bm, d, which, kernel=True)):
                 raise AssertionError(f"{what}: two launches differ")
-        if i == 0 or C == 432:
+        if i == 0 or C in (432, 16):
             log(f"fwd, bwd_input M={M} C={C}: bitwise equal over two launches")
     # the full backward: ConvNeXt-T's stages 0-2 at the training batch, where
     # tail_fusable(C, "full") admits the kernel, then ragged M, f32 I/O, a
@@ -1259,6 +1343,12 @@ def main(argv=None) -> int:
     # and ragged with a keep
     full_cases += [(ISO_ROWS * TRAIN_BATCH, 432, torch.bfloat16, 0),
                    (ISO_ROWS * 3, 432, torch.bfloat16, ISO_ROWS)]
+    # the micro models' widths at the training batch (convnext_micro's stages
+    # 0-2, vit_micro's 32), ragged with a keep, f32
+    full_cases += [(3136 * TRAIN_BATCH, 16, torch.bfloat16, 0),
+                   (784 * TRAIN_BATCH, 32, torch.bfloat16, 0),
+                   (196 * TRAIN_BATCH, 64, torch.bfloat16, 0),
+                   (197 * 3, 32, torch.bfloat16, 197), (3136 + 40, 16, torch.float32, 0)]
     for i, (M, C, dtype, keep_rows) in enumerate(full_cases):
         d = tail_inputs(torch, M, C, dtype, gen, keep_rows)
         got = run_full(bm, d, kernel=True)
@@ -1268,7 +1358,7 @@ def main(argv=None) -> int:
         for name, g, r in zip(FULL_COTANGENTS, got, ref):
             e = check(torch, f"bwd_full {name:6s} {what}", g, r, TOL[name])
             err[FULL_ERR_KEY[name]] = max(err[FULL_ERR_KEY[name]], e)
-        if C == 432 and not keep_rows:
+        if C in (432, 16) and not keep_rows:
             again = run_full(bm, d, kernel=True)
             if not all(torch.equal(g, h) for g, h in zip(got, again)):
                 raise AssertionError(f"bwd_full {what}: two launches differ")
@@ -1634,8 +1724,9 @@ def main(argv=None) -> int:
     # ---------------------------------------------------------------- 9-12
     vit_init = vit_eval_phase(torch, np, repo, args.seed)
     vit_launches = vit_step_phase(torch, np, vit_init, args.seed, label)
+    micro_phase(torch, np, args.seed)
     vit_cli_phase(torch, np, repo)
-    att_times = attention_timings(torch, att, gen, label)
+    att_times, att_device = attention_timings(torch, att, gen, label)
 
     # ---------------------------------------------------------------- 13-15
     dw_launches = dwconv_model_phase(torch, np, run_dir, init, args.seed, label)
@@ -1655,7 +1746,8 @@ def main(argv=None) -> int:
         k_ms, p_ms, b_ms, b_by, lib = att_times[k]
         kernels.append(dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
                             launches=vit_launches[k], max_abs_err=att_err[k], ms=k_ms,
-                            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+                            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                            device_ms=att_device[k][0], library_device_ms=att_device[k][1]))
     for k in DW_KERNELS:
         k_ms, p_ms, b_ms, b_by, lib = dw_times[k]
         kernels.append(dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],

@@ -1,11 +1,11 @@
 // Fused multi-head self-attention for Hopper (sm_90a), straight from the
 // qkv Dense output of a ViT block:
-//   o[b, n, g*64 + c] = sum_m p[b, g, n, m] * v[b, m, g, c],
-//   p = softmax_m(q[b, n, g, :] . k[b, m, g, :] * 64^-0.5)
-// with head g's q, k and v read in place as the column slices [g*64, g*64 +
-// 64) of qkv [B, N, 3D], offset by 0, D and 2D (row stride 3D, no
-// transposes), and the backward writing one dqkv [B, N, 3D] at the same
-// offsets.
+//   o[b, n, g*hd + c] = sum_m p[b, g, n, m] * v[b, m, g, c],
+//   p = softmax_m(q[b, n, g, :] . k[b, m, g, :] * scale),  scale = f32(hd^-0.5)
+// with head g's q, k and v read in place as the column slices [g*hd, g*hd +
+// hd) of qkv [B, N, 3D], offset by 0, D and 2D (no transposes), and the
+// backward writing one dqkv [B, N, 3D] at the same offsets. Any N >= 1; any
+// head width hd that is a multiple of 16 up to 128.
 //
 // Replaces the TPU kernels of revisiting_at_tpu/ops/attention.py:
 //   attn_fwd_kernel                            <- _fwd_qkv_kernel (forward)
@@ -14,530 +14,989 @@
 // whose wrapper in ops/attention.py packs q, k, v into [B, N, 3D].
 //
 // Numerics follow the TPU kernels: bf16 operands, f32 accumulation; s is
-// the f32 product times the scale (0.125, exact); keys past N get -1e30 and
-// rows past N are zero-filled before use; p = e / sum(e), e = exp(s - max),
-// in f32, cast to bf16 before PV. Backward: dv = p16^T dO, dp = dO v^T,
-// dS = p * (dp - rowsum(dp * p)) with the f32 p, ds16 = bf16(dS * scale),
-// dq = ds16 k, dk = ds16^T q.
+// the f32 product times the scale; keys past N get -1e30 and rows past N
+// read as zero; p = e / sum(e), e = exp(s - max), in f32, rounded to bf16
+// before PV. Backward: dv = p16^T dO, dp = dO v^T, dS = p * (dp -
+// rowsum(dp * p)) with the f32 p, ds16 = bf16(dS * scale), dq = ds16 k,
+// dk = ds16^T q. The f32 softmax takes two cheaper forms, each within a few
+// f32 ulp: e is 2^(x c - max c), c = scale log2(e), from one fused
+// multiply-add and the SFU's ex2 (`exp_scaled`), and p = e * (1 / sum), with
+// the reciprocal correctly rounded once per row. p is rounded to bf16 where
+// JAX rounds it; the few f32 ulp flip that rounding only where p lies within
+// them of a bf16 rounding boundary.
 //
 // What bounds it on the H100: at ViT-S (N = 197, hd = 64, batch 80) the
-// forward does 4*B*H*N^2*hd = 4.8 GFLOP against 48 MB of qkv and o: the
-// bytes bound it (14.5 us at 3.35 TB/s against 4.8 us of tensor-core
-// time), and the backward likewise (85 MB, 25 us). The TPU kernel holds a
-// whole [npad, npad] score matrix per head in VMEM; here a block owns a
-// tile of 64 query rows of one head of one image and keeps that tile's f32
-// scores for every key (64 x 448 at most, 115 KB) in shared memory, so the
-// softmax is taken over the whole row at once and p is rounded to bf16
-// after normalising, where JAX rounds it (an online-softmax rescale would
-// round elsewhere). Each of the 4 warps owns 16 rows; the products are
-// WMMA 16x16x16 bf16 fragments from shared-memory tiles of 64 keys, loaded
-// with 16-byte reads and zero-filled past N.
-//
-// The backward has no float atomics, so dqkv is the same bits every run:
-//   attn_bwd_rows_kernel, per (query tile, head, image): the scores and the
-//     softmax as in the forward, delta = rowsum(dp * p) over every key
-//     tile, then dS and dq = ds16 k; it writes dq and, per query row, the
-//     max, the sum and delta into a small f32 side buffer [B, H, 3, Npad];
-//   attn_bwd_cols_kernel, per (key tile, head, image): loops over the query
-//     tiles, recomputes s (the same fragments in the same order as the row
-//     kernel, so the same bits) and p from the stored max and sum, dp and
-//     dS, and accumulates dv = p16^T dO and dk = ds16^T q in registers.
-// The side buffer and the recomputed products are this design's own cost.
+// forward does 4*B*H*N^2*hd = 4.8 GFLOP against 48 MB of qkv and o, the
+// backward 12 GFLOP against 85 MB: the bytes bound both (14.5 and 25 us at
+// 3.35 TB/s, against 4.8 and 12 us of tensor-core time). The design:
+//   * Persistent blocks, one per SM, each walking (head, image) items, with
+//     a producer warpgroup and two consumer warpgroups. The consumers take
+//     the head's 64-row tiles in rounds, each its own (query tiles in the
+//     forward and the dq pass, key tiles in the dk/dv pass), so that one's
+//     products overlap the other's softmax, and share every tile the
+//     producer loads. The producer gives most of its registers to the
+//     consumers (setmaxnreg: 240 each, against 168 for an even split).
+//   * An item's streamed tiles (K and V, or Q, dO and the statistics in the
+//     dk/dv pass) are loaded once for all of its rounds while they fit the
+//     ring (up to 256 keys in the forward, 512 in the backward at hd <= 64),
+//     and the ring holds two items' worth, so the next item loads during
+//     this one. So a head's q, k, v and dO leave HBM about once.
+//   * TMA loads 64-row boxes of a 3-D tensor map over [B, N, 3D] (or dO's
+//     [B, N, D]); rows past N come in as zeros. Boxes are hd columns wide up
+//     to 32 (32- and 64-byte swizzle), else 64 (128-byte swizzle, two boxes
+//     above hd = 64; columns past hd are loaded and not used). Stages and
+//     each warpgroup's own tiles are guarded by mbarriers.
+//   * wgmma: S = Q K^T with both operands K-major, as the rows lie; the
+//     softmax's p (or dS) is rounded to bf16 in registers and fed to the
+//     next product as its register A operand, with V, K, dO or Q the
+//     MN-major shared-memory B operand. Nothing of the score matrix goes
+//     through shared memory.
+//   * Forward: up to 256 keys (4 tiles) a query tile's whole score row stays
+//     in its warpgroup's registers (128 of them), so max and sum come from
+//     quad shuffles and p is rounded after normalising, where JAX rounds it;
+//     PV of one key tile runs while the next tile's p is formed. Past 256
+//     keys the same kernel sweeps the key tiles twice: the row max and sum
+//     first (the sum rescaled as the max grows), then S again, p, and PV.
+//     The output is never rescaled, so p is rounded where JAX rounds it.
+//   * Backward, in two passes, no float atomics (the same bits every run):
+//     attn_bwd_rows_kernel, per query tile: one sweep over the key tiles for
+//     the row max, the sum and delta = rowsum(dp * p) (both rescaled as the
+//     max grows), a second for dS and dq = ds16 k; it writes dq and, per
+//     row, max * c, 1 / sum and delta into a small f32 side buffer [B, H,
+//     tiles, 3, 64]. attn_bwd_cols_kernel, per key tile: over the
+//     query tiles, S^T = K Q^T and dP^T = V dO^T, p^T from the stored
+//     statistics, dv += p16^T dO and dk += ds16^T Q in registers.
+//   * o, dq, dk and dv go from the accumulator registers straight to global
+//     memory as bf16 pairs, rows past N left alone; a warpgroup gives its
+//     own tiles back to the producer as soon as its products have read them.
 //
 // Plain C interface for ctypes: each entry point returns cudaGetLastError()
-// after its launch, or -1 for a token count it does not take (1..448).
+// after its launch, -1 for a shape it does not take, -2 when
+// cuTensorMapEncodeTiled fails.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int kHd = 64;                 // head width
-constexpr int kTile = 64;               // query rows or keys per tile
-constexpr int kWarps = 4;               // each warp owns 16 rows of a tile
-constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxTiles = 7;            // N <= 448
-constexpr int kLd = kHd + 8;            // bf16 [64][64] tile row stride
-constexpr int kLdF = kTile + 4;         // f32 [16][64] per-warp scratch row stride
-constexpr int kTileElems = kTile * kLd;
-constexpr int kScratch = 16 * kLdF;     // floats per warp scratch
-constexpr float kScale = 0.125f;        // 64^-0.5
+constexpr int kRows = 64;         // rows of a tile: queries or keys
+constexpr int kMaxConsumers = 2;  // consumer warpgroups per block
+// and a producer warpgroup: 2 * 128 * 240 + 128 * 24 registers <= 64K
+constexpr int kThreads = 128 * (kMaxConsumers + 1);
+constexpr int kConsumerRegs = 240, kProducerRegs = 24;
+constexpr int kResident = 4;      // key tiles whose scores the forward holds at once
+// Ring stages: the forward's hold a tile of K or V, the backward's two tiles
+// (and the statistics). Up to hd = 64 they hold two items' resident tiles.
+template <int HD>
+__host__ __device__ constexpr int fwd_stages() { return HD > 64 ? 8 : 16; }
+template <int HD>
+__host__ __device__ constexpr int bwd_stages() { return HD > 64 ? 2 : 8; }
+// per query row: max * c (see exp_scaled), 1 / sum, delta
+constexpr int kStats = 3;
+constexpr uint32_t kStatsBytes = kStats * kRows * 4;
 constexpr float kNegInf = -1e30f;
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ARow;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> ACol;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> BRow;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> BCol;
+// A 64-row bf16 tile of one head as TMA lays it down: BOXES boxes of BOXW
+// columns, each [64][BOXW] with rows of ROW bytes swizzled over ROW bytes.
+template <int HD>
+struct Tile {
+  static_assert(HD % 16 == 0 && HD >= 16 && HD <= 128, "head width: a multiple of 16, 16-128");
+  static constexpr int BOXW = HD <= 32 ? HD : 64;
+  static constexpr int BOXES = (HD + BOXW - 1) / BOXW;
+  static constexpr int ROW = 2 * BOXW;
+  static constexpr uint32_t BOX_BYTES = kRows * ROW;
+  static constexpr uint32_t BYTES = BOX_BYTES * BOXES;  // a multiple of 1024
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Rows [row0, row0 + 64) of a 64-column slice of a [N, ld] bf16 array into a
-// [64][kLd] shared tile, 16 bytes per thread and step; rows past N are 0.
-__device__ __forceinline__ void load_tile(const bf16* __restrict__ src, int64_t ld, int N,
-                                          int row0, bf16* dst) {
-  for (int i = threadIdx.x; i < kTile * 8; i += kThreads) {
-    const int r = i / 8, c8 = (i % 8) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < N) v = *reinterpret_cast<const uint4*>(src + (row0 + r) * ld + c8);
-    *reinterpret_cast<uint4*>(dst + r * kLd + c8) = v;
+  // the tile as the K-major operand of a product over the head width: k16 step kk
+  __device__ static uint64_t kmajor(const unsigned char* t, int kk) {
+    return desc_kmajor(t + (kk * 16 / BOXW) * BOX_BYTES + (kk * 16 % BOXW) * 2, ROW);
   }
-}
-
-// A warp's 16 x 64 f32 scratch (row stride kLdF) to rows [row0, row0 + 16)
-// of a 64-column slice of a [N, ld] bf16 array, as bf16; rows past N are
-// not written.
-__device__ __forceinline__ void store_rows(const float* scr, bf16* __restrict__ dst,
-                                           int64_t ld, int N, int row0) {
-  const int lane = threadIdx.x % 32;
-  for (int i = lane; i < 16 * 8; i += 32) {
-    const int r = i / 8, c8 = (i % 8) * 8;
-    if (row0 + r >= N) continue;
-    __align__(16) bf16 v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(scr[r * kLdF + c8 + e]);
-    *reinterpret_cast<uint4*>(dst + (row0 + r) * ld + c8) = *reinterpret_cast<uint4*>(v);
+  // the tile as the MN-major B operand of a product over its 64 rows: k16 step kk
+  __device__ static uint64_t mnmajor(const unsigned char* t, int kk) {
+    return desc_mnmajor(t + kk * 16 * ROW, ROW, BOX_BYTES);
   }
+  // rows [row, row + 64) of columns [col, col + BOXES * BOXW) of image b
+  __device__ static void load(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int col,
+                              int row, int b) {
+#pragma unroll
+    for (int j = 0; j < BOXES; ++j)
+      tma_load_3d(dst + j * BOX_BYTES, map, bar, col + j * BOXW, row, b);
+  }
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~static_cast<uintptr_t>(1023));
 }
 
-// acc[j] = this warp's 16 rows of `a` (a [64][kLd] tile) times the 16 rows
-// j*16.. of `bt` transposed: 16 x 64 products of 64-deep dot products.
-__device__ __forceinline__ void rows_times_tile_t(const bf16* a, const bf16* bt, AccFrag* acc) {
-  const int warp = threadIdx.x / 32;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.0f);
-#pragma unroll
-  for (int k = 0; k < kHd; k += 16) {
-    ARow fa;
-    wmma::load_matrix_sync(fa, a + warp * 16 * kLd + k, kLd);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      BCol fb;  // B(k, n) = bt[n][k]
-      wmma::load_matrix_sync(fb, bt + j * 16 * kLd + k, kLd);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
+// The block's shared memory: the ring; two buffers of each consumer
+// warpgroup's own tiles (its query tile in the forward and the dq pass, its
+// key tile in the dk/dv pass: one being worked on, one loading); the
+// barriers.
+struct Smem {
+  unsigned char* ring;
+  unsigned char* own;
+  uint32_t own_bytes;
+  uint64_t* full;       // [stages] a stage holds its next item
+  uint64_t* empty;      // [stages] every consumer warp is done with a stage
+  uint64_t* own_full;   // [kMaxConsumers][2]
+  uint64_t* own_empty;  // [kMaxConsumers][2] every warp of the warpgroup is done with them
+  __device__ Smem(unsigned char* raw, int stages, uint32_t stage_bytes, uint32_t own_tile_bytes) {
+    ring = align1024(raw);
+    own = ring + stages * stage_bytes;
+    own_bytes = own_tile_bytes;
+    full = reinterpret_cast<uint64_t*>(own + 2 * kMaxConsumers * own_bytes);
+    empty = full + stages;
+    own_full = empty + stages;
+    own_empty = own_full + 2 * kMaxConsumers;
+  }
+  // the buffer of warpgroup w's c-th own tiles, and its barriers' index
+  __device__ int slot(int w, int c) const { return 2 * w + c % 2; }
+  __device__ unsigned char* own_tiles(int w, int c) const { return own + slot(w, c) * own_bytes; }
+  // consumer_warps: the warps of the warpgroups that have tiles
+  __device__ void init(int stages, int consumer_warps) const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < stages; ++s) {
+        mbar_init(&full[s], 1);                // the producer's arrive with its bytes
+        mbar_init(&empty[s], consumer_warps);  // one arrive per consumer warp
+      }
+      for (int i = 0; i < 2 * kMaxConsumers; ++i) {
+        mbar_init(&own_full[i], 1);
+        mbar_init(&own_empty[i], 4);
+      }
+      mbar_fence_init();
     }
-  }
-}
-
-template <int NT>
-constexpr size_t fwd_smem_bytes() {
-  return 2 * kTileElems * sizeof(bf16) + kTile * (NT * kTile + 4) * sizeof(float);
-}
-
-template <int NT>
-__global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N, int H) {
-  constexpr int LDS = NT * kTile + 4;  // f32 score row stride; bf16 p16 rows are 2 * LDS
-  constexpr int VPL = NT * kTile / 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* kv_s = q_s + kTileElems;
-  float* s_s = reinterpret_cast<float*>(kv_s + kTileElems);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = blockIdx.x * kTile, g = blockIdx.y, b = blockIdx.z;
-  const int D = H * kHd;
-  const int64_t ld = 3 * static_cast<int64_t>(D);
-  const bf16* base = qkv + static_cast<int64_t>(b) * N * ld;
-
-  load_tile(base + g * kHd, ld, N, q0, q_s);
-  // s = q k^T * scale for every key, one tile of 64 keys at a time
-  for (int t = 0; t < NT; ++t) {
-    __syncthreads();  // kv_s is free
-    load_tile(base + D + g * kHd, ld, N, t * kTile, kv_s);
     __syncthreads();
-    AccFrag acc[4];
-    rows_times_tile_t(q_s, kv_s, acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int e = 0; e < acc[j].num_elements; ++e) acc[j].x[e] *= kScale;
-      wmma::store_matrix_sync(s_s + warp * 16 * LDS + t * kTile + 16 * j, acc[j], LDS,
-                              wmma::mem_row_major);
-    }
   }
+};
+
+constexpr size_t smem_bytes(int stages, uint32_t stage_bytes, uint32_t own_bytes) {
+  return 1024 + stages * stage_bytes + 2 * kMaxConsumers * own_bytes +
+         (2 * stages + 4 * kMaxConsumers) * 8;
+}
+
+// consumer: wait for ring item g, return its stage
+__device__ __forceinline__ int ring_wait(const Smem& sm, int g, int stages) {
+  const int st = g % stages;
+  mbar_wait(&sm.full[st], (g / stages) & 1);
+  return st;
+}
+
+// consumer: this warp is done with the stage
+__device__ __forceinline__ void ring_release(const Smem& sm, int st) {
   __syncwarp();
-  // softmax of this warp's rows over all keys; p16 overwrites each f32 row
-  // from its start once the whole row is in registers
-  for (int rr = 0; rr < 16; ++rr) {
-    float* srow = s_s + (warp * 16 + rr) * LDS;
-    float v[VPL];
-    float m = kNegInf;
+  if (threadIdx.x % 32 == 0) mbar_arrive(&sm.empty[st]);
+}
+
+// producer: wait until ring item g may overwrite its stage, return the stage
+__device__ __forceinline__ int ring_claim(const Smem& sm, int g, int stages) {
+  const int st = g % stages;
+  if (g >= stages) mbar_wait(&sm.empty[st], (g / stages - 1) & 1);
+  return st;
+}
+
+// producer: wait until the buffer of warpgroup w's c-th own tiles is free
+// (the tiles it held before are used), return the barrier their bytes
+// complete
+__device__ __forceinline__ uint64_t* own_claim(const Smem& sm, int w, int c, uint32_t bytes) {
+  if (c >= 2) mbar_wait(&sm.own_empty[sm.slot(w, c)], (c / 2 - 1) & 1);
+  mbar_arrive_expect_tx(&sm.own_full[sm.slot(w, c)], bytes);
+  return &sm.own_full[sm.slot(w, c)];
+}
+
+// consumer: wait for warpgroup w's c-th own tiles
+__device__ __forceinline__ unsigned char* own_wait(const Smem& sm, int w, int c) {
+  mbar_wait(&sm.own_full[sm.slot(w, c)], (c / 2) & 1);
+  return sm.own_tiles(w, c);
+}
+
+template <int R>
+__device__ __forceinline__ void zero(float (&d)[R]) {
 #pragma unroll
-    for (int i = 0; i < VPL; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = c < N ? srow[c] : kNegInf;
-      m = fmaxf(m, v[i]);
-    }
-    m = warp_max(m);
-    float sum = 0.0f;
+  for (int i = 0; i < R; ++i) d[i] = 0.0f;
+}
+
+// accumulator register i of a 64 x N product: its row (0..63) within the
+// tile and column offset within its 8-column group
+__device__ __forceinline__ int acc_row(int i) {
+  const int t = threadIdx.x % 128;
+  return 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2);
+}
+__device__ __forceinline__ int acc_col(int i) {
+  return 8 * (i / 4) + 2 * (threadIdx.x % 4) + i % 2;
+}
+
+// s = Q K^T (64 x 64) over the head width, both tiles K-major
+template <int HD>
+__device__ __forceinline__ void scores(float (&s)[32], const unsigned char* a,
+                                       const unsigned char* b) {
 #pragma unroll
-    for (int i = 0; i < VPL; ++i) { v[i] = expf(v[i] - m); sum += v[i]; }
-    sum = warp_sum(sum);
-    __syncwarp();
-    bf16* prow = reinterpret_cast<bf16*>(srow);
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_m64n64k16_ss_kmajor(s, Tile<HD>::kmajor(a, kk), Tile<HD>::kmajor(b, kk));
+}
+
+// acc += A B over 64 rows of B: A (64 x 64) as bf16 register fragments
+// a[kk], B an MN-major tile
+template <int HD>
+__device__ __forceinline__ void times_tile(float (&acc)[HD / 2], const uint32_t (&a)[4][4],
+                                           const unsigned char* b) {
 #pragma unroll
-    for (int i = 0; i < VPL; ++i) prow[lane + 32 * i] = __float2bfloat16(v[i] / sum);
-    __syncwarp();
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(acc, a[kk], Tile<HD>::mnmajor(b, kk));
+}
+
+// the register A fragments of bf16(x) for a 64 x 64 block held as an accumulator
+__device__ __forceinline__ void to_frags(const float (&x)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[kk][j] = pack_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
+}
+
+// -1e30 on keys past N (keys key0 + column); only the last key tile reaches
+// past N. Scores stay unscaled: the scale goes into the exponent.
+__device__ __forceinline__ void mask_keys(float (&s)[32], int key0, int N) {
+  if (key0 + kRows > N) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = key0 + acc_col(i) < N ? s[i] : kNegInf;
   }
-  // o = p16 v, accumulated over the key tiles
-  const bf16* p16 = reinterpret_cast<const bf16*>(s_s);
-  AccFrag o[4];
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// e^(x * scale - m) for an unscaled score x, as 2^(x * c - mc) with c =
+// scale * log2(e) and mc = m * c: one fused multiply-add and the SFU's
+// ex2 (ex2.approx, flushing results below 2^-126 to 0), within a few f32
+// ulp of expf over a softmax's arguments, at a third of its instructions
+__device__ __forceinline__ float exp_scaled(float x, float c, float mc) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(fmaf(x, c, -mc)));
+  return y;
+}
+
+// each of the thread's two rows (r and r + 8) reduced over the quad of lanes that holds it
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// the tile's row max folded into m (both of the thread's rows), in four
+// independent chains per row
+__device__ __forceinline__ void fold_max(const float (&s)[32], float (&m)[2]) {
+  float t[2][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(o[j], 0.0f);
-  for (int t = 0; t < NT; ++t) {
-    __syncthreads();
-    load_tile(base + 2 * D + g * kHd, ld, N, t * kTile, kv_s);
-    __syncthreads();
+  for (int k = 0; k < 4; ++k) t[0][k] = t[1][k] = kNegInf;
 #pragma unroll
-    for (int k = 0; k < kTile; k += 16) {
-      ARow fa;
-      wmma::load_matrix_sync(fa, p16 + warp * 16 * (2 * LDS) + t * kTile + k, 2 * LDS);
+  for (int i = 0; i < 32; ++i) {
+    float& acc = t[(i / 2) % 2][(i / 4) % 4];
+    acc = fmaxf(acc, s[i]);
+  }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        BRow fb;
-        wmma::load_matrix_sync(fb, kv_s + k * kLd + 16 * j, kLd);
-        wmma::mma_sync(o[j], fa, fb, o[j]);
+  for (int j = 0; j < 2; ++j)
+    m[j] = quad_max(fmaxf(fmaxf(m[j], fmaxf(t[j][0], t[j][1])), fmaxf(t[j][2], t[j][3])));
+}
+
+// the thread's part of the tile's row sums (both rows), in four independent
+// chains per row
+__device__ __forceinline__ void add_rows(const float (&s)[32], float (&l)[2]) {
+  float t[2][4] = {};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) t[(i / 2) % 2][(i / 4) % 4] += s[i];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) l[j] += (t[j][0] + t[j][1]) + (t[j][2] + t[j][3]);
+}
+
+// consumer: this warp is done with warpgroup w's c-th own tiles
+__device__ __forceinline__ void own_release(const Smem& sm, int w, int c) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(&sm.own_empty[sm.slot(w, c)]);
+}
+
+// acc (64 x HD f32) as bf16 to the rows of a row-major array at dst (row
+// stride ld elements), rows at and past `rows` left alone: each lane stores
+// its 4-byte pairs, a quad 16 contiguous bytes of a row (on the H100 this
+// was faster than staging the tile for a TMA store, and than a quad
+// transpose that gives every lane 16 bytes)
+template <int HD>
+__device__ __forceinline__ void store_rows(const float (&acc)[HD / 2], bf16* dst, int64_t ld,
+                                           int rows) {
+#pragma unroll
+  for (int i = 0; i < HD / 2; i += 2)
+    if (acc_row(i) < rows)
+      *reinterpret_cast<uint32_t*>(dst + acc_row(i) * ld + acc_col(i)) =
+          pack_bf16(acc[i], acc[i + 1]);
+}
+
+// consumer warpgroup with no tile this round: wait for and release n items
+__device__ __forceinline__ void drain(const Smem& sm, int& g, int n, int stages) {
+  for (int i = 0; i < n; ++i, ++g) ring_release(sm, ring_wait(sm, g, stages));
+}
+
+// ----------------------------------------------------------------- forward
+
+// Up to kResident key tiles (N <= 256) the forward loads an item's K and V
+// tiles once, K_0.. then V_0.., and every query tile uses them. Past that
+// each query tile streams two sweeps: K_0.. for the row max and sum, then
+// K_t, V_t per tile for PV. Item i of a stream is tile *t of K or V.
+__device__ __forceinline__ int fwd_items(int nt) { return nt <= kResident ? 2 * nt : 3 * nt; }
+__device__ __forceinline__ void fwd_item(int nt, int i, int& t, bool& is_v) {
+  if (nt <= kResident || i < nt) {
+    t = i % nt;
+    is_v = i >= nt;
+  } else {
+    t = (i - nt) / 2;
+    is_v = (i - nt) % 2;
+  }
+}
+
+// The two consumer warpgroups take an item's query tiles in rounds, each
+// its own, so that one's products overlap the other's softmax. A query
+// tile's whole score row (up to 256 keys, 128 registers) stays in its
+// warpgroup's registers: the producer is a warpgroup of its own that gives
+// most of its registers to the consumers (setmaxnreg).
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_fwd_kernel(const __grid_constant__ CUtensorMap qkv_map, bf16* __restrict__ out, int N,
+                int H, float scale, int BH) {
+  using T = Tile<HD>;
+  constexpr int S = fwd_stages<HD>();
+  extern __shared__ unsigned char smem_raw[];
+  Smem sm(smem_raw, S, T::BYTES, T::BYTES);
+  const int nt = (N + kRows - 1) / kRows;
+  const int nc = nt < kMaxConsumers ? nt : kMaxConsumers;  // warpgroups with query tiles
+  const int rounds = (nt + nc - 1) / nc;
+  const bool resident = nt <= kResident;
+  const int items = fwd_items(nt);
+  const int D = H * HD;
+  const float c = scale * kLog2e;  // exp_scaled's exponent scale
+  sm.init(S, 4 * nc);
+
+  if (threadIdx.x >= 128 * kMaxConsumers) {  // producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 128 * kMaxConsumers) {
+      int g = 0, cnt[kMaxConsumers] = {0, 0};
+      for (int item = blockIdx.x; item < BH; item += gridDim.x) {
+        const int h = item % H, b = item / H;
+        // the item's streamed tiles; a resident item's go first, so that they
+        // load during the previous item
+        auto stream = [&]() {
+          for (int i = 0; i < items; ++i, ++g) {
+            const int st = ring_claim(sm, g, S);
+            int t;
+            bool is_v;
+            fwd_item(nt, i, t, is_v);
+            mbar_arrive_expect_tx(&sm.full[st], T::BYTES);
+            T::load(sm.ring + st * T::BYTES, &qkv_map, &sm.full[st], (is_v ? 2 : 1) * D + h * HD,
+                    t * kRows, b);
+          }
+        };
+        if (resident) stream();
+        for (int r = 0; r < rounds; ++r) {
+          for (int w = 0; w < nc && r * nc + w < nt; ++w) {
+            uint64_t* bar = own_claim(sm, w, cnt[w], T::BYTES);
+            T::load(sm.own_tiles(w, cnt[w]++), &qkv_map, bar, h * HD, (r * nc + w) * kRows, b);
+          }
+          if (!resident) stream();
+        }
       }
     }
+    return;
   }
-  __syncwarp();
-  // the warp's own score rows are free now: stage o there as f32
-  float* scr = s_s + warp * 16 * LDS;
+  setmaxnreg_inc<kConsumerRegs>();
+
+  const int w = threadIdx.x / 128;
+  if (w >= nc) return;  // one query tile: one warpgroup
+  int g = 0, cnt = 0;  // ring items, and query tiles this warpgroup did
+  for (int item = blockIdx.x; item < BH; item += gridDim.x) {
+    const int h = item % H, b = item / H;
+    for (int r = 0; r < rounds; ++r) {
+      const int qt = r * nc + w;
+      if (qt >= nt) {  // no query tile this round; the resident keys are released
+        if (resident) {
+          for (int i = 0; i < items; ++i) ring_release(sm, (g + i) % S);
+          g += items;
+        } else {
+          drain(sm, g, items, S);
+        }
+        continue;
+      }
+      unsigned char* q_s = own_wait(sm, w, cnt);
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+      float o[HD / 2];  // zeroed just before PV: not live beside the scores
+      if (resident) {
+        // the whole score row in registers: S over every key tile at once,
+        // softmax, p as bf16 fragments, then PV over every V tile at once;
+        // the K and V stages go back to the producer after the item
+        float s[kResident][32];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wmma::store_matrix_sync(scr + 16 * j, o[j], LDS, wmma::mem_row_major);
-  __syncwarp();
-  bf16* orow = out + static_cast<int64_t>(b) * N * D + g * kHd;
-  for (int i = lane; i < 16 * 8; i += 32) {
-    const int r = i / 8, c8 = (i % 8) * 8, q = q0 + warp * 16 + r;
-    if (q >= N) continue;
-    __align__(16) bf16 v[8];
+        for (int t = 0; t < kResident; ++t) {
+          if (t < nt) {
+            ring_wait(sm, g + t, S);
+            zero(s[t]);
+            fence_acc(s[t]);
+          }
+        }
+        wgmma_fence();
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16(scr[r * LDS + c8 + e]);
-    *reinterpret_cast<uint4*>(orow + static_cast<int64_t>(q) * D + c8) =
-        *reinterpret_cast<uint4*>(v);
+        for (int t = 0; t < kResident; ++t)
+          if (t < nt) scores<HD>(s[t], q_s, sm.ring + ((g + t) % S) * T::BYTES);
+        wgmma_commit();
+        wgmma_wait_all();
+        own_release(sm, w, cnt);
+#pragma unroll
+        for (int t = 0; t < kResident; ++t) {
+          if (t < nt) {
+            fence_acc(s[t]);
+            mask_keys(s[t], t * kRows, N);
+            fold_max(s[t], m);
+          }
+        }
+        const float mc[2] = {m[0] * c, m[1] * c};
+#pragma unroll
+        for (int t = 0; t < kResident; ++t) {
+          if (t < nt) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i) s[t][i] = exp_scaled(s[t][i], c, mc[(i / 2) % 2]);
+            add_rows(s[t], l);
+          }
+        }
+        l[0] = quad_sum(l[0]);
+        l[1] = quad_sum(l[1]);
+        const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+        // p of tile t as bf16 fragments, PV of tile t in flight while the
+        // next tile's fragments are formed: two fragment buffers
+        uint32_t a[2][4][4];
+        zero(o);
+#pragma unroll
+        for (int t = 0; t < kResident; ++t) {
+          if (t < nt) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i) s[t][i] *= rl[(i / 2) % 2];
+            to_frags(s[t], a[t % 2]);
+            ring_wait(sm, g + nt + t, S);
+            fence_acc(o);
+            wgmma_fence();
+            times_tile<HD>(o, a[t % 2], sm.ring + ((g + nt + t) % S) * T::BYTES);
+            wgmma_commit();
+            wgmma_wait<1>();  // tile t - 1's PV is done: its fragments are free
+          }
+        }
+        wgmma_wait_all();
+        fence_acc(o);
+        if (r == rounds - 1) {
+          for (int i = 0; i < items; ++i) ring_release(sm, (g + i) % S);
+          g += items;
+        }
+      } else {
+        // sweep 1: the row max, and the sum rescaled as the max grows
+        float s[32];
+        for (int t = 0; t < nt; ++t) {
+          const int st = ring_wait(sm, g++, S);
+          zero(s);
+          fence_acc(s);
+          wgmma_fence();
+          scores<HD>(s, q_s, sm.ring + st * T::BYTES);
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_acc(s);
+          ring_release(sm, st);
+          mask_keys(s, t * kRows, N);
+          float mn[2] = {m[0], m[1]};
+          fold_max(s, mn);
+          const float mc[2] = {mn[0] * c, mn[1] * c};
+          l[0] *= exp_scaled(m[0], c, mc[0]);
+          l[1] *= exp_scaled(m[1], c, mc[1]);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) l[(i / 2) % 2] += exp_scaled(s[i], c, mc[(i / 2) % 2]);
+          m[0] = mn[0];
+          m[1] = mn[1];
+        }
+        l[0] = quad_sum(l[0]);
+        l[1] = quad_sum(l[1]);
+        const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+        const float mc[2] = {m[0] * c, m[1] * c};
+        // sweep 2: S again, p rounded after normalising, PV
+        zero(o);
+        for (int t = 0; t < nt; ++t) {
+          int st = ring_wait(sm, g++, S);
+          zero(s);
+          fence_acc(s);
+          wgmma_fence();
+          scores<HD>(s, q_s, sm.ring + st * T::BYTES);
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_acc(s);
+          ring_release(sm, st);
+          if (t == nt - 1) own_release(sm, w, cnt);
+          mask_keys(s, t * kRows, N);
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            s[i] = exp_scaled(s[i], c, mc[(i / 2) % 2]) * rl[(i / 2) % 2];
+          uint32_t a[4][4];
+          to_frags(s, a);
+          st = ring_wait(sm, g++, S);
+          fence_acc(o);
+          wgmma_fence();
+          times_tile<HD>(o, a, sm.ring + st * T::BYTES);
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_acc(o);
+          ring_release(sm, st);
+        }
+      }
+      store_rows<HD>(o, out + (static_cast<int64_t>(b) * N + qt * kRows) * D + h * HD, D,
+                     N - qt * kRows);
+      ++cnt;
+    }
   }
 }
 
-template <int NT>
-constexpr size_t bwd_rows_smem_bytes() {
-  return 4 * kTileElems * sizeof(bf16) + kTile * (NT * kTile + 4) * sizeof(float) +
-         kWarps * kScratch * sizeof(float) + kWarps * 16 * kLd * sizeof(bf16);
+// ------------------------------------------------------ backward, dq pass
+
+// The dq pass's S (masked, unscaled) and dP of key tile t, from ring item i
+// (a stage of K_t and V_t): the stage.
+template <int HD>
+__device__ __forceinline__ const unsigned char* row_products(const Smem& sm, int i, int t,
+                                                             const unsigned char* q_s,
+                                                             const unsigned char* do_s, int N,
+                                                             float (&s)[32], float (&dp)[32]) {
+  const unsigned char* kv = sm.ring + ring_wait(sm, i, bwd_stages<HD>()) * 2 * Tile<HD>::BYTES;
+  zero(s);
+  zero(dp);
+  fence_acc(s);
+  fence_acc(dp);
+  wgmma_fence();
+  scores<HD>(s, q_s, kv);
+  scores<HD>(dp, do_s, kv + Tile<HD>::BYTES);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_acc(s);
+  fence_acc(dp);
+  mask_keys(s, t * kRows, N);
+  return kv;
 }
 
-// dq and the per-row statistics (max, sum, delta) of one query tile.
-template <int NT>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                     float* __restrict__ stats, bf16* __restrict__ dqkv, int N, int H) {
-  constexpr int LDS = NT * kTile + 4;
-  constexpr int VPL = NT * kTile / 32;
-  constexpr int NP = NT * kTile;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = q_s + kTileElems;
-  bf16* k_s = do_s + kTileElems;
-  bf16* v_s = k_s + kTileElems;
-  float* p_s = reinterpret_cast<float*>(v_s + kTileElems);  // f32 p, [64][LDS]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* dp_s = p_s + kTile * LDS + warp * kScratch;       // this warp's [16][kLdF]
-  bf16* ds_s = reinterpret_cast<bf16*>(p_s + kTile * LDS + kWarps * kScratch) + warp * 16 * kLd;
-  const int q0 = blockIdx.x * kTile, g = blockIdx.y, b = blockIdx.z;
-  const int D = H * kHd;
-  const int64_t ld = 3 * static_cast<int64_t>(D);
-  const bf16* base = qkv + static_cast<int64_t>(b) * N * ld;
-  float* st = stats + (static_cast<int64_t>(b) * H + g) * 3 * NP;
+// dq and the per-row statistics of each query tile: the two consumer
+// warpgroups take an item's query tiles in rounds, each its own, and sweep
+// the key tiles twice. A stage holds K_t and V_t; up to bwd_stages key
+// tiles they stay for all of an item's query tiles, past that each round
+// streams them twice.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_rows_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     bf16* __restrict__ dqkv, float* __restrict__ stats, int N, int H,
+                     float scale, int BH) {
+  using T = Tile<HD>;
+  constexpr int S = bwd_stages<HD>();
+  extern __shared__ unsigned char smem_raw[];
+  Smem sm(smem_raw, S, 2 * T::BYTES, 2 * T::BYTES);
+  const int nt = (N + kRows - 1) / kRows;
+  const int nc = nt < kMaxConsumers ? nt : kMaxConsumers;  // warpgroups with query tiles
+  const int rounds = (nt + nc - 1) / nc;
+  const bool resident = nt <= S;
+  const int items = resident ? nt : 2 * nt;
+  const int D = H * HD;
+  const float c = scale * kLog2e;  // exp_scaled's exponent scale
+  sm.init(S, 4 * nc);
 
-  load_tile(base + g * kHd, ld, N, q0, q_s);
-  load_tile(dout + static_cast<int64_t>(b) * N * D + g * kHd, D, N, q0, do_s);
-  for (int t = 0; t < NT; ++t) {
-    __syncthreads();
-    load_tile(base + D + g * kHd, ld, N, t * kTile, k_s);
-    __syncthreads();
-    AccFrag acc[4];
-    rows_times_tile_t(q_s, k_s, acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int e = 0; e < acc[j].num_elements; ++e) acc[j].x[e] *= kScale;
-      wmma::store_matrix_sync(p_s + warp * 16 * LDS + t * kTile + 16 * j, acc[j], LDS,
-                              wmma::mem_row_major);
-    }
-  }
-  __syncwarp();
-  // p in f32, in place; max and sum to the side buffer
-  for (int rr = 0; rr < 16; ++rr) {
-    float* prow = p_s + (warp * 16 + rr) * LDS;
-    float v[VPL];
-    float m = kNegInf;
-#pragma unroll
-    for (int i = 0; i < VPL; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = c < N ? prow[c] : kNegInf;
-      m = fmaxf(m, v[i]);
-    }
-    m = warp_max(m);
-    float sum = 0.0f;
-#pragma unroll
-    for (int i = 0; i < VPL; ++i) { v[i] = expf(v[i] - m); sum += v[i]; }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int i = 0; i < VPL; ++i) prow[lane + 32 * i] = v[i] / sum;
-    if (lane == 0) {
-      st[q0 + warp * 16 + rr] = m;
-      st[NP + q0 + warp * 16 + rr] = sum;
-    }
-  }
-  __syncwarp();
-  // delta = rowsum(dp * p): lanes 2r and 2r + 1 hold row r, 32 columns each
-  const int r = lane / 2, half = (lane % 2) * 32;
-  const float* prow = p_s + (warp * 16 + r) * LDS;
-  float delta = 0.0f;
-  for (int t = 0; t < NT; ++t) {
-    __syncthreads();
-    load_tile(base + 2 * D + g * kHd, ld, N, t * kTile, v_s);
-    __syncthreads();
-    AccFrag acc[4];
-    rows_times_tile_t(do_s, v_s, acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(dp_s + 16 * j, acc[j], kLdF, wmma::mem_row_major);
-    __syncwarp();
-    float part = 0.0f;
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) part += dp_s[r * kLdF + half + c] * prow[t * kTile + half + c];
-    delta += part + __shfl_xor_sync(0xffffffffu, part, 1);
-    __syncwarp();
-  }
-  if (lane % 2 == 0) st[2 * NP + q0 + warp * 16 + r] = delta;
-  // dS = p * (dp - delta), ds16 = bf16(dS * scale), dq += ds16 k per key tile
-  AccFrag dq[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) wmma::fill_fragment(dq[j], 0.0f);
-  for (int t = 0; t < NT; ++t) {
-    __syncthreads();
-    load_tile(base + D + g * kHd, ld, N, t * kTile, k_s);
-    load_tile(base + 2 * D + g * kHd, ld, N, t * kTile, v_s);
-    __syncthreads();
-    AccFrag acc[4];
-    rows_times_tile_t(do_s, v_s, acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(dp_s + 16 * j, acc[j], kLdF, wmma::mem_row_major);
-    __syncwarp();
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const float p = prow[t * kTile + half + c];
-      const float ds = p * (dp_s[r * kLdF + half + c] - delta);
-      ds_s[r * kLd + half + c] = __float2bfloat16(ds * kScale);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int k = 0; k < kTile; k += 16) {
-      ARow fa;
-      wmma::load_matrix_sync(fa, ds_s + k, kLd);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        BRow fb;
-        wmma::load_matrix_sync(fb, k_s + k * kLd + 16 * j, kLd);
-        wmma::mma_sync(dq[j], fa, fb, dq[j]);
+  if (threadIdx.x >= 128 * kMaxConsumers) {  // producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 128 * kMaxConsumers) {
+      int g = 0, cnt[kMaxConsumers] = {0, 0};
+      for (int item = blockIdx.x; item < BH; item += gridDim.x) {
+        const int h = item % H, b = item / H;
+        // the item's streamed tiles; a resident item's go first, so that they
+        // load during the previous item
+        auto stream = [&]() {
+          for (int i = 0; i < items; ++i, ++g) {
+            const int st = ring_claim(sm, g, S);
+            unsigned char* kv = sm.ring + st * 2 * T::BYTES;
+            const int row = (i % nt) * kRows;
+            mbar_arrive_expect_tx(&sm.full[st], 2 * T::BYTES);
+            T::load(kv, &qkv_map, &sm.full[st], D + h * HD, row, b);
+            T::load(kv + T::BYTES, &qkv_map, &sm.full[st], 2 * D + h * HD, row, b);
+          }
+        };
+        if (resident) stream();
+        for (int r = 0; r < rounds; ++r) {
+          for (int w = 0; w < nc && r * nc + w < nt; ++w) {
+            uint64_t* bar = own_claim(sm, w, cnt[w], 2 * T::BYTES);
+            unsigned char* dst = sm.own_tiles(w, cnt[w]++);
+            T::load(dst, &qkv_map, bar, h * HD, (r * nc + w) * kRows, b);
+            T::load(dst + T::BYTES, &do_map, bar, h * HD, (r * nc + w) * kRows, b);
+          }
+          if (!resident) stream();
+        }
       }
     }
+    return;
   }
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    wmma::store_matrix_sync(dp_s + 16 * j, dq[j], kLdF, wmma::mem_row_major);
-  __syncwarp();
-  store_rows(dp_s, dqkv + static_cast<int64_t>(b) * N * ld + g * kHd, ld, N, q0 + warp * 16);
-}
+  setmaxnreg_inc<kConsumerRegs>();
 
-constexpr size_t bwd_cols_smem_bytes() {
-  return 6 * kTileElems * sizeof(bf16) + 2 * kWarps * kScratch * sizeof(float) +
-         3 * kTile * sizeof(float);
-}
-
-// dk and dv of one key tile, over every query tile.
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_cols_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                     const float* __restrict__ stats, bf16* __restrict__ dqkv, int N, int H,
-                     int n_tiles) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + kTileElems;
-  bf16* q_s = v_s + kTileElems;
-  bf16* do_s = q_s + kTileElems;
-  bf16* p16_s = do_s + kTileElems;  // [64 queries][64 keys]
-  bf16* ds16_s = p16_s + kTileElems;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* s_w = reinterpret_cast<float*>(ds16_s + kTileElems) + warp * kScratch;
-  float* dp_w = s_w + kWarps * kScratch;
-  float* st_s = reinterpret_cast<float*>(ds16_s + kTileElems) + 2 * kWarps * kScratch;
-  const int k0 = blockIdx.x * kTile, g = blockIdx.y, b = blockIdx.z;
-  const int D = H * kHd, NP = n_tiles * kTile;
-  const int64_t ld = 3 * static_cast<int64_t>(D);
-  const bf16* base = qkv + static_cast<int64_t>(b) * N * ld;
-  const float* st = stats + (static_cast<int64_t>(b) * H + g) * 3 * NP;
-
-  load_tile(base + D + g * kHd, ld, N, k0, k_s);
-  load_tile(base + 2 * D + g * kHd, ld, N, k0, v_s);
-  AccFrag dk[4], dv[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) { wmma::fill_fragment(dk[j], 0.0f); wmma::fill_fragment(dv[j], 0.0f); }
-  for (int t = 0; t < n_tiles; ++t) {
-    const int q0 = t * kTile;
-    __syncthreads();
-    load_tile(base + g * kHd, ld, N, q0, q_s);
-    load_tile(dout + static_cast<int64_t>(b) * N * D + g * kHd, D, N, q0, do_s);
-    for (int i = threadIdx.x; i < 3 * kTile; i += kThreads)
-      st_s[i] = st[(i / kTile) * NP + q0 + i % kTile];
-    __syncthreads();
-    // this warp's 16 query rows against the 64 keys: s as in the row kernel, and dp
-    AccFrag acc[4];
-    rows_times_tile_t(q_s, k_s, acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int e = 0; e < acc[j].num_elements; ++e) acc[j].x[e] *= kScale;
-      wmma::store_matrix_sync(s_w + 16 * j, acc[j], kLdF, wmma::mem_row_major);
-    }
-    rows_times_tile_t(do_s, v_s, acc);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(dp_w + 16 * j, acc[j], kLdF, wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 16 * kTile; i += 32) {
-      const int r = i / kTile, c = i % kTile, rq = warp * 16 + r;
-      float p = 0.0f, ds = 0.0f;
-      if (q0 + rq < N && k0 + c < N) {
-        p = expf(s_w[r * kLdF + c] - st_s[rq]) / st_s[kTile + rq];
-        ds = p * (dp_w[r * kLdF + c] - st_s[2 * kTile + rq]);
+  const int w = threadIdx.x / 128;
+  if (w >= nc) return;  // one query tile: one warpgroup
+  int g = 0, cnt = 0;  // ring items, and query tiles this warpgroup did
+  for (int item = blockIdx.x; item < BH; item += gridDim.x) {
+    const int h = item % H, b = item / H;
+    for (int r = 0; r < rounds; ++r) {
+      const int qt = r * nc + w;
+      if (qt >= nt) {  // no query tile this round; the resident keys are released
+        if (resident) {
+          for (int i = 0; i < nt; ++i) ring_release(sm, (g + i) % S);
+          g += nt;
+        } else {
+          drain(sm, g, items, S);
+        }
+        continue;
       }
-      p16_s[rq * kLd + c] = __float2bfloat16(p);
-      ds16_s[rq * kLd + c] = __float2bfloat16(ds * kScale);
-    }
-    __syncthreads();
-    // this warp's 16 keys: dv += p16^T dO, dk += ds16^T q over the 64 queries
+      unsigned char* q_s = own_wait(sm, w, cnt);
+      const unsigned char* do_s = q_s + T::BYTES;
+      float s[32], dp[32];
+      // sweep 1: row max; sum and sum of e * dp, both rescaled as the max grows
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f}, du[2] = {0.0f, 0.0f};
+      for (int t = 0; t < nt; ++t) {
+        row_products<HD>(sm, g + t, t, q_s, do_s, N, s, dp);
+        if (!resident) ring_release(sm, (g + t) % S);
+        float mn[2] = {m[0], m[1]};
+        fold_max(s, mn);
+        const float mc[2] = {mn[0] * c, mn[1] * c};
 #pragma unroll
-    for (int kq = 0; kq < kTile; kq += 16) {
-      ACol fp, fds;  // A(key, query) = p16_s[query][key]
-      wmma::load_matrix_sync(fp, p16_s + kq * kLd + warp * 16, kLd);
-      wmma::load_matrix_sync(fds, ds16_s + kq * kLd + warp * 16, kLd);
+        for (int j = 0; j < 2; ++j) {
+          const float alpha = exp_scaled(m[j], c, mc[j]);
+          l[j] *= alpha;
+          du[j] *= alpha;
+        }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        BRow fdo, fq;
-        wmma::load_matrix_sync(fdo, do_s + kq * kLd + 16 * j, kLd);
-        wmma::mma_sync(dv[j], fp, fdo, dv[j]);
-        wmma::load_matrix_sync(fq, q_s + kq * kLd + 16 * j, kLd);
-        wmma::mma_sync(dk[j], fds, fq, dk[j]);
+        for (int i = 0; i < 32; ++i) {
+          const float e = exp_scaled(s[i], c, mc[(i / 2) % 2]);
+          l[(i / 2) % 2] += e;
+          du[(i / 2) % 2] += e * dp[i];
+        }
+        m[0] = mn[0];
+        m[1] = mn[1];
       }
+      float delta[2], rl[2], mc[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        l[j] = quad_sum(l[j]);
+        delta[j] = quad_sum(du[j]) / l[j];
+        rl[j] = __frcp_rn(l[j]);
+        mc[j] = m[j] * c;
+      }
+      // sweep 2: dS = p * (dp - delta), dq += ds16 K
+      float dq[HD / 2];
+      zero(dq);
+      const int g2 = resident ? g : g + nt;
+      for (int t = 0; t < nt; ++t) {
+        const unsigned char* kv = row_products<HD>(sm, g2 + t, t, q_s, do_s, N, s, dp);
+        if (t == nt - 1) own_release(sm, w, cnt);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int j = (i / 2) % 2;
+          s[i] = exp_scaled(s[i], c, mc[j]) * rl[j] * (dp[i] - delta[j]) * scale;
+        }
+        uint32_t a[4][4];
+        to_frags(s, a);
+        fence_acc(dq);
+        wgmma_fence();
+        times_tile<HD>(dq, a, kv);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(dq);
+        if (!resident) ring_release(sm, (g2 + t) % S);
+      }
+      if (!resident) {
+        g += 2 * nt;
+      } else if (r == rounds - 1) {
+        for (int i = 0; i < nt; ++i) ring_release(sm, (g + i) % S);
+        g += nt;
+      }
+      // the statistics of the tile's rows, for the dk/dv pass
+      if (threadIdx.x % 4 == 0) {
+        float* out = stats + ((static_cast<int64_t>(b) * H + h) * nt + qt) * kStats * kRows;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int row = acc_row(2 * j);
+          out[row] = mc[j];
+          out[kRows + row] = rl[j];
+          out[2 * kRows + row] = delta[j];
+        }
+      }
+      store_rows<HD>(dq, dqkv + (static_cast<int64_t>(b) * N + qt * kRows) * 3 * D + h * HD,
+                     3 * D, N - qt * kRows);
+      ++cnt;
     }
   }
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    wmma::store_matrix_sync(s_w + 16 * j, dk[j], kLdF, wmma::mem_row_major);
-    wmma::store_matrix_sync(dp_w + 16 * j, dv[j], kLdF, wmma::mem_row_major);
-  }
-  __syncwarp();
-  bf16* drow = dqkv + static_cast<int64_t>(b) * N * ld + g * kHd;
-  store_rows(s_w, drow + D, ld, N, k0 + warp * 16);
-  store_rows(dp_w, drow + 2 * D, ld, N, k0 + warp * 16);
 }
 
-template <int NT>
-int launch_fwd(const bf16* qkv, bf16* out, int B, int N, int H, cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem_bytes<NT>();
-  auto kern = attn_fwd_kernel<NT>;
+// --------------------------------------------------- backward, dk/dv pass
+
+// dk and dv of each key tile: the two consumer warpgroups take an item's key
+// tiles in rounds, each its own, over the query tiles; a stage holds Q_j,
+// dO_j and the statistics of their rows. Up to bwd_stages query tiles the
+// stages stay for all of an item's key tiles, past that each round streams
+// them again.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_cols_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     bf16* __restrict__ dqkv, const float* __restrict__ stats, int N, int H,
+                     float scale, int BH) {
+  using T = Tile<HD>;
+  constexpr int S = bwd_stages<HD>();
+  // Q_j, dO_j, the statistics; 1024-byte steps keep every stage's tiles on
+  // the swizzle pattern's 1024-byte boundary
+  constexpr uint32_t STAGE = 2 * T::BYTES + 1024;
+  extern __shared__ unsigned char smem_raw[];
+  Smem sm(smem_raw, S, STAGE, 2 * T::BYTES);
+  const int nt = (N + kRows - 1) / kRows;
+  const int nc = nt < kMaxConsumers ? nt : kMaxConsumers;  // warpgroups with key tiles
+  const int rounds = (nt + nc - 1) / nc;
+  const bool resident = nt <= S;
+  const int D = H * HD;
+  const float cs = scale * kLog2e;  // exp_scaled's exponent scale, as the dq pass's
+  sm.init(S, 4 * nc);
+
+  if (threadIdx.x >= 128 * kMaxConsumers) {  // producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 128 * kMaxConsumers) {
+      int g = 0, cnt[kMaxConsumers] = {0, 0};
+      for (int item = blockIdx.x; item < BH; item += gridDim.x) {
+        const int h = item % H, b = item / H;
+        const float* head_stats = stats + static_cast<int64_t>(item) * nt * kStats * kRows;
+        // the item's streamed tiles; a resident item's go first, so that they
+        // load during the previous item
+        auto stream = [&]() {
+          for (int j = 0; j < nt; ++j, ++g) {
+            const int st = ring_claim(sm, g, S);
+            unsigned char* dst = sm.ring + st * STAGE;
+            mbar_arrive_expect_tx(&sm.full[st], 2 * T::BYTES + kStatsBytes);
+            T::load(dst, &qkv_map, &sm.full[st], h * HD, j * kRows, b);
+            T::load(dst + T::BYTES, &do_map, &sm.full[st], h * HD, j * kRows, b);
+            bulk_load(dst + 2 * T::BYTES, head_stats + j * kStats * kRows, kStatsBytes,
+                      &sm.full[st]);
+          }
+        };
+        if (resident) stream();
+        for (int r = 0; r < rounds; ++r) {
+          for (int w = 0; w < nc && r * nc + w < nt; ++w) {
+            uint64_t* bar = own_claim(sm, w, cnt[w], 2 * T::BYTES);
+            unsigned char* dst = sm.own_tiles(w, cnt[w]++);
+            const int row = (r * nc + w) * kRows;
+            T::load(dst, &qkv_map, bar, D + h * HD, row, b);
+            T::load(dst + T::BYTES, &qkv_map, bar, 2 * D + h * HD, row, b);
+          }
+          if (!resident) stream();
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+
+  const int w = threadIdx.x / 128;
+  if (w >= nc) return;  // one key tile: one warpgroup
+  int g = 0, cnt = 0;  // ring items, and key tiles this warpgroup did
+  for (int item = blockIdx.x; item < BH; item += gridDim.x) {
+    const int h = item % H, b = item / H;
+    for (int r = 0; r < rounds; ++r) {
+      const int kt = r * nc + w;
+      if (kt >= nt) {  // no key tile this round; the resident query tiles are released
+        if (resident) {
+          for (int j = 0; j < nt; ++j) ring_release(sm, (g + j) % S);
+          g += nt;
+        } else {
+          drain(sm, g, nt, S);
+        }
+        continue;
+      }
+      unsigned char* k_s = own_wait(sm, w, cnt);
+      unsigned char* v_s = k_s + T::BYTES;
+      float dk[HD / 2], dv[HD / 2];
+      zero(dk);
+      zero(dv);
+      const bool key_live = kt * kRows + acc_row(0) < N;
+      const bool key_live8 = kt * kRows + acc_row(2) < N;
+      for (int j = 0; j < nt; ++j) {
+        const int st = ring_wait(sm, g + j, S);
+        const unsigned char* q_s = sm.ring + st * STAGE;
+        const unsigned char* do_s = q_s + T::BYTES;
+        const float* st_s = reinterpret_cast<const float*>(q_s + 2 * T::BYTES);
+        float s[32], dp[32];  // S^T and dP^T: rows are keys, columns queries
+        zero(s);
+        zero(dp);
+        fence_acc(s);
+        fence_acc(dp);
+        wgmma_fence();
+        scores<HD>(s, k_s, q_s);
+        scores<HD>(dp, v_s, do_s);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(s);
+        fence_acc(dp);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int c = acc_col(i);
+          const bool live = ((i / 2) % 2 ? key_live8 : key_live) && j * kRows + c < N;
+          const float p =
+              live ? exp_scaled(s[i], cs, st_s[c]) * st_s[kRows + c] : 0.0f;
+          s[i] = p;
+          dp[i] = p * (dp[i] - st_s[2 * kRows + c]) * scale;
+        }
+        uint32_t pa[4][4], da[4][4];
+        to_frags(s, pa);
+        to_frags(dp, da);
+        fence_acc(dv);
+        fence_acc(dk);
+        wgmma_fence();
+        times_tile<HD>(dv, pa, do_s);
+        times_tile<HD>(dk, da, q_s);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(dv);
+        fence_acc(dk);
+        if (!resident) ring_release(sm, st);
+      }
+      own_release(sm, w, cnt++);
+      if (!resident) {
+        g += nt;
+      } else if (r == rounds - 1) {
+        for (int j = 0; j < nt; ++j) ring_release(sm, (g + j) % S);
+        g += nt;
+      }
+      bf16* drow = dqkv + (static_cast<int64_t>(b) * N + kt * kRows) * 3 * D + h * HD;
+      store_rows<HD>(dk, drow + D, 3 * D, N - kt * kRows);
+      store_rows<HD>(dv, drow + 2 * D, 3 * D, N - kt * kRows);
+    }
+  }
+}
+
+// ------------------------------------------------------------------- host
+
+// [B, N, cols] bf16 as a 3-D tensor map in boxes of Tile<HD>'s BOXW columns
+// and 64 rows, with its swizzle; rows past N read as zeros
+template <int HD>
+bool make_map(CUtensorMap* map, const void* base, int B, int N, int cols) {
+  using T = Tile<HD>;
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(cols) * 2 * N};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(T::BOXW), kRows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw = T::ROW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : T::ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Persistent blocks, one per SM (at most one per (head, image)), each
+// walking the (head, image) items.
+template <typename K, typename... A>
+int launch(K kern, size_t smem, int B, int H, cudaStream_t stream, A... args) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<dim3(NT, H, B), kThreads, smem, stream>>>(qkv, out, N, H);
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int blocks = B * H < sms ? B * H : sms;
+  kern<<<blocks, kThreads, smem, stream>>>(args..., B * H);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NT>
-int launch_bwd_rows(const bf16* qkv, const bf16* dout, float* stats, bf16* dqkv, int B, int N,
-                    int H, cudaStream_t stream) {
-  constexpr size_t smem = bwd_rows_smem_bytes<NT>();
-  auto kern = attn_bwd_rows_kernel<NT>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<dim3(NT, H, B), kThreads, smem, stream>>>(qkv, dout, stats, dqkv, N, H);
-  return static_cast<int>(cudaGetLastError());
+template <int HD>
+int fwd(const void* qkv, void* out, int B, int N, int H, float scale, cudaStream_t stream) {
+  using T = Tile<HD>;
+  CUtensorMap in;
+  if (!make_map<HD>(&in, qkv, B, N, 3 * H * HD)) return -2;
+  return launch(attn_fwd_kernel<HD>,
+                smem_bytes(fwd_stages<HD>(), T::BYTES, T::BYTES), B,
+                H, stream, in, static_cast<bf16*>(out), N, H, scale);
 }
 
-int tiles_of(int N) { return (N + kTile - 1) / kTile; }
+template <int HD>
+int bwd_rows(const void* qkv, const void* dout, void* stats, void* dqkv, int B, int N, int H,
+             float scale, cudaStream_t stream) {
+  using T = Tile<HD>;
+  CUtensorMap in, d;
+  if (!make_map<HD>(&in, qkv, B, N, 3 * H * HD) || !make_map<HD>(&d, dout, B, N, H * HD))
+    return -2;
+  return launch(attn_bwd_rows_kernel<HD>,
+                smem_bytes(bwd_stages<HD>(), 2 * T::BYTES, 2 * T::BYTES),
+                B, H, stream, in, d, static_cast<bf16*>(dqkv), static_cast<float*>(stats), N, H,
+                scale);
+}
+
+template <int HD>
+int bwd_cols(const void* qkv, const void* dout, const void* stats, void* dqkv, int B, int N,
+             int H, float scale, cudaStream_t stream) {
+  using T = Tile<HD>;
+  CUtensorMap in, d;
+  if (!make_map<HD>(&in, qkv, B, N, 3 * H * HD) || !make_map<HD>(&d, dout, B, N, H * HD))
+    return -2;
+  return launch(attn_bwd_cols_kernel<HD>,
+                smem_bytes(bwd_stages<HD>(), 2 * T::BYTES + 1024, 2 * T::BYTES),
+                B, H, stream, in, d, static_cast<bf16*>(dqkv), static_cast<const float*>(stats), N,
+                H, scale);
+}
+
+bool takes(int B, int N, int H) { return B >= 1 && N >= 1 && H >= 1 && int64_t{B} * H < (1 << 30); }
 
 }  // namespace
 
+// Head widths built: every multiple of 16 up to 128.
+#define ATT_HEAD_WIDTHS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+
 extern "C" {
 
-int attention_fwd(const void* qkv, void* out, int B, int N, int H, void* stream) {
+// o [B, N, H * hd] from qkv [B, N, 3 * H * hd], bf16.
+int attention_fwd(const void* qkv, void* out, int B, int N, int H, int hd, float scale,
+                  void* stream) {
+  if (!takes(B, N, H)) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* x = static_cast<const bf16*>(qkv);
-  bf16* o = static_cast<bf16*>(out);
-  switch (N < 1 ? 0 : tiles_of(N)) {
-    case 1: return launch_fwd<1>(x, o, B, N, H, st);
-    case 2: return launch_fwd<2>(x, o, B, N, H, st);
-    case 3: return launch_fwd<3>(x, o, B, N, H, st);
-    case 4: return launch_fwd<4>(x, o, B, N, H, st);
-    case 5: return launch_fwd<5>(x, o, B, N, H, st);
-    case 6: return launch_fwd<6>(x, o, B, N, H, st);
-    case 7: return launch_fwd<7>(x, o, B, N, H, st);
-    default: return -1;
-  }
+#define CASE(W) if (hd == W) return fwd<W>(qkv, out, B, N, H, scale, st);
+  ATT_HEAD_WIDTHS(CASE)
+#undef CASE
+  return -1;
 }
 
-// stats: f32 [B, H, 3, 64 * ceil(N / 64)], written here, read by the column pass.
+// The dq pass: the dq third of dqkv [B, N, 3 * H * hd] and stats, f32
+// [B, H, ceil(N / 64), 3, 64] (per query row: max * c, 1 / sum, delta), which the
+// dk/dv pass reads.
 int attention_bwd_rows(const void* qkv, const void* dout, void* stats, void* dqkv, int B, int N,
-                       int H, void* stream) {
+                       int H, int hd, float scale, void* stream) {
+  if (!takes(B, N, H)) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* x = static_cast<const bf16*>(qkv);
-  const bf16* d = static_cast<const bf16*>(dout);
-  float* s = static_cast<float*>(stats);
-  bf16* dx = static_cast<bf16*>(dqkv);
-  switch (N < 1 ? 0 : tiles_of(N)) {
-    case 1: return launch_bwd_rows<1>(x, d, s, dx, B, N, H, st);
-    case 2: return launch_bwd_rows<2>(x, d, s, dx, B, N, H, st);
-    case 3: return launch_bwd_rows<3>(x, d, s, dx, B, N, H, st);
-    case 4: return launch_bwd_rows<4>(x, d, s, dx, B, N, H, st);
-    case 5: return launch_bwd_rows<5>(x, d, s, dx, B, N, H, st);
-    case 6: return launch_bwd_rows<6>(x, d, s, dx, B, N, H, st);
-    case 7: return launch_bwd_rows<7>(x, d, s, dx, B, N, H, st);
-    default: return -1;
-  }
+#define CASE(W) if (hd == W) return bwd_rows<W>(qkv, dout, stats, dqkv, B, N, H, scale, st);
+  ATT_HEAD_WIDTHS(CASE)
+#undef CASE
+  return -1;
 }
 
-int attention_bwd_cols(const void* qkv, const void* dout, void* stats, void* dqkv, int B, int N,
-                       int H, void* stream) {
-  if (N < 1 || tiles_of(N) > kMaxTiles) return -1;
-  constexpr size_t smem = bwd_cols_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_cols_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_tiles = tiles_of(N);
-  attn_bwd_cols_kernel<<<dim3(n_tiles, H, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
-      static_cast<const float*>(stats), static_cast<bf16*>(dqkv), N, H, n_tiles);
-  return static_cast<int>(cudaGetLastError());
+// The dk/dv pass: the dk and dv thirds of dqkv, from the dq pass's stats.
+int attention_bwd_cols(const void* qkv, const void* dout, const void* stats, void* dqkv, int B,
+                       int N, int H, int hd, float scale, void* stream) {
+  if (!takes(B, N, H)) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define CASE(W) if (hd == W) return bwd_cols<W>(qkv, dout, stats, dqkv, B, N, H, scale, st);
+  ATT_HEAD_WIDTHS(CASE)
+#undef CASE
+  return -1;
 }
 
 }  // extern "C"

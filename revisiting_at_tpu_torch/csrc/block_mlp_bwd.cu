@@ -59,8 +59,6 @@
 // after its launch (or -1 for a shape it was not built for, -2 when
 // cuTensorMapEncodeTiled fails).
 
-#include <cuda.h>  // CUtensorMap and its enums (cuTensorMapEncodeTiled is looked up at run time)
-
 #include "block_mlp_common.cuh"
 #include "hopper.cuh"
 
@@ -196,29 +194,6 @@ reduce_kernel(const float* __restrict__ part, int64_t R, int64_t N, int G,
   out[static_cast<int64_t>(blockIdx.y) * N + n] = acc;
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through the runtime's entry
-// point query, so the library needs no -lcuda
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                     &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // a row-major bf16 [rows, cols] matrix in 64 x 64 boxes, 128-byte swizzle;
 // boxes reaching past cols are zero-filled
 bool make_map(CUtensorMap* map, const void* base, int64_t rows, int cols) {
@@ -297,7 +272,7 @@ int block_mlp_bwd_full_rows(int C, int dtype, const void* s, const void* keep,
 // The weight pass: part[n_split, P, Q] (f32), split k summing rows
 // [k * rows_per_split, min(Mpad, (k + 1) * rows_per_split)) of
 // x[Mpad, P]^T @ y[Mpad, Q] (bf16, row-major). One of P, Q is 4 times the
-// other (C, a multiple of 8 from 72 to 1024: every width the row pass is
+// other (C, a multiple of 8 from 16 to 1024: every width the row pass is
 // built for); Mpad and rows_per_split are multiples of 64 and every split
 // holds rows. When out is not null, reduce_kernel then sums the partials
 // in split order into out[P, Q] (f32), in the same call: the wrapper's host
@@ -315,7 +290,9 @@ int block_mlp_wgrad(const void* x, int P, const void* y, int Q, int64_t Mpad,
     return -1;
   // the narrow operand in n_chunks chunks of NCH columns, NCH a multiple of 64
   const int n_chunks = (C + 255) / 256;
-  const int nch = ((C + n_chunks - 1) / n_chunks + kWBox - 1) / kWBox * kWBox;
+  // (at least 128, the narrowest instantiation: below C = 128 the second box
+  // is neither loaded nor stored)
+  const int nch = max(128, ((C + n_chunks - 1) / n_chunks + kWBox - 1) / kWBox * kWBox);
   CUtensorMap wide, narrow;
   if (!make_map(&wide, x_wide ? x : y, Mpad, 4 * C) || !make_map(&narrow, x_wide ? y : x, Mpad, C))
     return -2;

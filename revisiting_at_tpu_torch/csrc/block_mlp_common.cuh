@@ -44,7 +44,8 @@ template <int C>
 struct Cfg {
   static constexpr int H = 4 * C;
   static constexpr int NT = C / 16;                   // 16-wide column tiles of C
-  static constexpr int NW = NT % 8 == 0 ? 8 : (NT % 6 == 0 ? 6 : 9);  // warps per block
+  // warps per block: one per column tile below 6 tiles (C = 16, 32, 64)
+  static constexpr int NW = NT < 6 ? NT : (NT % 8 == 0 ? 8 : (NT % 6 == 0 ? 6 : 9));
   static constexpr int NTHREADS = NW * 32;
   static constexpr int BM = C <= 384 ? 64 : (C <= 768 ? 32 : 16);  // rows per block
   static constexpr int MT = BM / 16;                  // 16-row tiles per block
@@ -430,5 +431,6 @@ int launch_bwd(const void* s, const float* keep, int rows_per_keep, const float*
 }  // namespace
 
 // Channel widths built: every ConvNeXt stage width the gates admit
-// (T/S: 96-768, B: 128-1024, L: 192-768) and convnext_iso's 432.
-#define BLOCK_MLP_WIDTHS(X) X(96) X(128) X(192) X(256) X(384) X(432) X(512) X(768) X(1024)
+// (T/S: 96-768, B: 128-1024, L: 192-768), convnext_iso's 432, and the micro
+// models' 16, 32, 64 (convnext_micro's stages 0-2, vit_micro's width 32).
+#define BLOCK_MLP_WIDTHS(X) X(16) X(32) X(64) X(96) X(128) X(192) X(256) X(384) X(432) X(512) X(768) X(1024)

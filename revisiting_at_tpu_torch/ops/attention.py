@@ -6,13 +6,15 @@ revisiting_at_tpu/ops/attention.py.
 Head g's q, k and v are the column slices [g*hd, (g+1)*hd), offset by 0,
 D and 2D, of qkv [B, N, 3D]; o is [B, N, D]; the backward writes one dqkv
 [B, N, 3D] at the same offsets. Hand-written Hopper kernels in
-csrc/attention.cu replace the TPU kernels:
+csrc/attention.cu (TMA loads, wgmma; persistent blocks that walk the
+(head, image) pairs, each head's tiles loaded once for all its rows)
+replace the TPU kernels:
 
   * the forward (`attn_fwd_kernel`) replaces `_fwd_qkv_kernel`;
-  * the backward replaces `_bwd_qkv_kernel` with two kernels: a row pass
-    (`attn_bwd_rows_kernel`: dq, and per query row the softmax max, sum
-    and delta = rowsum(dp * p) into a small f32 side buffer) and a column
-    pass (`attn_bwd_cols_kernel`: dk and dv per key tile, looping over the
+  * the backward replaces `_bwd_qkv_kernel` with two kernels: a dq pass
+    (`attn_bwd_rows_kernel`: dq, and per query row the softmax max,
+    1 / sum and delta = rowsum(dp * p) into a small f32 side buffer) and a
+    dk/dv pass (`attn_bwd_cols_kernel`: dk and dv per key tile, over the
     query tiles). No float atomics: the same bits every run.
 
 `fused_attention(q, k, v)` on [B, N, H, hd] (the `attn_impl='bhnd'` path,
@@ -27,9 +29,13 @@ f32; o has the operand dtype. Backward: p16 = cast(p); dv = p16^T dO;
 dp = dO v^T; dS = p * (dp - rowsum(dp * p)) with the f32 p; ds16 =
 cast(dS * scale); dq = ds16 k; dk = ds16^T q; all accumulated in f32.
 The casts go to the input dtype (bf16 in a bf16 model, none in f32).
+The kernels form e and e / sum(e) by cheaper routes within a few f32 ulp
+(e by ex2, p as e times the row's 1 / sum; csrc/attention.cu); the plain
+versions use torch.exp and division.
 
 A tensor on the CPU takes the plain version; a CUDA tensor launches the
-kernel, which takes bf16 with head width 64 and N <= 448, or raises.
+kernel, which takes contiguous bf16 with any N >= 1 and a head width that
+is a multiple of 16 up to 128, or raises.
 """
 
 from __future__ import annotations
@@ -44,8 +50,7 @@ from . import cuda_build
 # Launches of each kernel, counted where the wrapper launches it.
 LAUNCHES = {"fwd": 0, "bwd_rows": 0, "bwd_cols": 0}
 
-HEAD_DIM = 64   # the kernels' head width (every ViT of the zoo)
-MAX_TOKENS = 448  # 7 tiles of 64 keys: 401 tokens at 320 px fit
+MAX_HEAD_DIM = 128  # the kernels take head widths 16, 32, ..., 128 and any N
 
 
 # ----------------------------------------------------------- plain versions
@@ -128,28 +133,39 @@ _lib_handle = None
 def _lib():
     global _lib_handle
     if _lib_handle is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         _lib_handle = types.SimpleNamespace(**cuda_build.load("attention", {
-            "attention_fwd": [P, P, I, I, I, P],
-            "attention_bwd_rows": [P, P, P, P, I, I, I, P],
-            "attention_bwd_cols": [P, P, P, P, I, I, I, P],
+            "attention_fwd": [P, P, I, I, I, I, F, P],
+            "attention_bwd_rows": [P, P, P, P, I, I, I, I, F, P],
+            "attention_bwd_cols": [P, P, P, P, I, I, I, I, F, P],
         }))
     return _lib_handle
 
 
 def _check_qkv(qkv, num_heads):
+    """(B, N, H, hd) of a qkv the kernels take; NotImplementedError for
+    what they do not (a head width that is not a multiple of 16 or is over
+    MAX_HEAD_DIM, a dtype other than bf16, a non-contiguous tensor)."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3 or qkv.shape[-1] // 3 % num_heads:
         raise ValueError(f"qkv: expected [B, N, 3 * H * hd], got {tuple(qkv.shape)} "
                          f"with H = {num_heads}")
     B, N, three_d = qkv.shape
     hd = three_d // 3 // num_heads
-    if qkv.dtype != torch.bfloat16 or hd != HEAD_DIM or not 0 < N <= MAX_TOKENS \
+    if qkv.dtype != torch.bfloat16 or hd % 16 or not 0 < hd <= MAX_HEAD_DIM or N < 1 \
             or not qkv.is_contiguous():
         raise NotImplementedError(
-            f"attention CUDA kernel: takes contiguous bf16 qkv with head width {HEAD_DIM} and "
-            f"1..{MAX_TOKENS} tokens, got {qkv.dtype} {tuple(qkv.shape)} (head width {hd})"
-            f"{'' if qkv.is_contiguous() else ', not contiguous'}")
-    return B, N, num_heads
+            f"attention CUDA kernel: takes contiguous bf16 qkv with a head width that is a "
+            f"multiple of 16 up to {MAX_HEAD_DIM}, got {qkv.dtype} {tuple(qkv.shape)} (head "
+            f"width {hd}){'' if qkv.is_contiguous() else ', not contiguous'}")
+    return B, N, num_heads, hd
+
+
+def _check_cuda(qkv, num_heads):
+    """_check_qkv, and the tensor must lie on a CUDA device."""
+    dims = _check_qkv(qkv, num_heads)
+    if qkv.device.type != "cuda":
+        raise NotImplementedError(f"attention CUDA kernel: no kernel for device {qkv.device}")
+    return dims
 
 
 def _check_like(name, t, shape, dtype, device):
@@ -161,51 +177,64 @@ def _check_like(name, t, shape, dtype, device):
 
 def _raise_on(err, what):
     if err != 0:
+        cause = {-1: "unsupported shape", -2: "cuTensorMapEncodeTiled failed"}
         raise RuntimeError(f"attention {what} kernel launch failed: "
-                           f"{'unsupported shape' if err == -1 else f'cudaError {err}'}")
+                           f"{cause.get(err, f'cudaError {err}')}")
+
+
+def _scale(hd):
+    """The f32 of hd^-0.5, the value JAX multiplies the scores by."""
+    return ctypes.c_float(hd ** -0.5)
+
+
+def stats_shape(B, N, H):
+    """The dq pass's side buffer: per head and 64-row query tile, the
+    (scaled) max, 1 / sum and delta of each row (f32)."""
+    return (B, H, -(-N // 64), 3, 64)
 
 
 def attention_fwd_cuda(qkv, num_heads):
     """Launch the forward kernel: o [B, N, D] bf16."""
-    B, N, H = _check_qkv(qkv, num_heads)
+    B, N, H, hd = _check_cuda(qkv, num_heads)
     o = torch.empty(B, N, qkv.shape[-1] // 3, dtype=qkv.dtype, device=qkv.device)
-    err = cuda_build.launch(qkv, _lib().attention_fwd, qkv.data_ptr(), o.data_ptr(), B, N, H)
+    err = cuda_build.launch(qkv, _lib().attention_fwd, qkv.data_ptr(), o.data_ptr(), B, N, H, hd,
+                            _scale(hd))
     _raise_on(err, "forward")
     LAUNCHES["fwd"] += 1
     return o
 
 
 def attention_bwd_rows_cuda(qkv, do, num_heads):
-    """Launch the row pass: returns dqkv [B, N, 3D] bf16 with its dq third
-    written, and the f32 side buffer [B, H, 3, Npad] of per-row max, sum and
-    delta that the column pass reads."""
-    B, N, H = _check_qkv(qkv, num_heads)
+    """Launch the dq pass: returns dqkv [B, N, 3D] bf16 with its dq third
+    written, and the f32 side buffer (`stats_shape`) of per-row max,
+    1 / sum and delta that the dk/dv pass reads."""
+    B, N, H, hd = _check_cuda(qkv, num_heads)
     _check_like("do", do, (B, N, qkv.shape[-1] // 3), qkv.dtype, qkv.device)
-    stats = torch.empty(B, H, 3, -(-N // 64) * 64, dtype=torch.float32, device=qkv.device)
+    stats = torch.empty(stats_shape(B, N, H), dtype=torch.float32, device=qkv.device)
     dqkv = torch.empty_like(qkv)
     err = cuda_build.launch(qkv, _lib().attention_bwd_rows, qkv.data_ptr(), do.data_ptr(),
-                            stats.data_ptr(), dqkv.data_ptr(), B, N, H)
-    _raise_on(err, "backward row")
+                            stats.data_ptr(), dqkv.data_ptr(), B, N, H, hd, _scale(hd))
+    _raise_on(err, "backward dq")
     LAUNCHES["bwd_rows"] += 1
     return dqkv, stats
 
 
 def attention_bwd_cols_cuda(qkv, do, num_heads, stats, dqkv):
-    """Launch the column pass: writes the dk and dv thirds of dqkv (from the
-    row pass, with its side buffer) and returns it."""
-    B, N, H = _check_qkv(qkv, num_heads)
+    """Launch the dk/dv pass: writes the dk and dv thirds of dqkv (from the
+    dq pass, with its side buffer) and returns it."""
+    B, N, H, hd = _check_cuda(qkv, num_heads)
     _check_like("do", do, (B, N, qkv.shape[-1] // 3), qkv.dtype, qkv.device)
-    _check_like("stats", stats, (B, H, 3, -(-N // 64) * 64), torch.float32, qkv.device)
+    _check_like("stats", stats, stats_shape(B, N, H), torch.float32, qkv.device)
     _check_like("dqkv", dqkv, qkv.shape, qkv.dtype, qkv.device)
     err = cuda_build.launch(qkv, _lib().attention_bwd_cols, qkv.data_ptr(), do.data_ptr(),
-                            stats.data_ptr(), dqkv.data_ptr(), B, N, H)
-    _raise_on(err, "backward column")
+                            stats.data_ptr(), dqkv.data_ptr(), B, N, H, hd, _scale(hd))
+    _raise_on(err, "backward dk/dv")
     LAUNCHES["bwd_cols"] += 1
     return dqkv
 
 
 def attention_bwd_cuda(qkv, do, num_heads):
-    """The backward on the card: the row pass, then the column pass.
+    """The backward on the card: the dq pass, then the dk/dv pass.
     Returns dqkv [B, N, 3D] bf16."""
     dqkv, stats = attention_bwd_rows_cuda(qkv, do, num_heads)
     return attention_bwd_cols_cuda(qkv, do, num_heads, stats, dqkv)

@@ -69,19 +69,27 @@ def _qkv(B, N, H, hd, seed=0):
         rng.randn(B, N, H * hd).astype(np.float32)
 
 
+# (B, N, H, hd) per case; the first two keep their ids from before the
+# kernels took any head width and token count
+ATT_QKV_CASES = {16: (2, 16, 2, 16), 197: (2, 197, 2, 16), "hd32": (2, 70, 2, 32),
+                 "hd64": (2, 70, 1, 64), "N450": (1, 450, 1, 64)}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N", [16, 197])
-def test_attention_qkv_matches_jax(N, dtype):
+@pytest.mark.parametrize("case", list(ATT_QKV_CASES))
+def test_attention_qkv_matches_jax(case, dtype):
     """The port's plain forward and dqkv (through the autograd Function)
     against JAX's `_fwd_qkv_kernel` / `_bwd_qkv_kernel` in interpret mode,
-    B = 2, H = 2, hd = 16, on the same f32 or bf16 inputs."""
-    x, do = _qkv(2, N, 2, 16)
+    on the same f32 or bf16 inputs: head widths 16 (vit_micro), 32 and 64
+    (ViT-S/M/B), and 450 tokens, past the 448 the kernels once took."""
+    B, N, H, hd = ATT_QKV_CASES[case]
+    x, do = _qkv(B, N, H, hd)
     jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
     o_ref, (d_ref,) = jax.jit(lambda t, c: (lambda o, f: (o, f(c)))(
-        *jax.vjp(lambda u: jatt.fused_attention_qkv(u, 2, interpret=True), t)))(
+        *jax.vjp(lambda u: jatt.fused_attention_qkv(u, H, interpret=True), t)))(
         jnp.asarray(x, jdt), jnp.asarray(do, jdt))
     xt = T(x).to(dtype).requires_grad_(True)
-    o = tatt.fused_attention_qkv(xt, 2)
+    o = tatt.fused_attention_qkv(xt, H)
     o.backward(T(do).to(dtype))
     assert o.dtype == dtype and xt.grad.dtype == dtype
     tol_o, tol_d = TOL_ATT[dtype]
@@ -107,16 +115,30 @@ def test_attention_bhnd_wrapper_matches_jax():
 
 
 def test_attention_kernel_refuses_what_it_cannot_take():
-    """The CUDA wrappers check before launching: bf16, head width 64 and
-    1..448 tokens only; a tensor on a device with no kernel raises instead of
-    falling back, and a CPU tensor launches nothing."""
+    """The CUDA wrappers check before launching: contiguous bf16 with a head
+    width that is a multiple of 16 up to 128 and any token count; a head
+    width of 24 or 144, f32 and a non-contiguous tensor raise, and so does
+    any device but CUDA (a CPU tensor given to the kernel, the meta device),
+    instead of falling back. Head width 16 and 449 tokens pass the check. A
+    CPU tensor through the dispatch launches nothing."""
+    bf16 = torch.bfloat16
     before = dict(tatt.LAUNCHES)
-    for shape, dt in (((2, 10, 3 * 2 * 16), torch.bfloat16), ((2, 10, 3 * 64), torch.float32),
-                      ((1, 449, 3 * 64), torch.bfloat16)):
+    for qkv, H in ((torch.zeros(2, 10, 3 * 2 * 24, dtype=bf16), 2),
+                   (torch.zeros(1, 4, 3 * 144, dtype=bf16), 1),
+                   (torch.zeros(2, 10, 3 * 64), 1),
+                   (torch.zeros(2, 3 * 64, 10, dtype=bf16).transpose(1, 2), 1)):
         with pytest.raises(NotImplementedError):
-            tatt.attention_fwd_cuda(torch.zeros(shape, dtype=dt), shape[-1] // 3 // 64 or 2)
+            tatt._check_qkv(qkv, H)
+        with pytest.raises(NotImplementedError):
+            tatt.attention_fwd_cuda(qkv, H)
     with pytest.raises(NotImplementedError):
         tatt.fused_attention_qkv(torch.zeros(1, 4, 3 * 64, device="meta"), 1)
+    for shape, H, dims in (((2, 10, 3 * 2 * 16), 2, (2, 10, 2, 16)),
+                           ((1, 449, 3 * 64), 1, (1, 449, 1, 64))):
+        qkv = torch.zeros(shape, dtype=bf16)
+        assert tatt._check_qkv(qkv, H) == dims
+        with pytest.raises(NotImplementedError):  # the kernel takes CUDA tensors only
+            tatt.attention_fwd_cuda(qkv, H)
     tatt.fused_attention_qkv(torch.zeros(1, 4, 3 * 64), 1)
     assert tatt.LAUNCHES == before
 
