@@ -870,7 +870,21 @@ def attention_timings(torch, att, gen, label) -> dict:
     spread = {k: f"[{min(v):.4f}, {max(v):.4f}]" for k, v in runs.items()}
     # the profiler's device time per call: the event loop also times the
     # host where a call's own dispatch outlasts its device work (SDPA's does)
-    dev = {k: device_ms(torch, fns[k], 10) for k in fns}
+    def device_or_none(fn):
+        for _ in range(3):
+            try:
+                return device_ms(torch, fn, 10)
+            except AssertionError as exc:  # the profiler can miss a short run's kernels
+                log(f"device time: {exc}; profiling again")
+        return None
+
+    dev = {k: device_or_none(fns[k]) for k in fns}
+
+    def ms_or_na(v):
+        return "n/a" if v is None else f"{v:.4f}"
+
+    def ratio(a, b):
+        return "n/a" if a is None or b is None else f"{a / b:.3f}"
 
     flop = B * H * N * N * hd
     out = {}
@@ -880,9 +894,9 @@ def attention_timings(torch, att, gen, label) -> dict:
     log(f"time attention fwd B={B} N={N} H={H}, {ATT_ROUNDS} rounds in turns: kernel median "
         f"{med['fwd']:.4f} ms {spread['fwd']} ({4 * flop / med['fwd'] / 1e9:.1f} TFLOP/s), sdpa "
         f"median {med['sdpa']:.4f} ms {spread['sdpa']}, kernel / sdpa "
-        f"{med['fwd'] / med['sdpa']:.3f}; device time kernel {dev['fwd']:.4f} ms, sdpa "
-        f"{dev['sdpa']:.4f} ms, kernel / sdpa {dev['fwd'] / dev['sdpa']:.3f}; plain {p_ms:.4f} ms, "
-        f"model path {model_ms:.4f} ms, bound {out['attention_fwd'][2]:.4f} ms "
+        f"{med['fwd'] / med['sdpa']:.3f}; device time kernel {ms_or_na(dev['fwd'])} ms, sdpa "
+        f"{ms_or_na(dev['sdpa'])} ms, kernel / sdpa {ratio(dev['fwd'], dev['sdpa'])}; plain "
+        f"{p_ms:.4f} ms, model path {model_ms:.4f} ms, bound {out['attention_fwd'][2]:.4f} ms "
         f"({out['attention_fwd'][3]}) {label}")
 
     rows_p = plain_turns(fns["rows"], lambda: att.attention_bwd_rows_plain(qkv, do, H))
@@ -904,9 +918,10 @@ def attention_timings(torch, att, gen, label) -> dict:
         f"{med['bwd']:.4f} ms {spread['bwd']} ({10 * flop / med['bwd'] / 1e9:.1f} TFLOP/s; dq pass "
         f"{med['rows']:.4f} {spread['rows']}, dk/dv pass {med['cols']:.4f} {spread['cols']}), "
         f"sdpa backward median {med['sdpa_bwd']:.4f} ms {spread['sdpa_bwd']}, kernels / sdpa "
-        f"{med['bwd'] / med['sdpa_bwd']:.3f}; device time kernels {dev['bwd']:.4f} ms (dq "
-        f"{dev['rows']:.4f}, dk/dv {dev['cols']:.4f}), sdpa backward {dev['sdpa_bwd']:.4f} ms, "
-        f"kernels / sdpa {dev['bwd'] / dev['sdpa_bwd']:.3f}; plain {whole_p:.4f} ms (dq "
+        f"{med['bwd'] / med['sdpa_bwd']:.3f}; device time kernels {ms_or_na(dev['bwd'])} ms (dq "
+        f"{ms_or_na(dev['rows'])}, dk/dv {ms_or_na(dev['cols'])}), sdpa backward "
+        f"{ms_or_na(dev['sdpa_bwd'])} ms, kernels / sdpa {ratio(dev['bwd'], dev['sdpa_bwd'])}; "
+        f"plain {whole_p:.4f} ms (dq "
         f"{rows_p:.4f}, dk/dv {cols_p:.4f}), model path backward {model_bwd:.4f} ms, sdpa forward + "
         f"backward {lib_both:.4f} ms, bound {whole_bound[0]:.4f} ms ({whole_bound[1]}); the design's own "
         f"work: side buffer {design / 1e6:.2f} MB, recomputed products {8 * flop / 1e9:.2f} "
