@@ -276,26 +276,38 @@ def time_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, n) -> float:
+def device_ms(torch, fn, n, tries=3):
     """Device time per call of fn from torch.profiler over n calls: the mean
     duration of each CUDA kernel the call launches, summed over the kernels
     (each launched once per call). Means, not totals: kernels launched just
     as tracing starts can go unrecorded. Beside time_ms's event loop it
-    shows whether a call is bound by the host."""
+    shows whether a call is bound by the host. The profiler can miss every
+    kernel of a run: then it traces again, and after `tries` empty traces
+    the time is not measured (None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    for attempt in range(1, tries + 1):
+        fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total / e.count for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and e.count)
-    if us <= 0:
-        raise AssertionError("device_ms: the profiler saw no device time")
-    return us / 1000
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total / e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.count)
+        if us > 0:
+            return us / 1000
+        log(f"device time: the profiler saw no device time in trace {attempt} of {tries}")
+    return None
+
+
+def ms_or_na(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def sum_or_none(a, b):
+    return None if a is None or b is None else a + b
 
 
 def run_full(bm, d, kernel: bool):
@@ -576,13 +588,23 @@ def _depthwise_7x7(shapes) -> bool:
                for sh in shapes)
 
 
-def profile_breakdown(torch, what: str, fn, n: int, label: str) -> dict:
+def profile_breakdown(torch, what: str, fn, n: int, label: str, tries: int = 3):
     """torch.profiler over n calls of fn: wall and device time per call, the
     device's busy share, and device time by kernel family. The library's
     depthwise 7x7 convolutions are split out of "conv" by their ops
     (aten::convolution and aten::convolution_backward with a [C, 1, 7, 7]
     weight; every kernel those ops launch). The profiler inflates host time,
-    so the shares are what to read. Returns the families in ms per call."""
+    so the shares are what to read. Returns the families in ms per call, or
+    None (not measured) when `tries` traces in a row record no device time."""
+    for attempt in range(1, tries + 1):
+        out = _profile_once(torch, what, fn, n, label)
+        if out is not None:
+            return out
+        log(f"profile {what}: the profiler saw no device time in trace {attempt} of {tries}")
+    return None
+
+
+def _profile_once(torch, what: str, fn, n: int, label: str):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -621,7 +643,7 @@ def profile_breakdown(torch, what: str, fn, n: int, label: str) -> dict:
                  and e.device_type == DeviceType.CPU and _depthwise_7x7(e.input_shapes)) / n
     device = sum(families.values()) / 1000
     if device <= 0:
-        raise AssertionError(f"profile {what}: the profiler saw no device time")
+        return None
     top.sort(reverse=True)
     log(f"profile {what}: wall {wall:.2f} ms, device {device:.2f} ms "
         f"(busy {100 * device / wall:.1f}%), "
@@ -870,18 +892,7 @@ def attention_timings(torch, att, gen, label) -> dict:
     spread = {k: f"[{min(v):.4f}, {max(v):.4f}]" for k, v in runs.items()}
     # the profiler's device time per call: the event loop also times the
     # host where a call's own dispatch outlasts its device work (SDPA's does)
-    def device_or_none(fn):
-        for _ in range(3):
-            try:
-                return device_ms(torch, fn, 10)
-            except AssertionError as exc:  # the profiler can miss a short run's kernels
-                log(f"device time: {exc}; profiling again")
-        return None
-
-    dev = {k: device_or_none(fns[k]) for k in fns}
-
-    def ms_or_na(v):
-        return "n/a" if v is None else f"{v:.4f}"
+    dev = {k: device_ms(torch, fns[k], 10) for k in fns}
 
     def ratio(a, b):
         return "n/a" if a is None or b is None else f"{a / b:.3f}"
@@ -1079,9 +1090,8 @@ def dwconv_timings(torch, dw, gen, label) -> dict:
             dev = ""
             if k == "dwconv_reduce":  # a few microseconds: is the event loop timing the host?
                 dev_k, dev_lib = device_ms(torch, k_fn, 20), device_ms(torch, lib_fn, 20)
-                dev_tot[0] += dev_k
-                dev_tot[1] += dev_lib
-                dev = f" (device {dev_k:.4f} ms, torch.sum's {dev_lib:.4f} ms)"
+                dev_tot = [sum_or_none(dev_tot[0], dev_k), sum_or_none(dev_tot[1], dev_lib)]
+                dev = f" (device {ms_or_na(dev_k)} ms, torch.sum's {ms_or_na(dev_lib)} ms)"
             log(f"time {k:13s} B={B} {side}x{side} C={C:3d}: kernel {k_ms:.4f} ms"
                 + (f" ({flops / k_ms / 1e9:.1f} TFLOP/s fp32)" if flops else "")
                 + f"{dev}, plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
@@ -1094,7 +1104,7 @@ def dwconv_timings(torch, dw, gen, label) -> dict:
         torch.cuda.empty_cache()
     r = tot["dwconv_reduce"]
     log(f"dwconv reduction over the three stage shapes: event loop {r[0]:.4f} ms (torch.sum "
-        f"{r[4]:.4f} ms), device {dev_tot[0]:.4f} ms (torch.sum {dev_tot[1]:.4f} ms), bound "
+        f"{r[4]:.4f} ms), device {ms_or_na(dev_tot[0])} ms (torch.sum {ms_or_na(dev_tot[1])} ms), bound "
         f"{r[3]:.4f} ms {label}")
     return {k: (v[0], v[1], max(v[2], v[3]), "operations" if v[2] >= v[3] else "bytes", v[4])
             for k, v in tot.items()}
@@ -1665,10 +1675,11 @@ def main(argv=None) -> int:
             plain_ms["wgrad"] += time_ms(torch, lambda: bm.wgrad_plain(x16, y16), 5)
             library_ms["wgrad"] += lib
             for k, v in zip(wg, (k_pass, k_both, lib, dev_pass, dev_both, dev_lib, bnd)):
-                wg[k] += v
+                wg[k] = sum_or_none(wg[k], v)
             log(f"time wgrad     B={TRAIN_BATCH} M={M:6d} {P:4d}x{Q:4d}: {part.shape[0]} slices of "
-                f"M; pass {k_pass:.4f} ms (device {dev_pass:.4f}), pass + reduction {k_both:.4f} "
-                f"ms (device {dev_both:.4f}), torch.matmul {lib:.4f} ms (device {dev_lib:.4f}), "
+                f"M; pass {k_pass:.4f} ms (device {ms_or_na(dev_pass)}), pass + reduction "
+                f"{k_both:.4f} ms (device {ms_or_na(dev_both)}), torch.matmul {lib:.4f} ms "
+                f"(device {ms_or_na(dev_lib)}), "
                 f"bound {bnd:.4f} ms ({nbytes / 1e6:.1f} MB; {2 * m_pad * P * Q / 1e9:.1f} GFLOP); "
                 f"partials {part.numel() * 4 / 1e6:.1f} MB, the design's own traffic {label}")
         for part in col_parts + w_parts:
@@ -1701,9 +1712,9 @@ def main(argv=None) -> int:
         del d, a, ds, u16, kdy16, g16, dh16, col_parts, w_parts, leaves, y_model
         torch.cuda.empty_cache()
     log(f"wgrad over the six products of stages 0-2 (B={TRAIN_BATCH}): pass {wg['pass']:.4f} ms "
-        f"(device {wg['pass_dev']:.4f}), pass + reductions {wg['with_reduce']:.4f} ms (device "
-        f"{wg['with_reduce_dev']:.4f}), torch.matmul {wg['matmul']:.4f} ms (device "
-        f"{wg['matmul_dev']:.4f}), bound "
+        f"(device {ms_or_na(wg['pass_dev'])}), pass + reductions {wg['with_reduce']:.4f} ms "
+        f"(device {ms_or_na(wg['with_reduce_dev'])}), torch.matmul {wg['matmul']:.4f} ms "
+        f"(device {ms_or_na(wg['matmul_dev'])}), bound "
         f"{wg['bound']:.4f} ms: pass + reductions at {100 * wg['bound'] / wg['with_reduce']:.1f}% "
         f"of the bound, {wg['with_reduce'] / wg['matmul']:.3f}x torch.matmul; the whole full "
         f"backward {ms['bwd_full']:.3f} ms against _bwd_kernel's bound {bound_ms['bwd_full']:.3f}"
