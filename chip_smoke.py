@@ -19,7 +19,10 @@ Phases, each fatal on failure:
      ragged M, ViT-S, C = 432, every other width); the attention forward and
      backward (dq, dk, dv) at ATT_CASES (ViT-S, M and B at batch 80 and 197
      tokens, ViT-S at 401 and 577 tokens, vit_micro's head width 16, the
-     widths 32, 80 and 128, one token) and ViT-S with every score below 0; the
+     widths 32, 80 and 128, one token, and 64, 65, 208, 209 and 255 tokens,
+     whose last key tile is full or holds 1, 16, 17 or 63 keys) and ViT-S
+     with every score below 0; the column reduction alone at the row pass's
+     stage-0 shape and at REDUCE_ROWS x REDUCE_COLS, one launch each; the
      7x7 depthwise conv's forward, dx, weight pass and reduction at
      ConvNeXt-T's gated stages (0-2) at batch 80, 224 and 320 px, on a
      ragged map and once in f32, and its one-launch reduction at the three
@@ -49,7 +52,9 @@ Phases, each fatal on failure:
      and the plain model path's tail, at the stage shapes (forward and input
      backward at batch 200, full backward at batch 80; the weight pass alone
      and with its reduction beside torch.matmul on the same operands, with
-     the profiler's device times and its slices of M), and ms per APGD
+     the profiler's device times and its slices of M; the column reduction
+     on the full backward's 15 partials beside torch.sum, in turns, with
+     both device times), and ms per APGD
      iteration at batch 32 with and without the kernels; torch.profiler
      breakdowns of the training step (phase 6) and of APGD by kernel family;
   9. the ViT evaluation path: ViT-S-CvSt (vit_s, not_original=1) at full
@@ -170,12 +175,21 @@ ATT_KERNELS = ("attention_fwd", "attention_bwd_rows", "attention_bwd_cols")
 # attention checks: (name, batch, tokens, heads, head width): ViT-S/M/B at
 # the training batch, 224, 320 and 384 px; vit_micro's head width 16; the
 # other widths built (32 and 128 at ViT-S's width, 80 with a second,
-# partial TMA box); one token
+# partial TMA box); one token; a last key tile that is full or holds 1, 16,
+# 17 or 63 keys (the forward's S as wide as the live keys, its PV as deep)
 ATT_CASES = [("ViT-S", TRAIN_BATCH, 197, 6, 64), ("ViT-M", TRAIN_BATCH, 197, 8, 64),
              ("ViT-B", TRAIN_BATCH, 197, 12, 64), ("ViT-S@320", TRAIN_BATCH, 401, 6, 64),
              ("ViT-S@384", TRAIN_BATCH, 577, 6, 64), ("vit_micro", TRAIN_BATCH, 197, 2, 16),
              ("hd=32", TRAIN_BATCH, 197, 12, 32), ("hd=128", TRAIN_BATCH, 197, 3, 128),
-             ("hd=80", 8, 300, 2, 80), ("N=1", TRAIN_BATCH, 1, 6, 64)]
+             ("hd=80", 8, 300, 2, 80), ("N=1", TRAIN_BATCH, 1, 6, 64),
+             ("N=64", TRAIN_BATCH, 64, 6, 64), ("N=65", TRAIN_BATCH, 65, 6, 64),
+             ("N=208", TRAIN_BATCH, 208, 6, 64), ("N=209", TRAIN_BATCH, 209, 6, 64),
+             ("N=255", TRAIN_BATCH, 255, 6, 64)]
+# reduction checks: rows R x columns N of the partials (R*N past REDUCE_MAX_ELEMS
+# skipped), beside the main path's shapes checked elsewhere
+REDUCE_ROWS = (1, 63, 64, 65, 3920, 247)
+REDUCE_COLS = (8, 96, 1536, 589824, 1001)  # 1001: ragged, no 16-byte loads
+REDUCE_MAX_ELEMS = 1 << 28
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 outside
 # the tensor cores, HBM
 PEAK_BF16, PEAK_FP32, PEAK_HBM = 989e12, 67e12, 3.35e12
@@ -277,13 +291,13 @@ def time_ms(torch, fn, iters):
 
 
 def device_ms(torch, fn, n, tries=3):
-    """Device time per call of fn from torch.profiler over n calls: the mean
-    duration of each CUDA kernel the call launches, summed over the kernels
-    (each launched once per call). Means, not totals: kernels launched just
-    as tracing starts can go unrecorded. Beside time_ms's event loop it
-    shows whether a call is bound by the host. The profiler can miss every
-    kernel of a run: then it traces again, and after `tries` empty traces
-    the time is not measured (None)."""
+    """Device time per call of fn from torch.profiler over n calls: for each
+    CUDA kernel name, its mean duration times its launches per call (its
+    count over n, rounded), summed over the names. Means, not totals:
+    kernels launched just as tracing starts can go unrecorded. Beside
+    time_ms's event loop it shows whether a call is bound by the host. The
+    profiler can miss every kernel of a run: then it traces again, and after
+    `tries` empty traces the time is not measured (None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -294,8 +308,8 @@ def device_ms(torch, fn, n, tries=3):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total / e.count for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and e.count)
+        us = sum(e.self_device_time_total / e.count * max(1, round(e.count / n))
+                 for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count)
         if us > 0:
             return us / 1000
         log(f"device time: the profiler saw no device time in trace {attempt} of {tries}")
@@ -416,6 +430,29 @@ def check_wgrad(torch, bm, gen) -> float:
     return worst
 
 
+def check_reduce(torch, bm, gen, shapes) -> float:
+    """The column reduction alone on random partials [R, N] at each shape:
+    one launch of reduce_cuda, within TOL["reduce"] of reduce_plain, the
+    same bits over two launches. Returns the largest error."""
+    worst = 0.0
+    for R, N in shapes:
+        part = torch.randn(R, N, generator=gen, device="cuda")
+        lanes, splits, rows = bm.reduce_plan(R, N)
+        what = f"reduce {R}x{N} ({lanes} column lanes, {splits} splits of {rows} rows)"
+        before = bm.LAUNCHES["reduce"]
+        got = bm.reduce_cuda(part)
+        if bm.LAUNCHES["reduce"] != before + 1:
+            raise AssertionError(f"{what}: not one launch")
+        torch.cuda.synchronize()
+        worst = max(worst, check(torch, what, got, bm.reduce_plain(part), TOL["reduce"]))
+        if not torch.equal(got, bm.reduce_cuda(part)):
+            raise AssertionError(f"{what}: two launches differ")
+        del part, got
+    torch.cuda.empty_cache()
+    log(f"reduce: one launch each, bitwise equal over two launches at {len(shapes)} shapes")
+    return worst
+
+
 def att_inputs(torch, B, N, H, hd, gen, negative=False):
     """bf16 qkv [B, N, 3D] and a cotangent do [B, N, D], D = hd * H. With
     `negative`, q >= 0 and k <= 0, so every score is about -20: softmax is
@@ -431,7 +468,7 @@ def att_inputs(torch, B, N, H, hd, gen, negative=False):
 def check_attention(torch, att, gen) -> dict:
     """The attention kernels against their plain versions in bf16 at
     ATT_CASES and with every score below 0: o, dq, dk and dv each within its
-    own tolerance; the same bits over two launches; and the planted fault
+    own tolerance; the same bits over two launches in every case; and the planted fault
     (one zero key past N left unmasked) rejected. Returns the largest error
     per kernel."""
     err = dict.fromkeys(ATT_KERNELS, 0.0)
@@ -455,11 +492,10 @@ def check_attention(torch, att, gen) -> dict:
                       TOL[f"att_{part}"])
             key = "attention_bwd_rows" if part == "dq" else "attention_bwd_cols"
             err[key] = max(err[key], e)
-        if i == 0 or negative or hd != 64:
-            if not (torch.equal(o, att.attention_fwd_cuda(qkv, H))
-                    and torch.equal(d, att.attention_bwd_cuda(qkv, do, H))):
-                raise AssertionError(f"attention {what}: two launches differ")
-            log(f"attention o, dqkv {what}: bitwise equal over two launches")
+        if not (torch.equal(o, att.attention_fwd_cuda(qkv, H))
+                and torch.equal(d, att.attention_bwd_cuda(qkv, do, H))):
+            raise AssertionError(f"attention {what}: two launches differ")
+        log(f"attention o, dqkv {what}: bitwise equal over two launches")
         if negative:
             padded = torch.cat([qkv, torch.zeros_like(qkv[:, :1])], dim=1)
             planted_fault(f"attention o with one zero key past N unmasked, {what}",
@@ -1414,13 +1450,11 @@ def main(argv=None) -> int:
             del u16, dh16, db1_p, part, dw1_bad
         del d, got, ref
     err["wgrad"] = max(err["wgrad"], check_wgrad(torch, bm, gen))
-    # the reduction alone, on partials of the row pass's shape at stage 0
+    # the reduction alone, on partials of the row pass's shape at stage 0,
+    # then at REDUCE_ROWS x REDUCE_COLS
     m0 = STAGES[0][0] * TRAIN_BATCH
-    part = torch.randn(m0 // 64, 384, generator=gen, device="cuda")
-    err["reduce"] = max(err["reduce"], check(torch, f"reduce {m0 // 64}x384", bm.reduce_cuda(part),
-                                             bm.reduce_plain(part), TOL["reduce"]))
-    del part
-    torch.cuda.empty_cache()
+    err["reduce"] = max(err["reduce"], check_reduce(torch, bm, gen, [(m0 // 64, 384)] + [
+        (R, N) for R in REDUCE_ROWS for N in REDUCE_COLS if R * N <= REDUCE_MAX_ELEMS]))
     att_err = check_attention(torch, att, gen)
     dw_err = check_dwconv(torch, dw, gen)
     if args.kernels_only:
@@ -1644,6 +1678,7 @@ def main(argv=None) -> int:
     # is its `pass_ms`.
     wg = dict.fromkeys(("pass", "with_reduce", "matmul", "pass_dev", "with_reduce_dev",
                         "matmul_dev", "bound"), 0.0)
+    red = {"dev": 0.0, "lib_dev": 0.0}  # the reductions' and torch.sum's device times
     for rows, C in STAGES[:3]:  # the full backward runs in stages 0-2
         M = rows * TRAIN_BATCH
         d = tail_inputs(torch, M, C, torch.bfloat16, gen)
@@ -1683,10 +1718,22 @@ def main(argv=None) -> int:
                 f"bound {bnd:.4f} ms ({nbytes / 1e6:.1f} MB; {2 * m_pad * P * Q / 1e9:.1f} GFLOP); "
                 f"partials {part.numel() * 4 / 1e6:.1f} MB, the design's own traffic {label}")
         for part in col_parts + w_parts:
-            ms["reduce"] += time_ms(torch, lambda: bm.reduce_cuda(part), 10)
+            # kernel and torch.sum in turns k, l, l, k; then each call's device time
+            k1, l1, l2, k2 = (time_ms(torch, f, 10) for f in (
+                lambda: bm.reduce_cuda(part), lambda: torch.sum(part, 0),
+                lambda: torch.sum(part, 0), lambda: bm.reduce_cuda(part)))
+            dev_k = device_ms(torch, lambda: bm.reduce_cuda(part), 20)
+            dev_l = device_ms(torch, lambda: torch.sum(part, 0), 20)
+            ms["reduce"] += (k1 + k2) / 2
+            library_ms["reduce"] += (l1 + l2) / 2
+            red["dev"], red["lib_dev"] = sum_or_none(red["dev"], dev_k), sum_or_none(red["lib_dev"],
+                                                                                       dev_l)
             plain_ms["reduce"] += time_ms(torch, lambda: bm.reduce_plain(part), 10)
-            library_ms["reduce"] += time_ms(torch, lambda: torch.sum(part, 0), 10)
-            add_bound("reduce", 0, part.numel() * 4 + part.shape[1] * 4)
+            bnd = add_bound("reduce", 0, part.numel() * 4 + part.shape[1] * 4)
+            R, N = part.shape
+            log(f"time reduce    B={TRAIN_BATCH} {R}x{N} (plan {bm.reduce_plan(R, N)}): kernel "
+                f"{(k1 + k2) / 2:.4f} ms (device {ms_or_na(dev_k)}), torch.sum "
+                f"{(l1 + l2) / 2:.4f} ms (device {ms_or_na(dev_l)}), bound {bnd:.4f} ms {label}")
         # the side buffers written once and read once, the partials likewise
         design = 2 * sum(t.numel() * t.element_size() for t in (u16, kdy16, g16, dh16))
         design += 2 * sum(t.numel() * 4 for t in col_parts + w_parts)
@@ -1711,6 +1758,10 @@ def main(argv=None) -> int:
             f"HBM rate {label}")
         del d, a, ds, u16, kdy16, g16, dh16, col_parts, w_parts, leaves, y_model
         torch.cuda.empty_cache()
+    log(f"reduce over the 15 sums of stages 0-2 (B={TRAIN_BATCH}), one launch each: event loop "
+        f"{ms['reduce']:.4f} ms (torch.sum {library_ms['reduce']:.4f} ms, kernel / torch.sum "
+        f"{ms['reduce'] / library_ms['reduce']:.3f}), device {ms_or_na(red['dev'])} ms (torch.sum "
+        f"{ms_or_na(red['lib_dev'])} ms), bound {bound_ms['reduce']:.4f} ms {label}")
     log(f"wgrad over the six products of stages 0-2 (B={TRAIN_BATCH}): pass {wg['pass']:.4f} ms "
         f"(device {ms_or_na(wg['pass_dev'])}), pass + reductions {wg['with_reduce']:.4f} ms "
         f"(device {ms_or_na(wg['with_reduce_dev'])}), torch.matmul {wg['matmul']:.4f} ms "
@@ -1768,6 +1819,8 @@ def main(argv=None) -> int:
     kernels[list(bm.LAUNCHES).index("wgrad")].update(
         pass_ms=wg["pass"], device_ms=wg["with_reduce_dev"], pass_device_ms=wg["pass_dev"],
         library_device_ms=wg["matmul_dev"])
+    kernels[list(bm.LAUNCHES).index("reduce")].update(device_ms=red["dev"],
+                                                      library_device_ms=red["lib_dev"])
     for k in ATT_KERNELS:
         k_ms, p_ms, b_ms, b_by, lib = att_times[k]
         kernels.append(dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],

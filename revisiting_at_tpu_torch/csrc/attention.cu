@@ -20,8 +20,9 @@
 // rowsum(dp * p)) with the f32 p, ds16 = bf16(dS * scale), dq = ds16 k,
 // dk = ds16^T q. The f32 softmax takes two cheaper forms, each within a few
 // f32 ulp: e is 2^(x c - max c), c = scale log2(e), from one fused
-// multiply-add and the SFU's ex2 (`exp_scaled`), and p = e * (1 / sum), with
-// the reciprocal correctly rounded once per row. p is rounded to bf16 where
+// multiply-add and the SFU's ex2 (`exp_scaled`; in the forward, one e in 16
+// from a polynomial on the FMA pipe instead, `exp2_fma`), and p = e * (1 /
+// sum), with the reciprocal correctly rounded once per row. p is rounded to bf16 where
 // JAX rounds it; the few f32 ulp flip that rounding only where p lies within
 // them of a bf16 rounding boundary.
 //
@@ -31,10 +32,11 @@
 // 3.35 TB/s, against 4.8 and 12 us of tensor-core time). The design:
 //   * Persistent blocks, one per SM, each walking (head, image) items, with
 //     a producer warpgroup and two consumer warpgroups. The consumers take
-//     the head's 64-row tiles in rounds, each its own (query tiles in the
-//     forward and the dq pass, key tiles in the dk/dv pass), so that one's
-//     products overlap the other's softmax, and share every tile the
-//     producer loads. The producer gives most of its registers to the
+//     the head's 64-row tiles, each its own (query tiles in the forward and
+//     the dq pass, key tiles in the dk/dv pass), so that one's products
+//     overlap the other's softmax (in the forward they issue them in turns,
+//     FlashAttention-3's ping-pong), and share every tile the producer
+//     loads. The producer gives most of its registers to the
 //     consumers (setmaxnreg: 240 each, against 168 for an even split).
 //   * An item's streamed tiles (K and V, or Q, dO and the statistics in the
 //     dk/dv pass) are loaded once for all of its rounds while they fit the
@@ -266,6 +268,13 @@ __device__ __forceinline__ void mask_keys(float (&s)[32], int key0, int N) {
   }
 }
 
+// -1e30 on the keys past N among a key tile's first 8 (d[0 .. 4)), for a
+// tile whose keys all lie there (the forward's short last tile)
+__device__ __forceinline__ void mask_first8(float (&s)[32], int key0, int N) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s[i] = key0 + acc_col(i) < N ? s[i] : kNegInf;
+}
+
 constexpr float kLog2e = 1.4426950408889634f;
 
 // e^(x * scale - m) for an unscaled score x, as 2^(x * c - mc) with c =
@@ -288,28 +297,29 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// the tile's row max folded into m (both of the thread's rows), in four
-// independent chains per row
-__device__ __forceinline__ void fold_max(const float (&s)[32], float (&m)[2]) {
+// the row max of the tile's first `groups` groups of 8 columns folded into
+// m (both of the thread's rows), in four independent chains per row
+__device__ __forceinline__ void fold_max(const float (&s)[32], float (&m)[2], int groups = 8) {
   float t[2][4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) t[0][k] = t[1][k] = kNegInf;
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     float& acc = t[(i / 2) % 2][(i / 4) % 4];
-    acc = fmaxf(acc, s[i]);
+    if (i / 4 < groups) acc = fmaxf(acc, s[i]);
   }
 #pragma unroll
   for (int j = 0; j < 2; ++j)
     m[j] = quad_max(fmaxf(fmaxf(m[j], fmaxf(t[j][0], t[j][1])), fmaxf(t[j][2], t[j][3])));
 }
 
-// the thread's part of the tile's row sums (both rows), in four independent
-// chains per row
-__device__ __forceinline__ void add_rows(const float (&s)[32], float (&l)[2]) {
+// the thread's part of the row sums of the tile's first `groups` groups of 8
+// columns (both rows), in four independent chains per row
+__device__ __forceinline__ void add_rows(const float (&s)[32], float (&l)[2], int groups = 8) {
   float t[2][4] = {};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) t[(i / 2) % 2][(i / 4) % 4] += s[i];
+  for (int i = 0; i < 32; ++i)
+    if (i / 4 < groups) t[(i / 2) % 2][(i / 4) % 4] += s[i];
 #pragma unroll
   for (int j = 0; j < 2; ++j) l[j] += (t[j][0] + t[j][1]) + (t[j][2] + t[j][3]);
 }
@@ -357,12 +367,72 @@ __device__ __forceinline__ void fwd_item(int nt, int i, int& t, bool& is_v) {
   }
 }
 
-// The two consumer warpgroups take an item's query tiles in rounds, each
-// its own, so that one's products overlap the other's softmax. A query
-// tile's whole score row (up to 256 keys, 128 registers) stays in its
+// Resident items: the block's k-th item hands its query tiles out in the
+// order fwd_query_tile(k, 0), (k, 1), ..., the p-th to warpgroup p % 2.
+// The order runs backwards on odd items, so that the short last tile (5 of
+// 64 rows at N = 197) falls to each warpgroup in turn.
+__device__ __forceinline__ int fwd_query_tile(int k, int p, int nt) {
+  return k % 2 ? nt - 1 - p : p;
+}
+
+// The two consumer warpgroups issue their products in turns (named
+// barriers kTurnBar + w), FlashAttention-3's ping-pong: a turn is one
+// warpgroup's S, or its PV, so that one's softmax runs while the other's
+// products do.
+constexpr int kTurnBar = 1;  // barrier 0 is __syncthreads'
+__device__ __forceinline__ void turn_wait(int w) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(kTurnBar + w), "n"(2 * 128) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int w) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(kTurnBar + 1 - w), "n"(2 * 128) : "memory");
+}
+
+// 2^x for x <= 0 on the FMA pipe, beside the SFU's ex2: x = j + f with j =
+// round(x), 2^f by a degree-7 Taylor polynomial in Horner form (within one
+// f32 ulp on [-0.5, 0.5]), j added to the exponent field. Below 2^-126 the
+// result is 0, as ex2.approx.ftz flushes it.
+__device__ __forceinline__ float exp2_fma(float x) {
+  x = fmaxf(x, -127.0f);
+  const float t = x + 12582912.0f;  // 1.5 * 2^23: round(x) in the low bits
+  const float f = x - (t - 12582912.0f);
+  float q = 1.5252733804059840e-5f;  // ln(2)^k / k!, k = 7 .. 0
+  q = fmaf(q, f, 1.5403530393381606e-4f);
+  q = fmaf(q, f, 1.3333558146428443e-3f);
+  q = fmaf(q, f, 9.6181291076284772e-3f);
+  q = fmaf(q, f, 5.5504108664821580e-2f);
+  q = fmaf(q, f, 2.4022650695910071e-1f);
+  q = fmaf(q, f, 6.9314718055994531e-1f);
+  q = fmaf(q, f, 1.0f);
+  const float r = __int_as_float(__float_as_int(q) + (__float_as_int(t) << 23));
+  return x <= -126.0f ? 0.0f : r;
+}
+
+// e^(x * scale - m) as exp_scaled computes it, for register i of a score
+// tile: every 16th register (i % 16 == 0) on the FMA pipe, the rest on the
+// SFU. A larger share on the FMA pipe measured slower (issue slots).
+__device__ __forceinline__ float exp_split(float x, float c, float mc, int i) {
+  return i % 16 == 0 ? exp2_fma(fmaf(x, c, -mc)) : exp_scaled(x, c, mc);
+}
+
+// The two consumer warpgroups take an item's query tiles, each its own. A
+// query tile's whole score row (up to 256 keys, 128 registers) stays in its
 // warpgroup's registers: the producer is a warpgroup of its own that gives
-// most of its registers to the consumers (setmaxnreg).
-template <int HD>
+// most of its registers to the consumers (setmaxnreg). What the H100
+// measured (tools/tree_compare.py; PERF.md) shaped the resident path:
+//   * the warpgroups' S and PV products go in turns (turn_wait/turn_pass)
+//     when both have the same number of query tiles (nt even);
+//   * with 4 key tiles, S is one m64n256k16 product per k16 step over the
+//     four contiguous ring stages (m64n200k16 when the last tile holds at
+//     most 8 keys), not four m64n64k16;
+//   * kShortLast: the last key tile holds at most 8 keys (N = 197 = 3 * 64
+//     + 5 for a ViT at 224 px) and its softmax is formed on those 8 columns
+//     only, no exponential for a dead key; its PV runs on zeros. Bounds
+//     known only at run time (a last tile of any width, a PV cut short)
+//     measured slower than the dead work they leave out: the softmax stays
+//     straight-line code;
+//   * each item's query tiles load before its K and V, and a block's first
+//     item lands before the next is asked for (all SMs load at once there).
+template <int HD, bool kShortLast>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_fwd_kernel(const __grid_constant__ CUtensorMap qkv_map, bf16* __restrict__ out, int N,
                 int H, float scale, int BH) {
@@ -377,16 +447,17 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap qkv_map, bf16* __restrict__ 
   const int items = fwd_items(nt);
   const int D = H * HD;
   const float c = scale * kLog2e;  // exp_scaled's exponent scale
+  // turns need as many of them in one warpgroup as in the other
+  const bool pingpong = resident && nc == 2 && nt % 2 == 0;
   sm.init(S, 4 * nc);
 
   if (threadIdx.x >= 128 * kMaxConsumers) {  // producer
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 128 * kMaxConsumers) {
-      int g = 0, cnt[kMaxConsumers] = {0, 0};
-      for (int item = blockIdx.x; item < BH; item += gridDim.x) {
+      int g = 0, cnt[kMaxConsumers] = {0, 0}, k = 0;
+      for (int item = blockIdx.x; item < BH; item += gridDim.x, ++k) {
         const int h = item % H, b = item / H;
-        // the item's streamed tiles; a resident item's go first, so that they
-        // load during the previous item
+        // the item's streamed tiles
         auto stream = [&]() {
           for (int i = 0; i < items; ++i, ++g) {
             const int st = ring_claim(sm, g, S);
@@ -398,13 +469,33 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap qkv_map, bf16* __restrict__ 
                     t * kRows, b);
           }
         };
-        if (resident) stream();
+        if (resident) {
+          // each warpgroup's first query tile, the K and V tiles (during the
+          // previous item), then the other query tiles; written out rather
+          // than as a second lambda, which measured slower on the producer's
+          // 24 registers
+          for (int p = 0; p < nc; ++p) {
+            uint64_t* bar = own_claim(sm, p, cnt[p], T::BYTES);
+            T::load(sm.own_tiles(p, cnt[p]++), &qkv_map, bar, h * HD,
+                    fwd_query_tile(k, p, nt) * kRows, b);
+          }
+          stream();
+          for (int p = nc; p < nt; ++p) {
+            const int w = p % nc;
+            uint64_t* bar = own_claim(sm, w, cnt[w], T::BYTES);
+            T::load(sm.own_tiles(w, cnt[w]++), &qkv_map, bar, h * HD,
+                    fwd_query_tile(k, p, nt) * kRows, b);
+          }
+          if (k == 0)  // the first item lands before the next is asked for
+            for (int i = 0; i < items; ++i) mbar_wait(&sm.full[i], 0);
+          continue;
+        }
         for (int r = 0; r < rounds; ++r) {
           for (int w = 0; w < nc && r * nc + w < nt; ++w) {
             uint64_t* bar = own_claim(sm, w, cnt[w], T::BYTES);
             T::load(sm.own_tiles(w, cnt[w]++), &qkv_map, bar, h * HD, (r * nc + w) * kRows, b);
           }
-          if (!resident) stream();
+          stream();
         }
       }
     }
@@ -412,29 +503,23 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap qkv_map, bf16* __restrict__ 
   }
   setmaxnreg_inc<kConsumerRegs>();
 
-  const int w = threadIdx.x / 128;
+  // the warpgroup, uniform to the compiler (a shuffle from lane 0): a branch
+  // on it is not divergent, so ptxas keeps the products' pipeline
+  const int w = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (w >= nc) return;  // one query tile: one warpgroup
-  int g = 0, cnt = 0;  // ring items, and query tiles this warpgroup did
-  for (int item = blockIdx.x; item < BH; item += gridDim.x) {
+  if (pingpong && w == 1) turn_pass(w);  // warpgroup 0 takes the first turn
+  int g = 0, cnt = 0, k = 0;  // ring items, query tiles this warpgroup did, items
+  for (int item = blockIdx.x; item < BH; item += gridDim.x, ++k) {
     const int h = item % H, b = item / H;
-    for (int r = 0; r < rounds; ++r) {
-      const int qt = r * nc + w;
-      if (qt >= nt) {  // no query tile this round; the resident keys are released
-        if (resident) {
-          for (int i = 0; i < items; ++i) ring_release(sm, (g + i) % S);
-          g += items;
-        } else {
-          drain(sm, g, items, S);
-        }
-        continue;
-      }
-      unsigned char* q_s = own_wait(sm, w, cnt);
-      float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-      float o[HD / 2];  // zeroed just before PV: not live beside the scores
-      if (resident) {
-        // the whole score row in registers: S over every key tile at once,
-        // softmax, p as bf16 fragments, then PV over every V tile at once;
-        // the K and V stages go back to the producer after the item
+    if (resident) {
+      // the whole score row in registers: S over every key tile at once,
+      // softmax, p as bf16 fragments, then PV over every V tile at once;
+      // the K and V stages go back to the producer after the item
+      for (int p = w; p < nt; p += nc) {
+        const int qt = fwd_query_tile(k, p, nt);
+        unsigned char* q_s = own_wait(sm, w, cnt);
+        float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+        float o[HD / 2];  // zeroed just before PV: not live beside the scores
         float s[kResident][32];
 #pragma unroll
         for (int t = 0; t < kResident; ++t) {
@@ -444,17 +529,40 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap qkv_map, bf16* __restrict__ 
             fence_acc(s[t]);
           }
         }
+        if (pingpong) turn_wait(w);
         wgmma_fence();
+        if (T::BOXES == 1 && nt == kResident && g % S + kResident <= S) {
+          // the four key tiles lie in consecutive stages: one product per
+          // k16 step, its 256-column accumulator the four tiles' in turn
+          float (&s4)[kResident * 32] = reinterpret_cast<float (&)[kResident * 32]>(s);
+          const unsigned char* k_s = sm.ring + (g % S) * T::BYTES;
 #pragma unroll
-        for (int t = 0; t < kResident; ++t)
-          if (t < nt) scores<HD>(s[t], q_s, sm.ring + ((g + t) % S) * T::BYTES);
+          for (int kk = 0; kk < HD / 16; ++kk) {
+            if constexpr (kShortLast)
+              wgmma_m64n200k16_ss_kmajor(s4, T::kmajor(q_s, kk), T::kmajor(k_s, kk));
+            else
+              wgmma_m64n256k16_ss_kmajor(s4, T::kmajor(q_s, kk), T::kmajor(k_s, kk));
+          }
+        } else {
+#pragma unroll
+          for (int t = 0; t < kResident; ++t)
+            if (t < nt) scores<HD>(s[t], q_s, sm.ring + ((g + t) % S) * T::BYTES);
+        }
         wgmma_commit();
+        if (pingpong) turn_pass(w);
         wgmma_wait_all();
         own_release(sm, w, cnt);
+        // every tile's fence first: inside the tiles' branches below they
+        // measured slower (the folds of the tiles no longer interleave)
+#pragma unroll
+        for (int t = 0; t < kResident; ++t)
+          if (t < nt) fence_acc(s[t]);
 #pragma unroll
         for (int t = 0; t < kResident; ++t) {
-          if (t < nt) {
-            fence_acc(s[t]);
+          if (kShortLast && t == nt - 1) {
+            mask_first8(s[t], t * kRows, N);
+            fold_max(s[t], m, 1);
+          } else if (t < nt) {
             mask_keys(s[t], t * kRows, N);
             fold_max(s[t], m);
           }
@@ -462,24 +570,38 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap qkv_map, bf16* __restrict__ 
         const float mc[2] = {m[0] * c, m[1] * c};
 #pragma unroll
         for (int t = 0; t < kResident; ++t) {
-          if (t < nt) {
+          if (kShortLast && t == nt - 1) {
 #pragma unroll
-            for (int i = 0; i < 32; ++i) s[t][i] = exp_scaled(s[t][i], c, mc[(i / 2) % 2]);
+            for (int i = 0; i < 4; ++i) s[t][i] = exp_scaled(s[t][i], c, mc[(i / 2) % 2]);
+            add_rows(s[t], l, 1);
+          } else if (t < nt) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i) s[t][i] = exp_split(s[t][i], c, mc[(i / 2) % 2], i);
             add_rows(s[t], l);
           }
         }
         l[0] = quad_sum(l[0]);
         l[1] = quad_sum(l[1]);
         const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+#pragma unroll
+        for (int t = 0; t < kResident; ++t) {
+          if (kShortLast && t == nt - 1) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) s[t][i] *= rl[(i / 2) % 2];
+          } else if (t < nt) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i) s[t][i] *= rl[(i / 2) % 2];
+          }
+        }
         // p of tile t as bf16 fragments, PV of tile t in flight while the
-        // next tile's fragments are formed: two fragment buffers
+        // next tile's fragments are formed: two fragment buffers. Past the
+        // last tile's 8 keys p is zero (those scores were never written).
         uint32_t a[2][4][4];
         zero(o);
+        if (pingpong) turn_wait(w);
 #pragma unroll
         for (int t = 0; t < kResident; ++t) {
           if (t < nt) {
-#pragma unroll
-            for (int i = 0; i < 32; ++i) s[t][i] *= rl[(i / 2) % 2];
             to_frags(s[t], a[t % 2]);
             ring_wait(sm, g + nt + t, S);
             fence_acc(o);
@@ -489,74 +611,89 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap qkv_map, bf16* __restrict__ 
             wgmma_wait<1>();  // tile t - 1's PV is done: its fragments are free
           }
         }
+        if (pingpong) turn_pass(w);
         wgmma_wait_all();
         fence_acc(o);
-        if (r == rounds - 1) {
+        if (p + nc >= nt) {  // this warpgroup's last tile of the item
           for (int i = 0; i < items; ++i) ring_release(sm, (g + i) % S);
           g += items;
         }
-      } else {
-        // sweep 1: the row max, and the sum rescaled as the max grows
-        float s[32];
-        for (int t = 0; t < nt; ++t) {
-          const int st = ring_wait(sm, g++, S);
-          zero(s);
-          fence_acc(s);
-          wgmma_fence();
-          scores<HD>(s, q_s, sm.ring + st * T::BYTES);
-          wgmma_commit();
-          wgmma_wait_all();
-          fence_acc(s);
-          ring_release(sm, st);
-          mask_keys(s, t * kRows, N);
-          float mn[2] = {m[0], m[1]};
-          fold_max(s, mn);
-          const float mc[2] = {mn[0] * c, mn[1] * c};
-          l[0] *= exp_scaled(m[0], c, mc[0]);
-          l[1] *= exp_scaled(m[1], c, mc[1]);
+        store_rows<HD>(o, out + (static_cast<int64_t>(b) * N + qt * kRows) * D + h * HD, D,
+                       N - qt * kRows);
+        ++cnt;
+      }
+      continue;
+    }
+    for (int r = 0; r < rounds; ++r) {
+      const int qt = r * nc + w;
+      if (qt >= nt) {  // no query tile this round
+        drain(sm, g, items, S);
+        continue;
+      }
+      unsigned char* q_s = own_wait(sm, w, cnt);
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+      float o[HD / 2];
+      // sweep 1: the row max, and the sum rescaled as the max grows
+      float s[32];
+      for (int t = 0; t < nt; ++t) {
+        const int st = ring_wait(sm, g++, S);
+        zero(s);
+        fence_acc(s);
+        wgmma_fence();
+        scores<HD>(s, q_s, sm.ring + st * T::BYTES);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(s);
+        ring_release(sm, st);
+        mask_keys(s, t * kRows, N);
+        float mn[2] = {m[0], m[1]};
+        fold_max(s, mn);
+        const float mc[2] = {mn[0] * c, mn[1] * c};
+        l[0] *= exp_scaled(m[0], c, mc[0]);
+        l[1] *= exp_scaled(m[1], c, mc[1]);
 #pragma unroll
-          for (int i = 0; i < 32; ++i) l[(i / 2) % 2] += exp_scaled(s[i], c, mc[(i / 2) % 2]);
-          m[0] = mn[0];
-          m[1] = mn[1];
-        }
-        l[0] = quad_sum(l[0]);
-        l[1] = quad_sum(l[1]);
-        const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
-        const float mc[2] = {m[0] * c, m[1] * c};
-        // sweep 2: S again, p rounded after normalising, PV
-        zero(o);
-        for (int t = 0; t < nt; ++t) {
-          int st = ring_wait(sm, g++, S);
-          zero(s);
-          fence_acc(s);
-          wgmma_fence();
-          scores<HD>(s, q_s, sm.ring + st * T::BYTES);
-          wgmma_commit();
-          wgmma_wait_all();
-          fence_acc(s);
-          ring_release(sm, st);
-          if (t == nt - 1) own_release(sm, w, cnt);
-          mask_keys(s, t * kRows, N);
+        for (int i = 0; i < 32; ++i) l[(i / 2) % 2] += exp_scaled(s[i], c, mc[(i / 2) % 2]);
+        m[0] = mn[0];
+        m[1] = mn[1];
+      }
+      l[0] = quad_sum(l[0]);
+      l[1] = quad_sum(l[1]);
+      const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+      const float mc[2] = {m[0] * c, m[1] * c};
+      // sweep 2: S again, p rounded after normalising, PV
+      zero(o);
+      for (int t = 0; t < nt; ++t) {
+        int st = ring_wait(sm, g++, S);
+        zero(s);
+        fence_acc(s);
+        wgmma_fence();
+        scores<HD>(s, q_s, sm.ring + st * T::BYTES);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(s);
+        ring_release(sm, st);
+        if (t == nt - 1) own_release(sm, w, cnt);
+        mask_keys(s, t * kRows, N);
 #pragma unroll
-          for (int i = 0; i < 32; ++i)
-            s[i] = exp_scaled(s[i], c, mc[(i / 2) % 2]) * rl[(i / 2) % 2];
-          uint32_t a[4][4];
-          to_frags(s, a);
-          st = ring_wait(sm, g++, S);
-          fence_acc(o);
-          wgmma_fence();
-          times_tile<HD>(o, a, sm.ring + st * T::BYTES);
-          wgmma_commit();
-          wgmma_wait_all();
-          fence_acc(o);
-          ring_release(sm, st);
-        }
+        for (int i = 0; i < 32; ++i)
+          s[i] = exp_scaled(s[i], c, mc[(i / 2) % 2]) * rl[(i / 2) % 2];
+        uint32_t a[4][4];
+        to_frags(s, a);
+        st = ring_wait(sm, g++, S);
+        fence_acc(o);
+        wgmma_fence();
+        times_tile<HD>(o, a, sm.ring + st * T::BYTES);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_acc(o);
+        ring_release(sm, st);
       }
       store_rows<HD>(o, out + (static_cast<int64_t>(b) * N + qt * kRows) * D + h * HD, D,
                      N - qt * kRows);
       ++cnt;
     }
   }
+  if (pingpong && w == 0) turn_wait(w);  // warpgroup 1's last pass
 }
 
 // ------------------------------------------------------ backward, dq pass
@@ -924,7 +1061,9 @@ int fwd(const void* qkv, void* out, int B, int N, int H, float scale, cudaStream
   using T = Tile<HD>;
   CUtensorMap in;
   if (!make_map<HD>(&in, qkv, B, N, 3 * H * HD)) return -2;
-  return launch(attn_fwd_kernel<HD>,
+  // the last key tile holds at most 8 keys (and the keys are resident)
+  const bool short_last = N <= kResident * kRows && (N - 1) % kRows < 8;
+  return launch(short_last ? attn_fwd_kernel<HD, true> : attn_fwd_kernel<HD, false>,
                 smem_bytes(fwd_stages<HD>(), T::BYTES, T::BYTES), B,
                 H, stream, in, static_cast<bf16*>(out), N, H, scale);
 }

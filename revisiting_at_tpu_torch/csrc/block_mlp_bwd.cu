@@ -19,8 +19,9 @@
 //      (db1, summed before the bf16 cast as JAX does), of du * xhat and of du.
 //   2. wgrad_kernel, the weight pass: f32 partials of X^T @ Y over slices of
 //      the M rows, for dW1 (X = u16, Y = dh16) and A (X = g16, Y = kdy16).
-//   3. reduce_kernel sums partials over their leading axis in a fixed order
-//      (the weight pass's in the same call that launches the pass).
+//   3. reduce_kernel sums partials over their leading axis in a fixed order,
+//      one launch a sum (the weight pass's in the same call that launches
+//      the pass).
 // No float atomics anywhere: ds and the weight cotangents are the same bits
 // from run to run. Rows past M (padding to a multiple of 64) are written as
 // zeros by the row pass, so they add nothing to any column sum or product.
@@ -59,8 +60,12 @@
 // after its launch (or -1 for a shape it was not built for, -2 when
 // cuTensorMapEncodeTiled fails).
 
+#include <cooperative_groups.h>
+
 #include "block_mlp_common.cuh"
 #include "hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -180,18 +185,139 @@ wgrad_kernel(const __grid_constant__ CUtensorMap wide, const __grid_constant__ C
   }
 }
 
-// out[g, n] = sum of part[r, n] over r in [g * G, min(R, (g + 1) * G)), in
-// ascending r: one thread per column, consecutive threads on consecutive n.
-__global__ void __launch_bounds__(256)
-reduce_kernel(const float* __restrict__ part, int64_t R, int64_t N, int G,
-              float* __restrict__ out) {
-  const int64_t n = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
-  if (n >= N) return;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.y) * G;
-  const int64_t r1 = r0 + G < R ? r0 + G : R;
-  float acc = 0.0f;
-  for (int64_t r = r0; r < r1; ++r) acc += part[r * N + n];
-  out[static_cast<int64_t>(blockIdx.y) * N + n] = acc;
+// The column reduction: out[n] = sum over r of part[r, n] for f32 part [R,
+// N], in one launch at any R, in an order fixed by the plan alone (no
+// atomics), so two launches give the same bits. What bounds it on the
+// H100: its bytes, read once (2-12 MB a call on the main path, 1-4 us at
+// 3.35 TB/s), and the latency of the loads, since no call is large: the
+// row pass's partials are tall and narrow (R = 245-3,920 rows of N =
+// 96-1,536), the weight pass's short and wide (R = 5-28 slices of N up to
+// 589,824). So a block of 256 threads takes a strip of `lanes` column
+// lanes, each V = 4 consecutive columns wide (16-byte loads) where N
+// allows, and its 256 / lanes row lanes take every (256 / lanes)-th row of
+// the block's rows, with kRedBatch loads in flight a thread. Where the
+// strips alone leave the card empty, the rows are split over the blocks of
+// a thread-block cluster (`splits` of them, at most 8), which combine
+// their strips' sums through distributed shared memory in rank order. The
+// plan (lanes, splits, rows per split) comes from the shapes alone
+// (ops/block_mlp.py reduce_plan). Order: each thread's rows ascending, the
+// row lanes of a warp by a butterfly, the warps (or row lanes) in index
+// order, the cluster's blocks in rank order.
+constexpr int kRedThreads = 256;
+constexpr int kRedBatch = 8;       // loads in flight per thread
+constexpr int kRedMaxSplits = 8;   // blocks of a cluster: the portable maximum
+
+__device__ __forceinline__ void vadd(float& a, float b) { a += b; }
+__device__ __forceinline__ void vadd(float4& a, const float4& b) {
+  a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+}
+__device__ __forceinline__ float shfl_xor(float v, int o) {
+  return __shfl_xor_sync(0xffffffffu, v, o);
+}
+__device__ __forceinline__ float4 shfl_xor(float4 v, int o) {
+  return make_float4(shfl_xor(v.x, o), shfl_xor(v.y, o), shfl_xor(v.z, o), shfl_xor(v.w, o));
+}
+
+// T: float4 (N a multiple of 4, part 16-byte aligned) or float. Block b:
+// cluster rank `split` = b % splits sums rows [split * rows_per_split, +
+// rows_per_split) of the strip b / splits, columns [strip * lanes * V, +
+// lanes * V).
+template <typename T>
+__global__ void __launch_bounds__(kRedThreads)
+reduce_kernel(const float* __restrict__ part, int64_t R, int64_t N, int lanes, int splits,
+              int64_t rows_per_split, float* __restrict__ out) {
+  constexpr int V = sizeof(T) / sizeof(float);
+  __shared__ T red[kRedThreads];
+  __shared__ T strip_sum[kRedThreads];
+  const int split = static_cast<int>(blockIdx.x % splits);
+  const int64_t strip = blockIdx.x / splits;
+  const int t = threadIdx.x, cl = t % lanes, rl = t / lanes, row_lanes = kRedThreads / lanes;
+  const int64_t n = (strip * lanes + cl) * V;
+  const int64_t r0 = split * rows_per_split;
+  const int64_t r1 = r0 + rows_per_split < R ? r0 + rows_per_split : R;
+  T acc{};
+  if (n < N) {
+    const T* col = reinterpret_cast<const T*>(part + n);
+    const int64_t ld = N / V;  // a row, in T
+    int64_t r = r0 + rl;
+    for (; r + (kRedBatch - 1) * row_lanes < r1; r += kRedBatch * row_lanes) {
+      T v[kRedBatch];
+#pragma unroll
+      for (int i = 0; i < kRedBatch; ++i) v[i] = __ldg(col + (r + i * row_lanes) * ld);
+#pragma unroll
+      for (int i = 0; i < kRedBatch; ++i) vadd(acc, v[i]);
+    }
+    for (; r < r1; r += row_lanes) vadd(acc, __ldg(col + r * ld));
+  }
+  // the row lanes within a warp (lanes < 32): lanes apart by `lanes`
+  for (int o = lanes; o < 32; o <<= 1) vadd(acc, shfl_xor(acc, o));
+  // one sum per group and column lane: the warps (lanes < 32) or the row lanes
+  const int groups = lanes < 32 ? kRedThreads / 32 : row_lanes;
+  if (lanes >= 32 || t % 32 < lanes) red[(lanes < 32 ? t / 32 : rl) * lanes + cl] = acc;
+  __syncthreads();
+  if (t < lanes) {
+    T s = red[t];
+    for (int g = 1; g < groups; ++g) vadd(s, red[g * lanes + t]);
+    if (splits == 1) {
+      if (n < N) *reinterpret_cast<T*>(out + n) = s;
+    } else {
+      strip_sum[t] = s;
+    }
+  }
+  if (splits == 1) return;
+  // the cluster's blocks: block `split` writes column lanes split, split +
+  // splits, ..., each the sum of the blocks' strip sums in rank order
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int c = split + splits * t;  // splits * 256 > lanes: one lane a thread at most
+  const int64_t nc = (strip * lanes + c) * V;
+  if (c < lanes && nc < N) {
+    T s = *cluster.map_shared_rank(&strip_sum[c], 0);
+    for (int k = 1; k < splits; ++k) vadd(s, *cluster.map_shared_rank(&strip_sum[c], k));
+    *reinterpret_cast<T*>(out + nc) = s;
+  }
+  cluster.sync();  // every block's strip sums stay until the cluster has read them
+}
+
+// Launch the reduction of part [R, N] into out [N] with the plan (lanes,
+// splits, rows_per_split); -1 for a plan that does not cover the rows.
+int launch_reduce(const float* part, int64_t R, int64_t N, int lanes, int splits,
+                  int64_t rows_per_split, float* out, cudaStream_t stream) {
+  if (R <= 0 || N <= 0 || lanes <= 0 || lanes > kRedThreads || kRedThreads % lanes != 0 ||
+      splits <= 0 || splits > kRedMaxSplits || rows_per_split <= 0 ||
+      (splits - 1) * rows_per_split >= R || splits * rows_per_split < R)
+    return -1;
+  const bool vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(part) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int64_t width = int64_t{lanes} * (vec ? 4 : 1);
+  const int64_t blocks = (N + width - 1) / width * splits;
+  if (blocks >= (int64_t{1} << 31)) return -1;
+  if (splits == 1) {  // no cluster: a plain launch, which costs the host less
+    if (vec)
+      reduce_kernel<float4><<<static_cast<unsigned>(blocks), kRedThreads, 0, stream>>>(
+          part, R, N, lanes, splits, rows_per_split, out);
+    else
+      reduce_kernel<float><<<static_cast<unsigned>(blocks), kRedThreads, 0, stream>>>(
+          part, R, N, lanes, splits, rows_per_split, out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(kRedThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(splits);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      vec ? cudaLaunchKernelEx(&cfg, reduce_kernel<float4>, part, R, N, lanes, splits,
+                               rows_per_split, out)
+          : cudaLaunchKernelEx(&cfg, reduce_kernel<float>, part, R, N, lanes, splits,
+                               rows_per_split, out);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // a row-major bf16 [rows, cols] matrix in 64 x 64 boxes, 128-byte swizzle;
@@ -275,10 +401,12 @@ int block_mlp_bwd_full_rows(int C, int dtype, const void* s, const void* keep,
 // other (C, a multiple of 8 from 16 to 1024: every width the row pass is
 // built for); Mpad and rows_per_split are multiples of 64 and every split
 // holds rows. When out is not null, reduce_kernel then sums the partials
-// in split order into out[P, Q] (f32), in the same call: the wrapper's host
-// work is one call for the whole product.
+// in split order into out[P, Q] (f32) with the plan (red_lanes,
+// red_splits, red_rows) for [n_split, P * Q], in the same call: the
+// wrapper's host work is one call for the whole product.
 int block_mlp_wgrad(const void* x, int P, const void* y, int Q, int64_t Mpad,
-                    int64_t rows_per_split, int n_split, void* part, void* out, void* stream) {
+                    int64_t rows_per_split, int n_split, void* part, void* out, int red_lanes,
+                    int red_splits, int64_t red_rows, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool x_wide = P == 4 * Q;
   if (!x_wide && Q != 4 * P) return -1;
@@ -305,21 +433,16 @@ int block_mlp_wgrad(const void* x, int P, const void* y, int Q, int64_t Mpad,
   LAUNCH(128) LAUNCH(192) LAUNCH(256)
 #undef LAUNCH
   if (err != 0 || out == nullptr) return err;
-  const int64_t N = int64_t{P} * Q;  // one group of n_split rows
-  reduce_kernel<<<dim3(static_cast<unsigned>((N + 255) / 256), 1), 256, 0, st>>>(
-      static_cast<const float*>(part), n_split, N, n_split, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch_reduce(static_cast<const float*>(part), n_split, int64_t{P} * Q, red_lanes,
+                       red_splits, red_rows, static_cast<float*>(out), st);
 }
 
-// out[ceil(R / G), N] = sums of G consecutive rows of part[R, N] (f32).
-int block_mlp_reduce(const void* part, int64_t R, int64_t N, int G, void* out, void* stream) {
-  if (R <= 0 || N <= 0 || G <= 0) return -1;
-  const int64_t groups = (R + G - 1) / G;
-  if (groups > 65535) return -1;
-  const dim3 grid(static_cast<unsigned>((N + 255) / 256), static_cast<unsigned>(groups));
-  reduce_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part), R, N, G, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+// out[N] = the sum of part[R, N] (f32) over R, in one launch with the plan
+// (lanes, splits, rows_per_split) from ops/block_mlp.py reduce_plan.
+int block_mlp_reduce(const void* part, int64_t R, int64_t N, int lanes, int splits,
+                     int64_t rows_per_split, void* out, void* stream) {
+  return launch_reduce(static_cast<const float*>(part), R, N, lanes, splits, rows_per_split,
+                       static_cast<float*>(out), static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -30,6 +30,7 @@ takes the plain version; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import types
 
@@ -44,16 +45,25 @@ _K0 = math.sqrt(2.0 / math.pi)
 _K1 = 0.044715
 _EPS = 1e-6
 
-# rows summed per thread in one level of the fixed-order reduction
-_REDUCE_GROUP = 64
+# The column reduction's plan (csrc/block_mlp_bwd.cu reduce_kernel): blocks
+# of 256 threads, column lanes of 4 columns each (16-byte loads) where N
+# allows, split into row lanes that keep 8 loads in flight; the rows split
+# over the blocks of a cluster of at most 8.
+_REDUCE_THREADS = 256
+_REDUCE_LANES = (256, 64, 16, 4, 2)  # column lanes per block, widest first
+_REDUCE_BATCH = 8
+_REDUCE_MAX_SPLITS = 8
+_SMS = 132  # the H100 SXM's SMs: a reduction aims for a block on each
 
 # The weight pass's tiling (csrc/block_mlp_bwd.cu): 64-row slices of M per
 # ring stage; 128 columns of the wide operand (4C) per block, two consumer
 # warpgroups of 64; the narrow operand (C columns) in chunks of at most 256,
-# each a multiple of 64; at most 64 slices of M (one reduction level);
-# blocks for the H100's 132 SMs, in one wave.
+# each a multiple of 64; blocks for the H100's 132 SMs, in one wave.
 WGRAD_DEPTH = 64
-_WGRAD_SMS = 132
+# At most 64 slices of M: each adds a [P, Q] f32 partial to write and read
+# again. (The cap once kept the reduction to one level of 64 rows; the
+# reduction now takes any count in one launch.)
+_WGRAD_MAX_SLICES = 64
 # Blocks that keep HBM busy in the weight pass where the tensor cores have
 # time to spare. On the H100, 84 blocks (28 and 14 slices at ConvNeXt-T's
 # stages 0 and 1, batch 80) beat a full wave (44 and 22 slices) by 3-5% of
@@ -85,7 +95,7 @@ def _wgrad_blocks(C: int) -> int:
     the share of the SMs that the tensor work needs."""
     chunks, width = _wgrad_chunks(C)
     ops_share = 0.8 * chunks * width * _WGRAD_BYTES_PER_FLOP
-    return min(_WGRAD_SMS, max(_WGRAD_HBM_BLOCKS, math.ceil(ops_share * _WGRAD_SMS)))
+    return min(_SMS, max(_WGRAD_HBM_BLOCKS, math.ceil(ops_share * _SMS)))
 
 
 def wgrad_plan(m_pad: int, P: int, Q: int) -> tuple[int, int]:
@@ -94,17 +104,53 @@ def wgrad_plan(m_pad: int, P: int, Q: int) -> tuple[int, int]:
 
     Chosen from the shapes alone, so the partials and their fixed-order sum
     are the same bits on every run: as many slices as let the blocks (one
-    per output tile and slice) reach `_wgrad_blocks`, at most 64 so that
-    one reduction launch sums them, each a whole number of 64-row ring
-    stages; every slice holds rows."""
+    per output tile and slice) reach `_wgrad_blocks`, at most
+    `_WGRAD_MAX_SLICES`, each a whole number of 64-row ring stages; every
+    slice holds rows."""
     C = min(P, Q)
     if max(P, Q) != 4 * C or m_pad <= 0 or m_pad % WGRAD_DEPTH:
         raise ValueError(f"wgrad_plan: expected [m_pad, C] and [m_pad, 4C] with m_pad a "
                          f"multiple of {WGRAD_DEPTH}, got m_pad={m_pad}, P={P}, Q={Q}")
-    n_split = max(1, min(_REDUCE_GROUP, _wgrad_blocks(C) // _wgrad_tiles(C),
+    n_split = max(1, min(_WGRAD_MAX_SLICES, _wgrad_blocks(C) // _wgrad_tiles(C),
                          m_pad // WGRAD_DEPTH))
     rows = -(-m_pad // n_split // WGRAD_DEPTH) * WGRAD_DEPTH
     return rows, -(-m_pad // rows)
+
+
+@functools.lru_cache(maxsize=None)
+def reduce_plan(R: int, N: int) -> tuple[int, int, int]:
+    """(column lanes, splits, rows per split) of the column reduction of
+    part [R, N] into [N]: a block of 256 threads sums a strip of `lanes`
+    column lanes (4 columns each where N is a multiple of 4) over its
+    split's rows, and a cluster of `splits` blocks, one per split in
+    ascending order, adds up their strips. Split k takes rows [k * rows,
+    min(R, (k + 1) * rows)); every split holds rows.
+
+    Chosen from the shapes alone, so the sum's order, and its bits, are the
+    same on every run: the fewest splits, then the widest strips, that give
+    every thread at most `_REDUCE_BATCH` rows (one batch of loads in
+    flight) and a block to each of the card's SMs; where no plan does both
+    (too few columns), the one with the most blocks whose threads take one
+    batch, then the fewest rows a thread; where none does that (too many
+    rows), the fewest rows a thread."""
+    if R <= 0 or N <= 0:
+        raise ValueError(f"reduce_plan: expected R, N >= 1, got R={R}, N={N}")
+    vec = 4 if N % 4 == 0 else 1
+    best, best_key = None, None
+    for splits in range(1, _REDUCE_MAX_SPLITS + 1):
+        rows = -(-R // splits)
+        if (splits - 1) * rows >= R:  # a split without rows
+            continue
+        for lanes in _REDUCE_LANES:
+            per_thread = -(-rows // (_REDUCE_THREADS // lanes))
+            blocks = -(-N // (lanes * vec)) * splits
+            one_batch = per_thread <= _REDUCE_BATCH
+            if one_batch and blocks >= _SMS:
+                return lanes, splits, rows
+            key = (one_batch, blocks if one_batch else 0, -per_thread, -splits, lanes)
+            if best_key is None or key > best_key:
+                best, best_key = (lanes, splits, rows), key
+    return best
 
 
 def tail_fusable(C: int, grad_mode: str, wide: bool = False) -> bool:
@@ -238,8 +284,8 @@ def _lib():
             "block_mlp_row_pad": [],
             "block_mlp_bwd_full_rows": [I, I, P, P, I, P, P, P, P, P, P, P, L, L,
                                         P, P, P, P, P, P, P, P],
-            "block_mlp_wgrad": [P, I, P, I, L, L, I, P, P, P],
-            "block_mlp_reduce": [P, L, L, I, P, P],
+            "block_mlp_wgrad": [P, I, P, I, L, L, I, P, P, I, I, L, P],
+            "block_mlp_reduce": [P, L, L, I, I, L, P, P],
         }))
         _lib_handle = types.SimpleNamespace(**fns)
     return _lib_handle
@@ -355,7 +401,7 @@ def _wgrad_launch(x16, y16, summed: bool):
     part = torch.empty(n_split, P, Q, dtype=torch.float32, device=x16.device)
     out = torch.empty(P, Q, dtype=torch.float32, device=x16.device) if summed else None
     err = cuda_build.launch(x16, _lib().block_mlp_wgrad, _ptr(x16), P, _ptr(y16), Q, m_pad, rows,
-                            n_split, _ptr(part), _ptr(out))
+                            n_split, _ptr(part), _ptr(out), *reduce_plan(n_split, P * Q))
     _raise_on(err, "weight-gradient")
     LAUNCHES["wgrad"] += 1
     if summed:
@@ -379,18 +425,18 @@ def wgrad_cuda(x16, y16):
 
 
 def reduce_cuda(part):
-    """Sum part [R, N] f32 over R in a fixed order: levels of the reduction
-    kernel, each summing groups of consecutive rows, until one row is left."""
-    _check("part", part, tuple(part.shape), torch.float32, part.device)
-    while part.shape[0] > 1:
-        R, N = part.shape
-        out = torch.empty(-(-R // _REDUCE_GROUP), N, dtype=torch.float32, device=part.device)
-        err = cuda_build.launch(part, _lib().block_mlp_reduce, _ptr(part), R, N, _REDUCE_GROUP,
-                                _ptr(out))
-        _raise_on(err, "reduction")
-        LAUNCHES["reduce"] += 1
-        part = out
-    return part[0]
+    """Sum part [R, N] f32 over R in a fixed order: one launch of the
+    reduction kernel with `reduce_plan`'s split of the rows."""
+    if part.dtype != torch.float32 or part.dim() != 2 or not part.is_contiguous():
+        raise ValueError(f"part: expected contiguous float32 [R, N], got {part.dtype} "
+                         f"{tuple(part.shape)}")
+    R, N = part.shape
+    out = part.new_empty(N)
+    err = cuda_build.launch(part, _lib().block_mlp_reduce, part.data_ptr(), R, N,
+                            *reduce_plan(R, N), out.data_ptr())
+    _raise_on(err, "reduction")
+    LAUNCHES["reduce"] += 1
+    return out
 
 
 def bwd_full_cuda(s, keep, rows_per_keep, ln_g, ln_b, w1_16, b1, w2g16, dy):

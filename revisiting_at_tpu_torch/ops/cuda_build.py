@@ -87,12 +87,16 @@ def launch(t, fn, *args) -> int:
     """fn(*args, stream) for a kernel on t's device: stream is the raw handle
     of that device's current stream (no torch.cuda.Stream is built, which
     would cost more host time than the launch), and the device context is
-    entered only when t's device is not the current one. Every ctypes launch
-    of the port goes through here; returns fn's error code."""
-    stream = torch._C._cuda_getCurrentRawStream(t.device.index)
-    if t.device.index == torch.cuda.current_device():
+    entered only when t's device is not the current one. The device is read
+    as an index (`get_device`), not as a torch.device: on the H100's host
+    the two device objects and `torch.cuda.current_device()` took more time
+    than the ctypes call itself. Every ctypes launch of the port goes
+    through here; returns fn's error code."""
+    index = t.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch._C._cuda_getDevice():
         return fn(*args, stream)
-    with torch.cuda.device(t.device):
+    with torch.cuda.device(index):
         return fn(*args, stream)
 
 

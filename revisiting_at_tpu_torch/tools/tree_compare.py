@@ -1,0 +1,197 @@
+"""Time the column reduction and the qkv attention forward of several trees
+of the port in turns, on one GPU.
+
+    python3 -m revisiting_at_tpu_torch.tools.tree_compare TREE [TREE ...]
+
+Each TREE is a checkout of the repository (for example the parent commit
+unpacked by `git archive` into a directory under build/). Its package
+revisiting_at_tpu_torch is loaded under a name of its own and builds its
+kernels into the tree's own build/kernels/, all trees' nvcc processes
+started together. This tree comes last. At the main path's shapes:
+
+  * the column reduction (`reduce_cuda`) over the full backward's 15
+    partials of ConvNeXt-T's stages 0-2 at batch 80 (the row pass's three
+    column sums and the weight pass's two products per stage), and over
+    ViT-S's 5 (197 tokens, batch 80), beside torch.sum on the same
+    partials;
+  * the attention forward (`attention_fwd_cuda`) at ViT-S (batch 80, 197
+    tokens, 6 heads of 64), beside scaled_dot_product_attention;
+
+each timed on the event clock over ROUNDS rounds in turns (the trees and
+the library, the order reversed every other round; medians and [min,
+max]) and by torch.profiler's device time (every launch of a call booked),
+with the launches per call. Each tree's output is compared with this
+tree's plain version and, bit for bit, with the other trees'. Prints one
+line per measurement, with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import importlib
+import importlib.util
+import statistics
+import subprocess
+import sys
+import threading
+from pathlib import Path
+
+import torch
+
+ROUNDS = 5
+BATCH = 80
+# (rows per image, C) of ConvNeXt-T's stages 0-2 at 224 px, and ViT-S's tokens
+STAGES = [(3136, 96), (784, 192), (196, 384)]
+VIT = (197, 384)
+HERE = Path(__file__).resolve().parents[2]
+
+
+def card() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def load_tree(root: Path, tag: int):
+    """The ops modules (block_mlp, attention, cuda_build) of the package in
+    root, loaded under a name of its own."""
+    if root.resolve() == HERE:
+        name = "revisiting_at_tpu_torch"
+    else:
+        name = f"_tree{tag}_revisiting_at_tpu_torch"
+        pkg = root / "revisiting_at_tpu_torch"
+        spec = importlib.util.spec_from_file_location(name, pkg / "__init__.py",
+                                                      submodule_search_locations=[str(pkg)])
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return tuple(importlib.import_module(f"{name}.ops.{m}")
+                 for m in ("block_mlp", "attention", "cuda_build"))
+
+
+def time_ms(fn, iters=20) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, n=10, tries=3):
+    """(ms of device time per call, launches per call) from torch.profiler:
+    per kernel name its mean duration times its launches per call (count
+    over n, rounded); None for the time after `tries` traces without one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count]
+        per_call = {e.key: max(1, round(e.count / n)) for e in events}
+        us = sum(e.self_device_time_total / e.count * per_call[e.key] for e in events)
+        if us > 0:
+            return us / 1000, sum(per_call.values())
+    return None, None
+
+
+def in_turns(fns: dict) -> dict:
+    """{name: (median ms, min, max, device ms, launches per call)}, the
+    event-clock times over ROUNDS rounds in turns."""
+    runs = {k: [] for k in fns}
+    for r in range(ROUNDS):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            runs[k].append(time_ms(fns[k]))
+    return {k: (statistics.median(v), min(v), max(v), *device_ms(fns[k]))
+            for k, v in runs.items()}
+
+
+def report(what: str, res: dict, label: str) -> None:
+    for k, (med, lo, hi, dev, launches) in res.items():
+        dev_s = "not measured" if dev is None else f"{dev:.4f} ms, {launches} launches a call"
+        print(f"{what} {k}: event median {med:.4f} ms [{lo:.4f}, {hi:.4f}], device {dev_s} "
+              f"{label}", flush=True)
+
+
+def partials(bm, M: int, C: int, gen) -> list:
+    """Random f32 partials of the full backward's five sums at [M, C]: the
+    row pass's column sums (db1 [Mpad / BM, 4C], dln_g and dln_b [., C])
+    and the weight pass's two products ([slices, 4C * C] each)."""
+    lib = bm._lib()
+    pad, bm_rows = lib.block_mlp_row_pad(), lib.block_mlp_rows_per_block(C)
+    m_pad = -(-M // pad) * pad
+    n_split = bm.wgrad_plan(m_pad, C, 4 * C)[1]
+    shapes = [(m_pad // bm_rows, 4 * C), (m_pad // bm_rows, C), (m_pad // bm_rows, C),
+              (n_split, 4 * C * C), (n_split, 4 * C * C)]
+    return [torch.randn(*sh, generator=gen, device="cuda") for sh in shapes]
+
+
+def main(argv=None) -> int:
+    trees = [Path(a) for a in (sys.argv[1:] if argv is None else argv)] + [HERE]
+    if not torch.cuda.is_available():
+        print("tree_compare: no GPU", file=sys.stderr)
+        return 2
+    label = f"[{card()}]"
+    mods = [load_tree(t, i) for i, t in enumerate(trees)]
+    names = [str(t) for t in trees]
+    threads = [threading.Thread(target=cb.build) for _, _, cb in mods]
+    for b in threads:
+        b.start()
+    for b in threads:
+        b.join()
+    for bm, att, _ in mods:  # raises here if a build failed
+        bm._lib()
+        att._lib()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bm_here, att_here = mods[-1][0], mods[-1][1]
+
+    # the column reduction
+    for what, shapes in (("ConvNeXt-T stages 0-2", STAGES), ("ViT-S", [VIT])):
+        parts = [p for rows, C in shapes for p in partials(bm_here, rows * BATCH, C, gen)]
+        for i, (bm, _, _) in enumerate(mods):
+            for p in parts:
+                got = bm.reduce_cuda(p)
+                if not torch.equal(got, bm.reduce_cuda(p)):
+                    raise AssertionError(f"{names[i]}: reduce {tuple(p.shape)} differs over two "
+                                         "launches")
+                err = (got - p.sum(0)).abs().max().item() / p.sum(0).abs().max().item()
+                if err > 2e-6:
+                    raise AssertionError(f"{names[i]}: reduce {tuple(p.shape)} error {err:.2e}")
+        fns = {n: (lambda bm=bm: [bm.reduce_cuda(p) for p in parts])
+               for n, (bm, _, _) in zip(names, mods)}
+        fns["torch.sum"] = lambda: [torch.sum(p, 0) for p in parts]
+        shapes_s = ", ".join(f"{p.shape[0]}x{p.shape[1]}" for p in parts)
+        report(f"reduce {what}, B={BATCH}, {len(parts)} sums ({shapes_s}):", in_turns(fns), label)
+        del parts
+
+    # the attention forward
+    B, N, H, hd = BATCH, VIT[0], 6, 64
+    qkv = torch.randn(B, N, 3 * H * hd, generator=gen, device="cuda").bfloat16()
+    ref = att_here.attention_qkv_fwd_plain(qkv, H).float()
+    outs = [att.attention_fwd_cuda(qkv, H) for _, att, _ in mods]
+    for n, o in zip(names, outs):
+        err = (o.float() - ref).abs().max().item() / ref.abs().max().item()
+        same = [m for m, o2 in zip(names, outs) if torch.equal(o, o2)]
+        print(f"attention fwd {n}: error {err:.2e} of max|ref| against the plain version; "
+              f"bitwise equal to {same}", flush=True)
+
+    def sdpa():
+        q, k, v = qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v)
+
+    fns = {n: (lambda att=att: att.attention_fwd_cuda(qkv, H)) for n, (_, att, _) in
+           zip(names, mods)}
+    fns["sdpa"] = sdpa
+    report(f"attention fwd B={B} N={N} H={H} hd={hd}:", in_turns(fns), label)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

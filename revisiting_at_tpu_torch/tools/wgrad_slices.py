@@ -42,7 +42,7 @@ def candidates(m_pad: int, C: int) -> list[int]:
     each as `wgrad_plan` would cut M for it (whole 64-row stages)."""
     tiles = bm._wgrad_tiles(C)
     wanted = {bm.wgrad_plan(m_pad, C, 4 * C)[1]}
-    wanted |= {max(1, min(64, round(f * bm._WGRAD_SMS / tiles))) for f in FILLS}
+    wanted |= {max(1, min(bm._WGRAD_MAX_SLICES, round(f * bm._SMS / tiles))) for f in FILLS}
     return sorted({_cut(m_pad, n)[1] for n in wanted if n <= m_pad // bm.WGRAD_DEPTH})
 
 
@@ -59,7 +59,8 @@ def wgrad_with(x16, y16, n: int):
     part = torch.empty(n, P, Q, dtype=torch.float32, device=x16.device)
     out = torch.empty(P, Q, dtype=torch.float32, device=x16.device)
     err = cuda_build.launch(x16, bm._lib().block_mlp_wgrad, x16.data_ptr(), P, y16.data_ptr(),
-                            Q, m_pad, rows, n, part.data_ptr(), out.data_ptr())
+                            Q, m_pad, rows, n, part.data_ptr(), out.data_ptr(),
+                            *bm.reduce_plan(n, P * Q))
     if err:
         raise RuntimeError(f"weight pass with {n} slices of M: error {err}")
     return out

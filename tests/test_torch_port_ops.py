@@ -257,7 +257,7 @@ WGRAD_PLAN_SHAPES = ([(rows * b, C) for b in (80, 200) for rows, C in ((3136, 96
 def test_wgrad_plan_covers_m_in_whole_stages(M, C):
     """The weight pass's slices of M: they cover [0, Mpad) exactly, each a
     whole number of 64-row ring stages and none empty, at most 64 of them
-    (one reduction launch), as many as reach the width's block target (at
+    (the plan's cap), as many as reach the width's block target (at
     most the 132 SMs, one wave) with one block per output tile and slice;
     the same for both products (dW1 [C, 4C] and A [4C, C]) and from the
     shapes alone. C None: every built width."""
@@ -295,6 +295,71 @@ def test_wgrad_plan_main_path_values():
         tbm.wgrad_plan(100, 96, 384)  # not a multiple of 64
     with pytest.raises(ValueError):
         tbm.wgrad_plan(128, 96, 96)  # not [C] x [4C]
+
+
+# the column reduction's shapes on the main path: the row pass's column sums
+# ([Mpad / 64, 4C] and [Mpad / 64, C]) and the weight pass's slices ([slices,
+# 4C * C]) at ConvNeXt-T's stages 0-2 and ViT-S, batch 80; then short and
+# ragged ones
+REDUCE_MAIN_SHAPES = sorted({shape for M, C in [(3136 * 80, 96), (784 * 80, 192), (196 * 80, 384),
+                                                (197 * 80, 384)]
+                             for shape in ((_row_pad(M) // 64, 4 * C), (_row_pad(M) // 64, C),
+                                           (tbm.wgrad_plan(_row_pad(M), C, 4 * C)[1], 4 * C * C))})
+REDUCE_SHAPES = REDUCE_MAIN_SHAPES + [(R, N) for R in (1, 63, 64, 65) for N in (8, 96, 1001)]
+
+
+def _thread_rows(R, N):
+    """The rows each thread of the reduction kernel reads under
+    reduce_plan(R, N), in the order it adds them: {(split, row lane): rows}."""
+    lanes, splits, rows = tbm.reduce_plan(R, N)
+    row_lanes = tbm._REDUCE_THREADS // lanes
+    return {(k, rl): list(range(k * rows + rl, min(R, (k + 1) * rows), row_lanes))
+            for k in range(splits) for rl in range(row_lanes)}
+
+
+@pytest.mark.parametrize("R,N", REDUCE_SHAPES)
+def test_reduce_plan_covers_every_row_once(R, N):
+    """The reduction's plan for part [R, N]: the splits (one block each of a
+    cluster of at most 8) cut [0, R) into consecutive ranges in ascending
+    order, none empty; each thread adds its rows in ascending order, and
+    over the splits' row lanes every row is read exactly once. One launch
+    at every R: the plan takes any row count."""
+    lanes, splits, rows = tbm.reduce_plan(R, N)
+    assert lanes in tbm._REDUCE_LANES and 1 <= splits <= tbm._REDUCE_MAX_SPLITS
+    ranges = [range(k * rows, min(R, (k + 1) * rows)) for k in range(splits)]
+    assert [r for rng in ranges for r in rng] == list(range(R))
+    assert all(len(rng) > 0 for rng in ranges)
+    per_thread = _thread_rows(R, N)
+    assert all(rs == sorted(rs) for rs in per_thread.values())
+    assert sorted(r for rs in per_thread.values() for r in rs) == list(range(R))
+
+
+def test_reduce_plan_main_path_values():
+    """The plans the H100 runs on the main path: the tall, narrow column
+    sums split their rows over clusters of up to 8 blocks of 2-column-lane
+    strips; the short, wide slice sums take no split, 64 or 256 column
+    lanes; every thread takes at most 8 rows of the main path's sums (one
+    batch of loads in flight)."""
+    assert tbm.reduce_plan(3920, 96) == (2, 8, 490)
+    assert tbm.reduce_plan(3920, 384) == (2, 4, 980)
+    assert tbm.reduce_plan(245, 1536) == (2, 1, 245)
+    assert tbm.reduce_plan(28, 36864) == (64, 1, 28)
+    assert tbm.reduce_plan(5, 589824) == (256, 1, 5)
+    for R, N in REDUCE_MAIN_SHAPES:
+        lanes, splits, rows = tbm.reduce_plan(R, N)
+        assert -(-rows // (tbm._REDUCE_THREADS // lanes)) <= tbm._REDUCE_BATCH, (R, N)
+
+
+@pytest.mark.parametrize("R,N", [(3920, 96), (28, 36864), (65, 1001)])
+def test_reduce_plan_same_for_equal_shapes(R, N):
+    """The plan, and with it the order of the sum, is a function of the
+    shape alone: the same from fresh ints, numpy ints and an emptied cache."""
+    first = tbm.reduce_plan(R, N)
+    tbm.reduce_plan.cache_clear()
+    assert tbm.reduce_plan(int(str(R)), int(str(N))) == first
+    assert tbm.reduce_plan(int(np.int64(R)), int(np.int64(N))) == first
+    with pytest.raises(ValueError):
+        tbm.reduce_plan(0, N)
 
 
 @pytest.mark.parametrize("mode", ["input", "full"])

@@ -70,9 +70,12 @@ def _qkv(B, N, H, hd, seed=0):
 
 
 # (B, N, H, hd) per case; the first two keep their ids from before the
-# kernels took any head width and token count
+# kernels took any head width and token count; N64, N65 and N129: a last
+# key tile of 64 keys or of one (the forward kernel forms a tile of at most
+# 8 keys apart)
 ATT_QKV_CASES = {16: (2, 16, 2, 16), 197: (2, 197, 2, 16), "hd32": (2, 70, 2, 32),
-                 "hd64": (2, 70, 1, 64), "N450": (1, 450, 1, 64)}
+                 "hd64": (2, 70, 1, 64), "N450": (1, 450, 1, 64),
+                 "N64": (2, 64, 2, 16), "N65": (2, 65, 2, 16), "N129": (1, 129, 2, 16)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
