@@ -28,7 +28,8 @@ Phases, each fatal on failure:
      ragged map and once in f32, and its one-launch reduction at the three
      stages' partial shapes and a ragged one; each output within its own
      tolerance (TOL). Two launches must give the same bits (every kernel),
-     and five planted faults (a slice of M left out of dW1, a row group left
+     the full backward's row pass must give the input backward's ds bit for
+     bit (stages 0-2 at batch 80, ragged M with a keep), and five planted faults (a slice of M left out of dW1, a row group left
      out of db1, one zero key past N left unmasked in the attention, a
      dwconv band's top halo row read as zero, one block's partial left out
      of the dwconv's dw) must fail the check;
@@ -50,7 +51,9 @@ Phases, each fatal on failure:
      weights it wrote;
   8. timings of the block-tail kernels beside their plain versions, bounds
      and the plain model path's tail, at the stage shapes (forward and input
-     backward at batch 200, full backward at batch 80; the weight pass alone
+     backward at batch 200, full backward at batch 80; the forward, input
+     backward and row pass also by the profiler's device time, the row pass
+     beside the model path's training backward; the weight pass alone
      and with its reduction beside torch.matmul on the same operands, with
      the profiler's device times and its slices of M; the column reduction
      on the full backward's 15 partials beside torch.sum, in turns, with
@@ -1404,6 +1407,8 @@ def main(argv=None) -> int:
     # and ragged with a keep
     full_cases += [(ISO_ROWS * TRAIN_BATCH, 432, torch.bfloat16, 0),
                    (ISO_ROWS * 3, 432, torch.bfloat16, ISO_ROWS)]
+    # ViT-S's tokens, ragged (591 rows: no whole 64-row tile at the end) with a keep
+    full_cases += [(197 * 3, 384, torch.bfloat16, 197)]
     # the micro models' widths at the training batch (convnext_micro's stages
     # 0-2, vit_micro's 32), ragged with a keep, f32
     full_cases += [(3136 * TRAIN_BATCH, 16, torch.bfloat16, 0),
@@ -1419,6 +1424,13 @@ def main(argv=None) -> int:
         for name, g, r in zip(FULL_COTANGENTS, got, ref):
             e = check(torch, f"bwd_full {name:6s} {what}", g, r, TOL[name])
             err[FULL_ERR_KEY[name]] = max(err[FULL_ERR_KEY[name]], e)
+        if i < 3 or (keep_rows and M % 64 and C in bm.WGMMA_WIDTHS):
+            # the stage shapes at the training batch and a ragged M with a
+            # keep: the row pass's ds is the input backward's, bit for bit
+            if not torch.equal(got[0], run_tail(bm, d, "bwd_input", kernel=True)):
+                raise AssertionError(f"bwd_full {what}: the row pass's ds differs from the "
+                                     "input backward's")
+            log(f"bwd_full {what}: the row pass's ds equals the input backward's, bit for bit")
         if C in (432, 16) and not keep_rows:
             again = run_full(bm, d, kernel=True)
             if not all(torch.equal(g, h) for g, h in zip(got, again)):
@@ -1623,6 +1635,8 @@ def main(argv=None) -> int:
     library_ms.update(wgrad=0.0, reduce=0.0)
     bounds = {k: [0.0, 0.0] for k in bm.LAUNCHES}  # summed op and byte times, ms
     bound_ms = dict(ms)
+    # the profiler's device time of the forward, input backward and row pass
+    row_dev = dict.fromkeys(("fwd", "bwd_input", "bwd_full_rows"), 0.0)
 
     def add_bound(k, flops, nbytes):
         t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_HBM * 1e3
@@ -1652,12 +1666,15 @@ def main(argv=None) -> int:
             p1, k1, k2, p2 = (time_ms(torch, f, 10) for f in (p_fn, k_fn, k_fn, p_fn))
             k, p = (k1 + k2) / 2, (p1 + p2) / 2
             mp = time_ms(torch, model_fn[which], 10)
+            dev = device_ms(torch, k_fn, 10)
+            row_dev[which] = sum_or_none(row_dev[which], dev)
             ms[which] += k
             plain_ms[which] += p
             flops = (16 if which == "fwd" else 24) * M * C * C
             bnd = add_bound(which, flops, 3 * M * C * 2 + weights)
             log(f"time {which:9s} B={B} M={M:6d} C={C:4d}: kernel {k:.3f} ms "
-                f"({flops / k / 1e9:.1f} TFLOP/s), plain {p:.3f} ms, "
+                f"({flops / k / 1e9:.1f} TFLOP/s; device {ms_or_na(dev)} ms, "
+                f"{bm.tail_plan(C, which).design}), plain {p:.3f} ms, "
                 f"model bf16 path {mp:.3f} ms, bound {bnd:.3f} ms {label}")
         del d, s_in, r_in, y_model, model_fn
         torch.cuda.empty_cache()
@@ -1686,6 +1703,8 @@ def main(argv=None) -> int:
         a = (d["s"], None, M, d["ln_g"], d["ln_b"], d["w1"].bfloat16(), d["b1"], w2g16, d["dy"])
         ds, u16, kdy16, g16, dh16, *col_parts = bm.bwd_full_rows_cuda(*a)
         k_rows = time_ms(torch, lambda: bm.bwd_full_rows_cuda(*a), 10)
+        dev_rows = device_ms(torch, lambda: bm.bwd_full_rows_cuda(*a), 10)
+        row_dev["bwd_full_rows"] = sum_or_none(row_dev["bwd_full_rows"], dev_rows)
         p_rows = time_ms(torch, lambda: bm.bwd_full_rows_plain(*a), 5)
         ms["bwd_full_rows"] += k_rows
         plain_ms["bwd_full_rows"] += p_rows
@@ -1750,6 +1769,12 @@ def main(argv=None) -> int:
                      sum(b for _, b in whole.values()) / PEAK_HBM) * 1e3
         ms["bwd_full"] += k_full
         bound_ms["bwd_full"] += b_full
+        b_rows = max(whole["bwd_full_rows"][0] / PEAK_BF16, whole["bwd_full_rows"][1] / PEAK_HBM)
+        log(f"time rows      B={TRAIN_BATCH} M={M:6d} C={C:4d}: kernel {k_rows:.3f} ms "
+            f"({24 * M * C * C / k_rows / 1e9:.1f} TFLOP/s; device {ms_or_na(dev_rows)} ms, "
+            f"{bm.tail_plan(C, 'bwd_full_rows').design}), plain {p_rows:.3f} ms, model bf16 path "
+            f"training backward (every cotangent) {m_full:.3f} ms, bound {b_rows * 1e3:.3f} ms "
+            f"{label}")
         log(f"time bwd_full  B={TRAIN_BATCH} M={M:6d} C={C:4d}: kernels {k_full:.3f} ms "
             f"({40 * M * C * C / k_full / 1e9:.1f} TFLOP/s; rows pass {k_rows:.3f}), "
             f"plain {p_full:.3f} ms, model bf16 path weight backward {m_full:.3f} ms, "
@@ -1762,6 +1787,10 @@ def main(argv=None) -> int:
         f"{ms['reduce']:.4f} ms (torch.sum {library_ms['reduce']:.4f} ms, kernel / torch.sum "
         f"{ms['reduce'] / library_ms['reduce']:.3f}), device {ms_or_na(red['dev'])} ms (torch.sum "
         f"{ms_or_na(red['lib_dev'])} ms), bound {bound_ms['reduce']:.4f} ms {label}")
+    log(f"forward over the four stages (B=200) {ms['fwd']:.3f} ms, device "
+        f"{ms_or_na(row_dev['fwd'])} ms; input backward {ms['bwd_input']:.3f} ms, device "
+        f"{ms_or_na(row_dev['bwd_input'])} ms; row pass over stages 0-2 (B={TRAIN_BATCH}) "
+        f"{ms['bwd_full_rows']:.3f} ms, device {ms_or_na(row_dev['bwd_full_rows'])} ms {label}")
     log(f"wgrad over the six products of stages 0-2 (B={TRAIN_BATCH}): pass {wg['pass']:.4f} ms "
         f"(device {ms_or_na(wg['pass_dev'])}), pass + reductions {wg['with_reduce']:.4f} ms "
         f"(device {ms_or_na(wg['with_reduce_dev'])}), torch.matmul {wg['matmul']:.4f} ms "
@@ -1821,6 +1850,8 @@ def main(argv=None) -> int:
         library_device_ms=wg["matmul_dev"])
     kernels[list(bm.LAUNCHES).index("reduce")].update(device_ms=red["dev"],
                                                       library_device_ms=red["lib_dev"])
+    for k, v in row_dev.items():
+        kernels[list(bm.LAUNCHES).index(k)].update(device_ms=v)
     for k in ATT_KERNELS:
         k_ms, p_ms, b_ms, b_by, lib = att_times[k]
         kernels.append(dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],

@@ -13,17 +13,19 @@
 // The TPU kernel runs its grid in order and accumulates dW1, A, db1 and dLN
 // from one grid step to the next in VMEM. Blocks on Hopper run in parallel,
 // so the sums over the M rows are reductions across blocks, done in passes:
-//   1. bwd_kernel<C, T, true> (block_mlp_common.cuh), the row pass: ds as the
-//      input backward computes it, plus bf16 side outputs u16, kdy16, g16 and
-//      dh16 ([Mpad, C] and [Mpad, 4C]) and per-block column sums of the f32 dh
-//      (db1, summed before the bf16 cast as JAX does), of du * xhat and of du.
+//   1. bwd_kernel<C, T, true> (block_mlp_common.cuh: TMA + wgmma at C = 96,
+//      128, 192, 256, 384; the WMMA bwd_kernel_wmma at the other widths),
+//      the row pass: ds as the input backward computes it, plus bf16 side
+//      outputs u16, kdy16, g16 and dh16 ([Mpad, C] and [Mpad, 4C]) and column
+//      sums per 64-row tile (per WMMA block) of the f32 dh (db1, summed before
+//      the bf16 cast as JAX does), of du * xhat and of du.
 //   2. wgrad_kernel, the weight pass: f32 partials of X^T @ Y over slices of
 //      the M rows, for dW1 (X = u16, Y = dh16) and A (X = g16, Y = kdy16).
 //   3. reduce_kernel sums partials over their leading axis in a fixed order,
 //      one launch a sum (the weight pass's in the same call that launches
 //      the pass).
 // No float atomics anywhere: ds and the weight cotangents are the same bits
-// from run to run. Rows past M (padding to a multiple of 64) are written as
+// from run to run. Rows past M (padding to a multiple of 128) are written as
 // zeros by the row pass, so they add nothing to any column sum or product.
 //
 // What bounds the weight pass on the H100: it must read its two bf16
@@ -320,21 +322,6 @@ int launch_reduce(const float* part, int64_t R, int64_t N, int lanes, int splits
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// a row-major bf16 [rows, cols] matrix in 64 x 64 boxes, 128-byte swizzle;
-// boxes reaching past cols are zero-filled
-bool make_map(CUtensorMap* map, const void* base, int64_t rows, int cols) {
-  EncodeTiledFn fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {kWBox, kWRows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int NCH>
 int launch_wgrad(const CUtensorMap& wide, const CUtensorMap& narrow, int P, int C, int n_chunks,
                  int64_t Mpad, int64_t rows_per_split, int n_split, int transposed, void* part,
@@ -354,39 +341,34 @@ int launch_wgrad(const CUtensorMap& wide, const CUtensorMap& narrow, int P, int 
 
 extern "C" {
 
-// Rows per block of the row pass: the partial-sum buffers have Mpad / BM rows.
-int block_mlp_rows_per_block(int C) {
-#define CASE(W) if (C == W) return Cfg<W>::BM;
-  BLOCK_MLP_WIDTHS(CASE)
-#undef CASE
-  return -1;
-}
-
-int block_mlp_row_pad() { return kRowPad; }
-
-// The row pass. dtype: 0 = float32, 1 = bfloat16 (for s, dy, ds). keep may be
-// null (all ones). Mpad is M rounded up to a multiple of block_mlp_row_pad();
+// The row pass. dtype: 0 = float32, 1 = bfloat16 (for s, dy, ds). keep may
+// be null (all ones). Mpad is M rounded up to a multiple of kRowPad (128);
 // u16, kdy16 are [Mpad, C], g16, dh16 [Mpad, 4C] (bf16); db1_part is
-// [Mpad / BM, 4C], dlng_part and dlnb_part [Mpad / BM, C] (f32).
+// [Mpad / part_rows, 4C], dlng_part and dlnb_part [Mpad / part_rows, C]
+// (f32), part_rows being the plan's (64 at the kWgmma widths, the WMMA
+// kernel's rows per block at the others). w1 and the plan as for
+// block_mlp_fwd (block_mlp.cu).
 int block_mlp_bwd_full_rows(int C, int dtype, const void* s, const void* keep,
                             int rows_per_keep, const void* ln_g, const void* ln_b,
                             const void* w1, const void* b1, const void* w2g, const void* dy,
                             void* ds, int64_t M, int64_t Mpad, void* u16, void* kdy16,
                             void* g16, void* dh16, void* db1_part, void* dlng_part,
-                            void* dlnb_part, void* stream) {
+                            void* dlnb_part, int rows, int chunk, int threads, int split,
+                            int smem, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Mpad % kRowPad != 0 || Mpad < M) return -1;
+  const PlanArgs plan{rows, chunk, threads, split, smem};
   const FullOut out{static_cast<bf16*>(u16), static_cast<bf16*>(kdy16), static_cast<bf16*>(g16),
                     static_cast<bf16*>(dh16), static_cast<float*>(db1_part),
                     static_cast<float*>(dlng_part), static_cast<float*>(dlnb_part)};
 #define CASE(W)                                                                              \
   if (C == W)                                                                                \
     return dtype == 0                                                                        \
-        ? launch_bwd<W, float, true>(s, (const float*)keep, rows_per_keep,                  \
+        ? launch_bwd<W, float, true>(plan, s, (const float*)keep, rows_per_keep,            \
                                      (const float*)ln_g, (const float*)ln_b,                \
                                      (const bf16*)w1, (const float*)b1, (const bf16*)w2g,   \
                                      dy, ds, M, Mpad, out, st)                              \
-        : launch_bwd<W, bf16, true>(s, (const float*)keep, rows_per_keep,                   \
+        : launch_bwd<W, bf16, true>(plan, s, (const float*)keep, rows_per_keep,             \
                                     (const float*)ln_g, (const float*)ln_b,                 \
                                     (const bf16*)w1, (const float*)b1, (const bf16*)w2g,    \
                                     dy, ds, M, Mpad, out, st);

@@ -10,11 +10,16 @@ csrc/ replace its TPU kernels:
   * the input-only backward (ds; dr = dy) replaces `_bwd_input_kernel`,
     with gamma folded into a bf16 W2 as the JAX wrapper does (same file);
   * the full backward replaces `_bwd_kernel` (csrc/block_mlp_bwd.cu): a row
-    pass (ds, bf16 side outputs, per-block column sums), a weight pass
+    pass (ds, bf16 side outputs, column sums per 64-row tile), a weight pass
     (dW1 and A = g16^T @ kdy16 over slices of M from `wgrad_plan`, TMA and
     wgmma) and a fixed-order reduction. The JAX package's two-pass variant
     of that kernel (`_bwd_split`, its `split_bwd` knob) computes the same
     cotangents, so the port has no second variant.
+
+The forward, the input backward and the row pass are TMA + wgmma kernels at
+C = 96, 128, 192, 256 and 384 and WMMA kernels at the other widths
+built; `tail_plan` gives each width's tiling, which the C entry points
+check against the one they were built with.
 
 The kernels are bound to PyTorch with ctypes and built with nvcc at first
 use into build/kernels/ (ops/cuda_build.py). The sources name what bounds
@@ -33,6 +38,7 @@ import ctypes
 import functools
 import math
 import types
+from typing import NamedTuple
 
 import torch
 
@@ -151,6 +157,91 @@ def reduce_plan(R: int, N: int) -> tuple[int, int, int]:
             if best_key is None or key > best_key:
                 best, best_key = (lanes, splits, rows), key
     return best
+
+
+# Rows of the full backward's side buffers are padded to a multiple of this
+# (csrc/block_mlp_common.cuh kRowPad): a multiple of every plan's rows per
+# block and of the weight pass's 64-row stages.
+ROW_PAD = 128
+# The widths whose forward, input backward and row pass are the TMA + wgmma
+# kernels (csrc/block_mlp_common.cuh kWgmma); the others keep the WMMA ones.
+WGMMA_WIDTHS = (96, 128, 192, 256, 384)
+TAIL_MODES = ("fwd", "bwd_input", "bwd_full_rows")
+_SMEM_MAX = 232448  # dynamic shared memory an H100 block can use
+_BOX = 8192         # a 64 x 64 bf16 TMA box
+# registers the wgmma kernels' producer warpgroup keeps (setmaxnreg); the
+# consumer warpgroups share the rest
+_PRODUCER_REGS = 24
+
+
+class TailPlan(NamedTuple):
+    """The tiling of the tail kernels at one width and mode."""
+    design: str     # "wgmma" (TMA + wgmma) or "wmma" (the WMMA kernels)
+    rows: int       # rows per block
+    chunk: int      # columns of the 4C axis per chunk
+    threads: int    # threads per block
+    split: int      # output columns split over this many warpgroups (wmma: warps)
+    stages: int     # weight chunks in flight (the TMA ring; 0 for wmma)
+    smem: int       # dynamic shared memory, bytes
+    acc_regs: int   # f32 accumulator registers per consumer thread (o or du, h, dg)
+    regs: int       # registers a thread of the block may hold
+    part_rows: int  # rows per row of the row pass's column sums
+
+
+def _a128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+@functools.lru_cache(maxsize=None)
+def tail_plan(C: int, mode: str) -> TailPlan:
+    """The tiling csrc/block_mlp_common.cuh builds at width C for `mode`
+    ('fwd', 'bwd_input' or 'bwd_full_rows'), mirrored from its Plan (the
+    wgmma widths) and Cfg (the others); the C entry points take (rows,
+    chunk, threads, split, smem) and refuse a plan they were not built for.
+
+    wgmma: R row tiles of 64 rows (up to C = 192: 2, and at C = 96 4 in
+    the forward, 3 in the input backward) by G warpgroups over their C
+    output columns (2 from C = 256), and a producer warpgroup; chunks of
+    64 columns of 4C, as many ring stages as the shared memory holds (at
+    most 8) beside the u (and kdy) tiles, two g/dh tiles per row tile and
+    the backward's row statistics and column-sum scratch."""
+    if mode not in TAIL_MODES:
+        raise ValueError(f"tail_plan: unknown mode {mode!r}")
+    if C <= 0 or C % 16:
+        raise ValueError(f"tail_plan: C must be a positive multiple of 16, got {C}")
+    bwd = mode != "fwd"
+    if C in WGMMA_WIDTHS:
+        G = 1 if C <= 192 else 2
+        R = 1 if C > 192 else 2 if C != 96 else {"fwd": 4, "bwd_input": 3}.get(mode, 2)
+        nwg, bm, cw, n1 = R * G, 64 * R, C // G, 64 // G
+        threads = 128 * (nwg + 1)  # and the producer warpgroup
+        # the block's registers, an even split's, which setmaxnreg moves
+        # from the producer to the consumers
+        pool = threads * (65536 // threads // 8 * 8)
+        regs = min(240, (pool - 128 * _PRODUCER_REGS) // (128 * nwg) // 8 * 8)
+        tile = _BOX * -(-C // 64)
+        fixed = (1024 + R * tile * (2 if bwd else 1) + R * 2 * _BOX
+                 + (2 * bm * 4 if bwd else 0) + (2 * G * bm * 4 if bwd and G > 1 else 0)
+                 + (nwg * 32 * (n1 + cw) if mode == "bwd_full_rows" else 0) + 256)
+        stages = min(8, 2 * (4 * C // 64), (_SMEM_MAX - fixed) // tile)
+        return TailPlan("wgmma", bm, 64, threads, G, stages, fixed + stages * tile,
+                        cw // 2 + (n1 if bwd else n1 // 2), regs, 64)
+    nt = C // 16
+    nw = nt if nt < 6 else (8 if nt % 8 == 0 else (6 if nt % 6 == 0 else 9))
+    bm = 64 if C <= 384 else (32 if C <= 768 else 16)
+    bh = 16 * nw
+    ldu, ldh, ldg = C + 8, bh + 4, bh + 8
+    smem = ((2 if bwd else 1) * _a128(bm * ldu * 2) + (2 if bwd else 1) * _a128(bm * ldh * 4)
+            + _a128(bm * ldg * 2) + _a128(nw * 256 * 4) + (_a128(4 * bm * 4) if bwd else 0))
+    mt = bm // 16
+    return TailPlan("wmma", bm, bh, 32 * nw, nw, 0, smem,
+                    8 * mt * (nt // nw) + 8 * mt * (2 if bwd else 1),
+                    min(255, 65536 // (32 * nw) // 8 * 8), bm)
+
+
+def _plan_args(C: int, mode: str) -> tuple:
+    p = tail_plan(C, mode)
+    return p.rows, p.chunk, p.threads, p.split, p.smem
 
 
 def tail_fusable(C: int, grad_mode: str, wide: bool = False) -> bool:
@@ -274,16 +365,15 @@ def _lib():
     global _lib_handle
     if _lib_handle is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        plan = [I] * 5  # rows, chunk, threads, split, smem
         fns = cuda_build.load("block_mlp", {
             "block_mlp_supports": [I],
-            "block_mlp_fwd": [I, I, P, P, P, I, P, P, P, P, P, P, P, P, L, P],
-            "block_mlp_bwd_input": [I, I, P, P, I, P, P, P, P, P, P, P, L, P],
+            "block_mlp_fwd": [I, I, P, P, P, I, P, P, P, P, P, P, P, P, L, *plan, P],
+            "block_mlp_bwd_input": [I, I, P, P, I, P, P, P, P, P, P, P, L, *plan, P],
         })
         fns.update(cuda_build.load("block_mlp_bwd", {
-            "block_mlp_rows_per_block": [I],
-            "block_mlp_row_pad": [],
             "block_mlp_bwd_full_rows": [I, I, P, P, I, P, P, P, P, P, P, P, L, L,
-                                        P, P, P, P, P, P, P, P],
+                                        P, P, P, P, P, P, P, *plan, P],
             "block_mlp_wgrad": [P, I, P, I, L, L, I, P, P, I, I, L, P],
             "block_mlp_reduce": [P, L, L, I, I, L, P, P],
         }))
@@ -312,7 +402,9 @@ def _check_common(s, keep, rows_per_keep, ln_g, ln_b, w1, b1):
     _check("s", s, (M, C), s.dtype, dev)
     _check("ln_g", ln_g, (C,), f32, dev)
     _check("ln_b", ln_b, (C,), f32, dev)
-    _check("w1", w1, (C, 4 * C), torch.bfloat16, dev)
+    # W1 [C, 4C]: contiguous, or the transpose of a contiguous [4C, C]
+    _check("w1", w1 if w1.is_contiguous() else w1.t(),
+           (C, 4 * C) if w1.is_contiguous() else (4 * C, C), torch.bfloat16, dev)
     _check("b1", b1, (4 * C,), f32, dev)
     if keep is not None:
         if rows_per_keep <= 0 or M % rows_per_keep:
@@ -325,15 +417,25 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _w1_layout(w1_16, C, mode):
+    """W1 as the kernel at width C takes it: W1^T [4C, C] for the wgmma
+    design (a view when w1_16 is the transpose of a contiguous [4C, C]),
+    W1 [C, 4C] for the WMMA kernels; both contiguous."""
+    if tail_plan(C, mode).design == "wgmma":
+        return w1_16.t().contiguous()
+    return w1_16.contiguous()
+
+
 def _raise_on(err, what):
     if err != 0:
-        cause = {-1: "unsupported width", -2: "cuTensorMapEncodeTiled failed"}
+        cause = {-1: "unsupported width or plan", -2: "cuTensorMapEncodeTiled failed"}
         raise RuntimeError(f"block_mlp {what} kernel launch failed: "
                            f"{cause.get(err, f'cudaError {err}')}")
 
 
 def fwd_cuda(s, r, keep, rows_per_keep, ln_g, ln_b, w1_16, b1, w2_16, b2, gamma):
-    """Launch the forward kernel. Types as fwd_plain, with w1_16/w2_16 bf16."""
+    """Launch the forward kernel. Types as fwd_plain, with w1_16/w2_16 bf16
+    (w1_16 [C, 4C] contiguous or the transpose of a contiguous [4C, C])."""
     M, C = _check_common(s, keep, rows_per_keep, ln_g, ln_b, w1_16, b1)
     _check("r", r, (M, C), s.dtype, s.device)
     _check("w2", w2_16, (4 * C, C), torch.bfloat16, s.device)
@@ -342,10 +444,11 @@ def fwd_cuda(s, r, keep, rows_per_keep, ln_g, ln_b, w1_16, b1, w2_16, b2, gamma)
     y = torch.empty_like(s)
     if M == 0:
         return y
+    w1k = _w1_layout(w1_16, C, "fwd")
     err = cuda_build.launch(
         s, _lib().block_mlp_fwd, C, _DTYPE_CODE[s.dtype], _ptr(s), _ptr(r), _ptr(keep),
-        rows_per_keep, _ptr(ln_g), _ptr(ln_b), _ptr(w1_16), _ptr(b1), _ptr(w2_16), _ptr(b2),
-        _ptr(gamma), _ptr(y), M)
+        rows_per_keep, _ptr(ln_g), _ptr(ln_b), _ptr(w1k), _ptr(b1), _ptr(w2_16), _ptr(b2),
+        _ptr(gamma), _ptr(y), M, *_plan_args(C, "fwd"))
     _raise_on(err, "forward")
     LAUNCHES["fwd"] += 1
     return y
@@ -359,10 +462,11 @@ def bwd_input_cuda(s, keep, rows_per_keep, ln_g, ln_b, w1_16, b1, w2g16, dy):
     ds = torch.empty_like(s)
     if M == 0:
         return ds
+    w1k = _w1_layout(w1_16, C, "bwd_input")
     err = cuda_build.launch(
         s, _lib().block_mlp_bwd_input, C, _DTYPE_CODE[s.dtype], _ptr(s), _ptr(keep),
-        rows_per_keep, _ptr(ln_g), _ptr(ln_b), _ptr(w1_16), _ptr(b1), _ptr(w2g16), _ptr(dy),
-        _ptr(ds), M)
+        rows_per_keep, _ptr(ln_g), _ptr(ln_b), _ptr(w1k), _ptr(b1), _ptr(w2g16), _ptr(dy),
+        _ptr(ds), M, *_plan_args(C, "bwd_input"))
     _raise_on(err, "input-backward")
     LAUNCHES["bwd_input"] += 1
     return ds
@@ -370,23 +474,24 @@ def bwd_input_cuda(s, keep, rows_per_keep, ln_g, ln_b, w1_16, b1, w2g16, dy):
 
 def bwd_full_rows_cuda(s, keep, rows_per_keep, ln_g, ln_b, w1_16, b1, w2g16, dy):
     """Launch the full backward's row pass. Returns ds and the side outputs
-    (u16, kdy16, g16, dh16, db1_part, dlng_part, dlnb_part) over Mpad rows,
-    M rounded up to the row padding; rows past M are zero."""
+    (u16, kdy16, g16, dh16 over Mpad rows, M rounded up to ROW_PAD, rows
+    past M zero; db1_part, dlng_part, dlnb_part with a row of column sums
+    per `tail_plan(C, "bwd_full_rows").part_rows` rows)."""
     M, C = _check_common(s, keep, rows_per_keep, ln_g, ln_b, w1_16, b1)
     _check("w2g", w2g16, (4 * C, C), torch.bfloat16, s.device)
     _check("dy", dy, (M, C), s.dtype, s.device)
-    lib = _lib()
-    pad, bm = lib.block_mlp_row_pad(), lib.block_mlp_rows_per_block(C)
-    m_pad = max(-(-M // pad), 1) * pad
+    m_pad = max(-(-M // ROW_PAD), 1) * ROW_PAD
+    parts = m_pad // tail_plan(C, "bwd_full_rows").part_rows
     bf, f32 = torch.bfloat16, torch.float32
     shapes = ((m_pad, C, bf), (m_pad, C, bf), (m_pad, 4 * C, bf), (m_pad, 4 * C, bf),
-              (m_pad // bm, 4 * C, f32), (m_pad // bm, C, f32), (m_pad // bm, C, f32))
+              (parts, 4 * C, f32), (parts, C, f32), (parts, C, f32))
     side = tuple(torch.empty(r, c, dtype=t, device=s.device) for r, c, t in shapes)
     ds = torch.empty_like(s)
+    w1k = _w1_layout(w1_16, C, "bwd_full_rows")
     err = cuda_build.launch(
-        s, lib.block_mlp_bwd_full_rows, C, _DTYPE_CODE[s.dtype], _ptr(s), _ptr(keep),
-        rows_per_keep, _ptr(ln_g), _ptr(ln_b), _ptr(w1_16), _ptr(b1), _ptr(w2g16), _ptr(dy),
-        _ptr(ds), M, m_pad, *(_ptr(t) for t in side))
+        s, _lib().block_mlp_bwd_full_rows, C, _DTYPE_CODE[s.dtype], _ptr(s), _ptr(keep),
+        rows_per_keep, _ptr(ln_g), _ptr(ln_b), _ptr(w1k), _ptr(b1), _ptr(w2g16), _ptr(dy),
+        _ptr(ds), M, m_pad, *(_ptr(t) for t in side), *_plan_args(C, "bwd_full_rows"))
     _raise_on(err, "full-backward row")
     LAUNCHES["bwd_full_rows"] += 1
     return (ds,) + side
@@ -467,12 +572,19 @@ def _f32(v):
     return v.to(torch.float32, memory_format=torch.contiguous_format)
 
 
+def _bf16_t(w1):
+    """W1 [C, 4C] in bf16 as the transpose of a contiguous [4C, C]: the
+    layout the wgmma kernels read, and a cast alone when w1 is the
+    transpose of nn.Linear's weight, as the models pass it."""
+    return w1.t().to(torch.bfloat16, memory_format=torch.contiguous_format).t()
+
+
 def block_mlp_fwd(s, r, keep, rows_per_keep, ln_g, ln_b, w1, b1, w2, b2, gamma):
     """Forward: plain version for CPU tensors, the kernel for CUDA tensors."""
     if _on_cpu(s):
         return fwd_plain(s, r, keep, rows_per_keep, ln_g, ln_b, w1, b1, w2, b2, gamma)
     return fwd_cuda(s.contiguous(), r.to(s.dtype).contiguous(), keep, rows_per_keep, _f32(ln_g),
-                    _f32(ln_b), _bf16(w1), _f32(b1), _bf16(w2), _f32(b2), _f32(gamma))
+                    _f32(ln_b), _bf16_t(w1), _f32(b1), _bf16(w2), _f32(b2), _f32(gamma))
 
 
 def block_mlp_bwd_input(s, keep, rows_per_keep, ln_g, ln_b, w1, b1, w2, gamma, dy):
@@ -482,7 +594,7 @@ def block_mlp_bwd_input(s, keep, rows_per_keep, ln_g, ln_b, w1, b1, w2, gamma, d
     if _on_cpu(s):
         return bwd_input_plain(s, keep, rows_per_keep, ln_g, ln_b, w1, b1, w2g16, dy)
     return bwd_input_cuda(s.contiguous(), keep, rows_per_keep, _f32(ln_g), _f32(ln_b),
-                          _bf16(w1), _f32(b1), w2g16.contiguous(), dy.contiguous())
+                          _bf16_t(w1), _f32(b1), w2g16.contiguous(), dy.contiguous())
 
 
 class _BlockTailInput(torch.autograd.Function):
@@ -521,7 +633,7 @@ def block_mlp_bwd_full(s, keep, rows_per_keep, ln_g, ln_b, w1, b1, w2, b2, gamma
                                                        b1, w2g16, dy)
     else:
         ds, dln_g, dln_b, dw1, db1, a = bwd_full_cuda(
-            s.contiguous(), keep, rows_per_keep, _f32(ln_g), _f32(ln_b), _bf16(w1), _f32(b1),
+            s.contiguous(), keep, rows_per_keep, _f32(ln_g), _f32(ln_b), _bf16_t(w1), _f32(b1),
             w2g16.contiguous(), dy.contiguous())
     return (ds, dln_g, dln_b, dw1, db1,
             *recover_gamma_cotangents(a, dy, keep, rows_per_keep, w2, b2, gamma))

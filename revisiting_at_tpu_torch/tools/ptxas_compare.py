@@ -1,12 +1,14 @@
 """Compare the ptxas reports of two builds of the port's kernels.
 
-    python3 -m revisiting_at_tpu_torch.tools.ptxas_compare OLD_DIR NEW_DIR
+    python3 -m revisiting_at_tpu_torch.tools.ptxas_compare [--rename OLD=NEW ...] OLD_DIR NEW_DIR
 
 Each directory is a build/kernels/ that ops/cuda_build.py filled: beside each
 library lib<name>_<hash>.so lies its ptxas report, <library>.ptxas.txt. For
 every library in both, every kernel compiled in both is compared on its
 registers, stack frame, spill stores and spill loads; the kernels found in
-only one build are listed. Exits 1 if a kernel in both differs.
+only one build are listed. --rename OLD=NEW matches the old build's kernel
+OLD with the new build's NEW (a kernel kept under a new name). Exits 1 if a
+kernel in both differs.
 """
 
 from __future__ import annotations
@@ -41,11 +43,18 @@ def parse(report: str) -> dict[str, dict[str, int]]:
     return {k: v for k, v in out.items() if "registers" in v}
 
 
-def reports(build_dir: Path) -> dict[str, dict[str, dict[str, int]]]:
+def reports(build_dir: Path, renames: dict[str, str] | None = None
+            ) -> dict[str, dict[str, dict[str, int]]]:
+    """{library: parse(report)}, each kernel named in `renames` (an
+    identifier of its mangled name, as 10fwd_kernel) given the new name."""
     out = {}
     for path in sorted(build_dir.glob("*.ptxas.txt")):
         if m := _LIB.match(path.name):
-            out[m[1]] = parse(path.read_text())
+            kernels = parse(path.read_text())
+            for a, b in (renames or {}).items():
+                kernels = {k.replace(f"{len(a)}{a}I", f"{len(b)}{b}I"): v
+                           for k, v in kernels.items()}
+            out[m[1]] = kernels
     return out
 
 
@@ -58,10 +67,15 @@ def demangle(names: list[str]) -> list[str]:
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+    argv = list(sys.argv[1:] if argv is None else argv)
+    renames = {}
+    while len(argv) > 2 and argv[0] == "--rename" and "=" in argv[1]:
+        a, b = argv[1].split("=", 1)
+        renames[a] = b
+        argv = argv[2:]
     if len(argv) != 2:
         raise SystemExit(__doc__.split("\n\n")[1].strip())
-    old, new = (reports(Path(a)) for a in argv)
+    old, new = reports(Path(argv[0]), renames), reports(Path(argv[1]))
     differ = 0
     for lib in sorted(set(old) | set(new)):
         a, b = old.get(lib, {}), new.get(lib, {})

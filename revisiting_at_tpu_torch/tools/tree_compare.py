@@ -1,7 +1,7 @@
-"""Time the column reduction and the qkv attention forward of several trees
-of the port in turns, on one GPU.
+"""Time the block tail's row kernels, the column reduction and the qkv
+attention forward of several trees of the port in turns, on one GPU.
 
-    python3 -m revisiting_at_tpu_torch.tools.tree_compare TREE [TREE ...]
+    python3 -m revisiting_at_tpu_torch.tools.tree_compare [--tail-only] TREE [TREE ...]
 
 Each TREE is a checkout of the repository (for example the parent commit
 unpacked by `git archive` into a directory under build/). Its package
@@ -9,6 +9,13 @@ revisiting_at_tpu_torch is loaded under a name of its own and builds its
 kernels into the tree's own build/kernels/, all trees' nvcc processes
 started together. This tree comes last. At the main path's shapes:
 
+  * the block tail's forward and input backward (`fwd_cuda`,
+    `bwd_input_cuda`) at ConvNeXt-T's four stages, batch 200, and its full
+    backward's row pass (`bwd_full_rows_cuda`) at stages 0-2 and ViT-S,
+    batch 80, each tree's output held to this tree's plain version within
+    chip_smoke.py's TOL, with the ms beside the unfused model path's
+    (use_pallas=0: cuBLAS matmuls, eager elementwise ops); with
+    --tail-only nothing else is timed;
   * the column reduction (`reduce_cuda`) over the full backward's 15
     partials of ConvNeXt-T's stages 0-2 at batch 80 (the row pass's three
     column sums and the weight pass's two products per stage), and over
@@ -42,6 +49,11 @@ BATCH = 80
 # (rows per image, C) of ConvNeXt-T's stages 0-2 at 224 px, and ViT-S's tokens
 STAGES = [(3136, 96), (784, 192), (196, 384)]
 VIT = (197, 384)
+# the tail's forward and input backward: ConvNeXt-T's four stages at this batch
+TAIL_BATCH = 200
+TAIL_STAGES = STAGES + [(49, 768)]
+# max |kernel - plain| <= TOL * max |plain| (chip_smoke.py's TOL for y and ds)
+TAIL_TOL = 2e-2
 HERE = Path(__file__).resolve().parents[2]
 
 
@@ -122,10 +134,9 @@ def report(what: str, res: dict, label: str) -> None:
 
 def partials(bm, M: int, C: int, gen) -> list:
     """Random f32 partials of the full backward's five sums at [M, C]: the
-    row pass's column sums (db1 [Mpad / BM, 4C], dln_g and dln_b [., C])
+    row pass's column sums (db1 [Mpad / part_rows, 4C], dln_g and dln_b [., C])
     and the weight pass's two products ([slices, 4C * C] each)."""
-    lib = bm._lib()
-    pad, bm_rows = lib.block_mlp_row_pad(), lib.block_mlp_rows_per_block(C)
+    pad, bm_rows = bm.ROW_PAD, bm.tail_plan(C, "bwd_full_rows").part_rows
     m_pad = -(-M // pad) * pad
     n_split = bm.wgrad_plan(m_pad, C, 4 * C)[1]
     shapes = [(m_pad // bm_rows, 4 * C), (m_pad // bm_rows, C), (m_pad // bm_rows, C),
@@ -133,8 +144,81 @@ def partials(bm, M: int, C: int, gen) -> list:
     return [torch.randn(*sh, generator=gen, device="cuda") for sh in shapes]
 
 
+def tail_inputs(M: int, C: int, gen) -> dict:
+    rnd = lambda *sh: torch.randn(*sh, generator=gen, device="cuda")  # noqa: E731
+    return dict(s=rnd(M, C).bfloat16(), r=rnd(M, C).bfloat16(), dy=rnd(M, C).bfloat16(),
+                ln_g=1.0 + 0.1 * rnd(C), ln_b=0.1 * rnd(C), w1=rnd(C, 4 * C) / C ** 0.5,
+                b1=0.1 * rnd(4 * C), w2=rnd(4 * C, C) / (4 * C) ** 0.5, b2=0.1 * rnd(C),
+                gamma=0.1 + 0.9 * torch.rand(C, generator=gen, device="cuda"))
+
+
+def tail_calls(bm, d: dict, M: int) -> dict:
+    """{what: call} of one tree's tail kernels on d."""
+    w1, w2 = d["w1"].bfloat16(), d["w2"].bfloat16()
+    w2g = (w2.float() * d["gamma"]).bfloat16()
+    bwd = (d["s"], None, M, d["ln_g"], d["ln_b"], w1, d["b1"], w2g, d["dy"])
+    return {"fwd": lambda: bm.fwd_cuda(d["s"], d["r"], None, M, d["ln_g"], d["ln_b"], w1,
+                                       d["b1"], w2, d["b2"], d["gamma"]),
+            "bwd_input": lambda: bm.bwd_input_cuda(*bwd),
+            "bwd_full_rows": lambda: bm.bwd_full_rows_cuda(*bwd)[0],
+            "plain fwd": lambda: bm.fwd_plain(d["s"], d["r"], None, M, d["ln_g"], d["ln_b"], w1,
+                                              d["b1"], w2, d["b2"], d["gamma"]),
+            "plain bwd": lambda: bm.bwd_input_plain(*bwd)}
+
+
+def model_path(d: dict) -> dict:
+    """The unfused tail (use_pallas=0) on d: its forward, and its autograd
+    backward with (bwd_input) and without (bwd_full_rows: every cotangent)
+    the weights frozen."""
+    from revisiting_at_tpu_torch.models.convnext import plain_tail
+
+    args = (d["ln_g"], d["ln_b"], d["w1"].t(), d["b1"], d["w2"].t(), d["b2"], d["gamma"],
+            torch.bfloat16)
+    s_in, r_in = d["s"].clone().requires_grad_(True), d["r"].clone().requires_grad_(True)
+    leaves = [t.detach().clone().requires_grad_(True) for t in
+              (d["s"], d["r"], d["ln_g"], d["ln_b"], d["w1"].t().contiguous(), d["b1"],
+               d["w2"].t().contiguous(), d["b2"], d["gamma"])]
+    y_in = plain_tail(s_in, r_in, *args)
+    y_all = plain_tail(*leaves, torch.bfloat16)
+    return {"fwd": lambda: plain_tail(d["s"], d["r"], *args),
+            "bwd_input": lambda: torch.autograd.grad(y_in, (s_in, r_in), d["dy"],
+                                                     retain_graph=True),
+            "bwd_full_rows": lambda: torch.autograd.grad(y_all, leaves, d["dy"],
+                                                         retain_graph=True)}
+
+
+def compare_tail(mods, names, gen, label) -> None:
+    """Each tree's forward, input backward and row pass at the stage shapes,
+    in turns with the other trees and the model path."""
+    bm_here = mods[-1][0]
+    shapes = ([("fwd", TAIL_BATCH, rc) for rc in TAIL_STAGES]
+              + [("bwd_input", TAIL_BATCH, rc) for rc in TAIL_STAGES]
+              + [("bwd_full_rows", BATCH, rc) for rc in STAGES + [VIT]])
+    for what, batch, (rows, C) in shapes:
+        M = rows * batch
+        d = tail_inputs(M, C, gen)
+        ref = tail_calls(bm_here, d, M)["plain fwd" if what == "fwd" else "plain bwd"]().float()
+        scale = ref.abs().max().item()
+        calls = [tail_calls(bm, d, M)[what] for bm, _, _ in mods]
+        for n, call in zip(names, calls):
+            err = (call().float() - ref).abs().max().item()
+            if not err <= TAIL_TOL * scale:
+                raise AssertionError(f"{n}: tail {what} M={M} C={C}: error {err} > "
+                                     f"{TAIL_TOL} * {scale}")
+        fns = dict(zip(names, calls))
+        fns["model path"] = model_path(d)[what]
+        flops = {"fwd": 16, "bwd_input": 24, "bwd_full_rows": 24}[what] * M * C * C
+        res = in_turns(fns)
+        report(f"tail {what} B={batch} M={M} C={C} ({flops / 1e9:.1f} GFLOP of the tail's own "
+               f"products):", res, label)
+        del d, ref, calls, fns
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
-    trees = [Path(a) for a in (sys.argv[1:] if argv is None else argv)] + [HERE]
+    args = sys.argv[1:] if argv is None else argv
+    tail_only = "--tail-only" in args
+    trees = [Path(a) for a in args if a != "--tail-only"] + [HERE]
     if not torch.cuda.is_available():
         print("tree_compare: no GPU", file=sys.stderr)
         return 2
@@ -151,6 +235,9 @@ def main(argv=None) -> int:
         att._lib()
     gen = torch.Generator(device="cuda").manual_seed(0)
     bm_here, att_here = mods[-1][0], mods[-1][1]
+    compare_tail(mods, names, gen, label)
+    if tail_only:
+        return 0
 
     # the column reduction
     for what, shapes in (("ConvNeXt-T stages 0-2", STAGES), ("ViT-S", [VIT])):

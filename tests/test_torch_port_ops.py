@@ -242,7 +242,9 @@ def _built_widths():
 
 
 def _row_pad(M):
-    return -(-M // tbm.WGRAD_DEPTH) * tbm.WGRAD_DEPTH
+    """M rounded up as the row pass pads its side buffers (a multiple of the
+    weight pass's 64-row stages too)."""
+    return -(-M // tbm.ROW_PAD) * tbm.ROW_PAD
 
 
 # the main path's full-backward shapes (M rows, C): ConvNeXt-T stages 0-2 at
@@ -288,9 +290,9 @@ def test_wgrad_plan_main_path_values():
     assert [tbm._wgrad_blocks(c) for c in (96, 192, 384, 432)] == [84, 84, 132, 132]
     assert tbm.wgrad_plan(250880, 96, 384) == (8960, 28)
     assert tbm.wgrad_plan(62720, 192, 768) == (4480, 14)
-    assert tbm.wgrad_plan(15680, 1536, 384) == (3136, 5)
+    assert tbm.wgrad_plan(_row_pad(15680), 1536, 384) == (3200, 5)
     assert tbm.wgrad_plan(_row_pad(15760), 384, 1536) == (3200, 5)
-    assert tbm.wgrad_plan(15680, 432, 1728) == (3968, 4)
+    assert tbm.wgrad_plan(_row_pad(15680), 432, 1728) == (3968, 4)
     with pytest.raises(ValueError):
         tbm.wgrad_plan(100, 96, 384)  # not a multiple of 64
     with pytest.raises(ValueError):
@@ -298,13 +300,14 @@ def test_wgrad_plan_main_path_values():
 
 
 # the column reduction's shapes on the main path: the row pass's column sums
-# ([Mpad / 64, 4C] and [Mpad / 64, C]) and the weight pass's slices ([slices,
-# 4C * C]) at ConvNeXt-T's stages 0-2 and ViT-S, batch 80; then short and
-# ragged ones
-REDUCE_MAIN_SHAPES = sorted({shape for M, C in [(3136 * 80, 96), (784 * 80, 192), (196 * 80, 384),
-                                                (197 * 80, 384)]
-                             for shape in ((_row_pad(M) // 64, 4 * C), (_row_pad(M) // 64, C),
-                                           (tbm.wgrad_plan(_row_pad(M), C, 4 * C)[1], 4 * C * C))})
+# ([Mpad / part_rows, 4C] and [Mpad / part_rows, C], a row per 64-row tile)
+# and the weight pass's slices ([slices, 4C * C]) at ConvNeXt-T's stages 0-2
+# and ViT-S, batch 80; then short and ragged ones
+REDUCE_MAIN_SHAPES = sorted({
+    shape for M, C in [(3136 * 80, 96), (784 * 80, 192), (196 * 80, 384), (197 * 80, 384)]
+    for parts in [_row_pad(M) // tbm.tail_plan(C, "bwd_full_rows").part_rows]
+    for shape in ((parts, 4 * C), (parts, C),
+                  (tbm.wgrad_plan(_row_pad(M), C, 4 * C)[1], 4 * C * C))})
 REDUCE_SHAPES = REDUCE_MAIN_SHAPES + [(R, N) for R in (1, 63, 64, 65) for N in (8, 96, 1001)]
 
 
@@ -342,7 +345,7 @@ def test_reduce_plan_main_path_values():
     batch of loads in flight)."""
     assert tbm.reduce_plan(3920, 96) == (2, 8, 490)
     assert tbm.reduce_plan(3920, 384) == (2, 4, 980)
-    assert tbm.reduce_plan(245, 1536) == (2, 1, 245)
+    assert tbm.reduce_plan(246, 1536) == (2, 1, 246)
     assert tbm.reduce_plan(28, 36864) == (64, 1, 28)
     assert tbm.reduce_plan(5, 589824) == (256, 1, 5)
     for R, N in REDUCE_MAIN_SHAPES:
@@ -367,3 +370,83 @@ def test_reduce_plan_same_for_equal_shapes(R, N):
 def test_tail_fusable_matches_jax(mode, wide):
     for C in (96, 192, 384, 512, 768, 1024, 1536):
         assert tbm.tail_fusable(C, mode, wide) == jbm.tail_fusable(C, mode, wide), C
+
+
+# every width the tail kernels are built for (BLOCK_MLP_WIDTHS in csrc)
+BUILT_WIDTHS = (16, 32, 64, 96, 128, 192, 256, 384, 432, 512, 768, 1024)
+
+
+def _header():
+    from pathlib import Path
+
+    return (Path(tbm.__file__).resolve().parents[1] / "csrc" / "block_mlp_common.cuh").read_text()
+
+
+def test_tail_plan_mirrors_the_source():
+    """tail_plan's constants are the header's: the widths built, those that
+    take the wgmma design (kWgmma), the row padding (kRowPad) and the
+    producer warpgroup's registers (kProducerRegs)."""
+    import re
+
+    src = _header()
+    assert _built_widths() == list(BUILT_WIDTHS)
+    line = next(ln for ln in src.splitlines() if "constexpr bool kWgmma = " in ln)
+    assert tuple(int(w) for w in re.findall(r"C == (\d+)", line)) == tbm.WGMMA_WIDTHS
+    assert re.search(r"constexpr int kRowPad = (\d+);", src)[1] == str(tbm.ROW_PAD)
+    assert re.search(r"kProducerRegs = (\d+)", src)[1] == str(tbm._PRODUCER_REGS)
+
+
+@pytest.mark.parametrize("mode", ["fwd", "bwd_input", "bwd_full_rows"])
+@pytest.mark.parametrize("C", BUILT_WIDTHS)
+def test_tail_plan_fits_the_card(C, mode):
+    """Each built width's tiling fits an H100 block: shared memory within
+    232,448 bytes; the chunk a multiple of 16 that divides 4C; the f32
+    accumulators of a consumer thread within its registers, with room for
+    addresses; the row pass's rows per block and per column-sum row
+    dividing the row padding (itself whole 64-row stages of the weight
+    pass). The main
+    path's widths (96, 192, 384) take the TMA + wgmma design in every mode."""
+    p = tbm.tail_plan(C, mode)
+    assert p.design == ("wgmma" if C in tbm.WGMMA_WIDTHS else "wmma")
+    assert 0 < p.smem <= 232448
+    assert p.chunk % 16 == 0 and (4 * C) % p.chunk == 0
+    assert p.acc_regs + 32 <= p.regs <= 255
+    if mode == "bwd_full_rows":  # its side buffers' rows are padded to ROW_PAD
+        assert tbm.ROW_PAD % p.rows == 0 and tbm.ROW_PAD % p.part_rows == 0
+    assert tbm.ROW_PAD % tbm.WGRAD_DEPTH == 0 and p.rows % 16 == 0
+    if p.design == "wgmma":
+        row_tiles = p.rows // 64
+        assert p.threads == 128 * (row_tiles * p.split + 1)  # and the producer warpgroup
+        # setmaxnreg moves registers within the block's launch allocation
+        pool = p.threads * (65536 // p.threads // 8 * 8)
+        assert p.regs * 128 * (p.threads // 128 - 1) + tbm._PRODUCER_REGS * 128 <= pool
+        assert 2 <= p.stages <= 8 and C % 32 == 0 and (C // p.split) % 32 == 0
+        assert p.part_rows == 64
+    else:
+        assert p.stages == 0 and p.part_rows == p.rows and p.threads <= 1024
+    if C in (96, 192, 384):
+        assert p.design == "wgmma"
+
+
+def test_tail_plan_main_path_values():
+    """The plans the H100 runs at ConvNeXt-T's stages 0-2 and ViT-S: four,
+    three and two 64-row tiles a block at C = 96 (forward, input backward,
+    row pass), two at C = 192, one tile split over two warpgroups at C =
+    384; the ring as deep as shared memory allows; the row pass's
+    column sums a row per 64-row tile, so 3920, 980 and 246 rows at batch 80
+    (ViT-S: 248)."""
+    assert tbm.tail_plan(96, "fwd")[:7] == ("wgmma", 256, 64, 640, 1, 6, 230656)
+    assert tbm.tail_plan(96, "bwd_input")[:7] == ("wgmma", 192, 64, 512, 1, 5, 232192)
+    assert tbm.tail_plan(96, "bwd_full_rows")[:7] == ("wgmma", 128, 64, 384, 1, 7, 225536)
+    assert tbm.tail_plan(192, "bwd_input")[:7] == ("wgmma", 128, 64, 384, 1, 4, 231680)
+    assert tbm.tail_plan(192, "bwd_full_rows")[:7] == ("wgmma", 128, 64, 384, 1, 3, 223488)
+    assert tbm.tail_plan(384, "fwd")[:7] == ("wgmma", 64, 64, 384, 2, 3, 214272)
+    assert tbm.tail_plan(384, "bwd_full_rows")[:7] == ("wgmma", 64, 64, 384, 2, 2, 230144)
+    assert tbm.tail_plan(768, "fwd").design == "wmma"
+    parts = [_row_pad(M) // tbm.tail_plan(C, "bwd_full_rows").part_rows
+             for M, C in [(3136 * 80, 96), (784 * 80, 192), (196 * 80, 384), (197 * 80, 384)]]
+    assert parts == [3920, 980, 246, 248]
+    with pytest.raises(ValueError):
+        tbm.tail_plan(96, "bwd")
+    with pytest.raises(ValueError):
+        tbm.tail_plan(100, "fwd")

@@ -45,6 +45,19 @@ def test_ptxas_compare_exits_1_only_when_a_kernel_differs(tmp_path, capsys, regs
     assert f"2 kernels in both builds, {rc} differ" in capsys.readouterr().out
 
 
+def test_ptxas_compare_rename_matches_a_kernel_kept_under_a_new_name(tmp_path, capsys):
+    old = _write(tmp_path / "old", "a9690f21", "058fe1ae", 168)
+    new = tmp_path / "new"
+    new.mkdir()
+    (new / "libblock_mlp_0123456789ab.so.ptxas.txt").write_text(
+        _REPORT.format(h1="3a0876eb", h2="223ebf72", regs=168)
+        .replace("10fwd_kernelI", "15fwd_kernel_wmmaI"))
+    assert ptxas_compare.main([str(old), str(new)]) == 0
+    assert "1 kernels in both builds, 0 differ; 1 only in the old" in capsys.readouterr().out
+    assert ptxas_compare.main(["--rename", "fwd_kernel=fwd_kernel_wmma", str(old), str(new)]) == 0
+    assert "2 kernels in both builds, 0 differ; 0 only in the old" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("name,M,C", wgrad_slices.SHAPES)
 def test_wgrad_slices_candidates_hold_the_plan(name, M, C):
     """The sweep tries the plan's count and counts cut as the plan cuts M:
