@@ -10,10 +10,13 @@ Phases, each fatal on failure:
      all started together; ptxas spills are printed;
   3. each kernel against its plain PyTorch version, in bf16: the block
      tail's forward and input backward at the four ConvNeXt-T stage shapes
-     at batch 32; its full backward (row pass, weight pass, reductions, and
-     the host recovery of dW2, db2, dgamma) on all nine cotangents at stages
-     0-2 at batch 80; both also at a ragged M, in f32 once, with a per-sample
-     keep once, at the other widths built (ConvNeXt-B/L), at convnext_iso's
+     at batch 32 (stage 3, C = 768, also at batch 80, ragged, in f32 and
+     with a per-sample keep; the first launch of each of its cluster
+     kernels under a watchdog); its full backward (row pass, weight pass,
+     reductions, and the host recovery of dW2, db2, dgamma) on all nine
+     cotangents at stages 0-2 at batch 80 (and C = 768 at batch 80 and
+     ragged with a keep); both also at a ragged M, in f32 once, with a
+     per-sample keep once, at the other widths built (ConvNeXt-B/L), at convnext_iso's
      C = 432 and at the micro models' C = 16, 32, 64; the weight pass with
      its reduction alone, both products, at WGRAD_CASES (the stage shapes, a
      ragged M, ViT-S, C = 432, every other width); the attention forward and
@@ -29,7 +32,9 @@ Phases, each fatal on failure:
      stages' partial shapes and a ragged one; each output within its own
      tolerance (TOL). Two launches must give the same bits (every kernel),
      the full backward's row pass must give the input backward's ds bit for
-     bit (stages 0-2 at batch 80, ragged M with a keep), and five planted faults (a slice of M left out of dW1, a row group left
+     bit (stages 0-2 at batch 80, C = 768, ragged M with a keep), and six
+     planted faults (one block's partial h left out of the C = 768
+     cluster's exchange, a slice of M left out of dW1, a row group left
      out of db1, one zero key past N left unmasked in the attention, a
      dwconv band's top halo row read as zero, one block's partial left out
      of the dwconv's dw) must fail the check;
@@ -112,6 +117,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -247,6 +253,24 @@ class Recorder:
         self.lines.append(msg)
 
 
+def first_launch(torch, what, fn, limit_s=60.0):
+    """fn() (a kernel's first launch), then a CUDA event recorded after it
+    and polled until the device has passed it. A launch that has not ended
+    within limit_s hangs: the process ends at once (exit code 3) with a
+    message, before anything waits on the device forever."""
+    out = fn()
+    done = torch.cuda.Event()
+    done.record()
+    t0 = time.time()
+    while not done.query():
+        if time.time() - t0 > limit_s:
+            log(f"watchdog: {what} has not finished after {limit_s:.0f} s: the kernel hangs")
+            os._exit(3)
+        time.sleep(0.001)
+    log(f"watchdog: the first launch of {what} finished within {time.time() - t0:.4f} s")
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -279,6 +303,12 @@ def run_tail(bm, d, which, kernel: bool):
     args = (d["s"], d["keep"], d["rows"], d["ln_g"], d["ln_b"], d["w1"].bfloat16(), d["b1"],
             w2g16, d["dy"])
     return bm.bwd_input_cuda(*args) if kernel else bm.bwd_input_plain(*args)
+
+
+def tail_design(bm, C, mode) -> str:
+    """The tail kernel's design at width C, as phase 8 logs it."""
+    plan = bm.tail_plan(C, mode)
+    return plan.design + (f", clusters of {plan.cluster}" if plan.cluster > 1 else "")
 
 
 def time_ms(torch, fn, iters):
@@ -1365,9 +1395,13 @@ def main(argv=None) -> int:
     err = {k: 0.0 for k in bm.LAUNCHES}  # block tail, keyed as bm.LAUNCHES
     # the stage shapes at batch 32, as phases 4 and 5 give them to the kernels
     cases = [(rows * 32, C, torch.bfloat16, 0) for rows, C in STAGES]
-    cases += [(49 * 3, 768, torch.bfloat16, 0),   # ragged: 147 rows, tiles of 32
+    cases += [(49 * 3, 768, torch.bfloat16, 0),   # ragged: 147 rows, 2 tiles and 19 rows
               (784 * 2, 192, torch.float32, 0),   # f32 I/O
               (196 * 4, 384, torch.bfloat16, 196)]  # per-sample keep
+    # stage 3 (C = 768, clusters of two blocks) at the training batch, ragged
+    # at 103 rows, f32 I/O, a per-sample keep (49 rows per keep)
+    cases += [(49 * TRAIN_BATCH, 768, torch.bfloat16, 0), (49 * 2 + 5, 768, torch.bfloat16, 0),
+              (49 * 4, 768, torch.float32, 0), (49 * 5, 768, torch.bfloat16, 49)]
     # the other widths built for ConvNeXt-B/L, at a few ragged tiles each
     cases += [(3136 + 40, 128, torch.bfloat16, 0), (784 + 40, 256, torch.bfloat16, 0),
               (196 * 2 + 8, 512, torch.bfloat16, 0), (49 * 2 + 5, 1024, torch.bfloat16, 0)]
@@ -1381,6 +1415,18 @@ def main(argv=None) -> int:
     cases += [(3136 * 32, 16, torch.bfloat16, 0), (784 * 32, 32, torch.bfloat16, 0),
               (196 * 32, 64, torch.bfloat16, 0), (197 * 32, 32, torch.bfloat16, 197),
               (3136 + 40, 16, torch.float32, 0), (196 * 2 + 5, 64, torch.bfloat16, 0)]
+    # the first launch of each cluster kernel under a watchdog: a block
+    # whose peer never arrives (or a setmaxnreg raise past the pool) waits
+    # forever, and the process ends with a message instead
+    d = tail_inputs(torch, 49 * 3, 768, torch.bfloat16, gen, 49)
+    for which in ("fwd", "bwd_input"):
+        first_launch(torch, f"{which} C=768 (cluster of {bm.tail_plan(768, which).cluster})",
+                     lambda: run_tail(bm, d, which, kernel=True))
+    w2g16 = (d["w2"].bfloat16().float() * d["gamma"]).bfloat16()
+    first_launch(torch, "bwd_full_rows C=768", lambda: bm.bwd_full_rows_cuda(
+        d["s"], d["keep"], d["rows"], d["ln_g"], d["ln_b"], d["w1"].bfloat16(), d["b1"], w2g16,
+        d["dy"]))
+    del d, w2g16
     for i, (M, C, dtype, keep_rows) in enumerate(cases):
         d = tail_inputs(torch, M, C, dtype, gen, keep_rows)
         for which in ("fwd", "bwd_input"):
@@ -1389,11 +1435,25 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             what = f"{which} M={M} C={C} {dtype} keep={bool(keep_rows)}"
             err[which] = max(err[which], check(torch, what, got, ref, TOL[which]))
-            if (i == 0 or C in (432, 16)) and not torch.equal(
+            if (i == 0 or C in (432, 16, 768)) and not torch.equal(
                     got, run_tail(bm, d, which, kernel=True)):
                 raise AssertionError(f"{what}: two launches differ")
-        if i == 0 or C in (432, 16):
+        if i == 0 or C in (432, 16, 768):
             log(f"fwd, bwd_input M={M} C={C}: bitwise equal over two launches")
+        if (M, C) == (49 * 32, 768):
+            # planted fault: one block's partial h left out of the exchange.
+            # Rank 0 of each cluster finalises the 16 columns of each 32 of
+            # 4C that start at a multiple of 32; W1 zero in rank 1's half of C
+            # (rows 384..767) for those columns is exactly that block's
+            # partial missing from their h
+            w1_bad = d["w1"].clone()
+            w1_bad[384:, torch.arange(4 * C, device="cuda") % 32 < 16] = 0
+            bad = bm.fwd_cuda(d["s"], d["r"], d["keep"], d["rows"], d["ln_g"], d["ln_b"],
+                              w1_bad.bfloat16(), d["b1"], d["w2"].bfloat16(), d["b2"], d["gamma"])
+            torch.cuda.synchronize()
+            planted_fault(f"fwd without rank 1's partial h in rank 0's columns, M={M} C={C}",
+                          bad, run_tail(bm, d, "fwd", kernel=False), TOL["fwd"])
+            del w1_bad, bad
     # the full backward: ConvNeXt-T's stages 0-2 at the training batch, where
     # tail_fusable(C, "full") admits the kernel, then ragged M, f32 I/O, a
     # per-sample keep, and the other widths built (B/L, wide_tail)
@@ -1403,6 +1463,9 @@ def main(argv=None) -> int:
                    (3136 + 40, 128, torch.bfloat16, 0), (784 + 40, 256, torch.bfloat16, 0),
                    (196 * 2 + 8, 512, torch.bfloat16, 0), (49 * 2 + 5, 768, torch.bfloat16, 0),
                    (49 * 2 + 5, 1024, torch.bfloat16, 0)]
+    # C = 768 (wide_tail's row pass, clusters of two blocks) at the training
+    # batch, and ragged (147 rows) with a keep
+    full_cases += [(49 * TRAIN_BATCH, 768, torch.bfloat16, 0), (49 * 3, 768, torch.bfloat16, 49)]
     # convnext_iso's C = 432 at the training batch (full mode admits C <= 512),
     # and ragged with a keep
     full_cases += [(ISO_ROWS * TRAIN_BATCH, 432, torch.bfloat16, 0),
@@ -1424,14 +1487,14 @@ def main(argv=None) -> int:
         for name, g, r in zip(FULL_COTANGENTS, got, ref):
             e = check(torch, f"bwd_full {name:6s} {what}", g, r, TOL[name])
             err[FULL_ERR_KEY[name]] = max(err[FULL_ERR_KEY[name]], e)
-        if i < 3 or (keep_rows and M % 64 and C in bm.WGMMA_WIDTHS):
-            # the stage shapes at the training batch and a ragged M with a
-            # keep: the row pass's ds is the input backward's, bit for bit
+        if i < 3 or C == 768 or (keep_rows and M % 64 and C in bm.WGMMA_WIDTHS):
+            # the stage shapes at the training batch, C = 768 and a ragged M
+            # with a keep: the row pass's ds is the input backward's, bit for bit
             if not torch.equal(got[0], run_tail(bm, d, "bwd_input", kernel=True)):
                 raise AssertionError(f"bwd_full {what}: the row pass's ds differs from the "
                                      "input backward's")
             log(f"bwd_full {what}: the row pass's ds equals the input backward's, bit for bit")
-        if C in (432, 16) and not keep_rows:
+        if C in (432, 16, 768) and not keep_rows:
             again = run_full(bm, d, kernel=True)
             if not all(torch.equal(g, h) for g, h in zip(got, again)):
                 raise AssertionError(f"bwd_full {what}: two launches differ")
@@ -1674,7 +1737,7 @@ def main(argv=None) -> int:
             bnd = add_bound(which, flops, 3 * M * C * 2 + weights)
             log(f"time {which:9s} B={B} M={M:6d} C={C:4d}: kernel {k:.3f} ms "
                 f"({flops / k / 1e9:.1f} TFLOP/s; device {ms_or_na(dev)} ms, "
-                f"{bm.tail_plan(C, which).design}), plain {p:.3f} ms, "
+                f"{tail_design(bm, C, which)}), plain {p:.3f} ms, "
                 f"model bf16 path {mp:.3f} ms, bound {bnd:.3f} ms {label}")
         del d, s_in, r_in, y_model, model_fn
         torch.cuda.empty_cache()
@@ -1772,7 +1835,7 @@ def main(argv=None) -> int:
         b_rows = max(whole["bwd_full_rows"][0] / PEAK_BF16, whole["bwd_full_rows"][1] / PEAK_HBM)
         log(f"time rows      B={TRAIN_BATCH} M={M:6d} C={C:4d}: kernel {k_rows:.3f} ms "
             f"({24 * M * C * C / k_rows / 1e9:.1f} TFLOP/s; device {ms_or_na(dev_rows)} ms, "
-            f"{bm.tail_plan(C, 'bwd_full_rows').design}), plain {p_rows:.3f} ms, model bf16 path "
+            f"{tail_design(bm, C, 'bwd_full_rows')}), plain {p_rows:.3f} ms, model bf16 path "
             f"training backward (every cotangent) {m_full:.3f} ms, bound {b_rows * 1e3:.3f} ms "
             f"{label}")
         log(f"time bwd_full  B={TRAIN_BATCH} M={M:6d} C={C:4d}: kernels {k_full:.3f} ms "

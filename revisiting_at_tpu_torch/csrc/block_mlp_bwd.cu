@@ -354,10 +354,10 @@ int block_mlp_bwd_full_rows(int C, int dtype, const void* s, const void* keep,
                             void* ds, int64_t M, int64_t Mpad, void* u16, void* kdy16,
                             void* g16, void* dh16, void* db1_part, void* dlng_part,
                             void* dlnb_part, int rows, int chunk, int threads, int split,
-                            int smem, void* stream) {
+                            int smem, int cluster, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Mpad % kRowPad != 0 || Mpad < M) return -1;
-  const PlanArgs plan{rows, chunk, threads, split, smem};
+  const PlanArgs plan{rows, chunk, threads, split, smem, cluster};
   const FullOut out{static_cast<bf16*>(u16), static_cast<bf16*>(kdy16), static_cast<bf16*>(g16),
                     static_cast<bf16*>(dh16), static_cast<float*>(db1_part),
                     static_cast<float*>(dlng_part), static_cast<float*>(dlnb_part)};

@@ -28,7 +28,7 @@
 // straight from L2, serialised every chunk through f32 shared memory and
 // two __syncthreads, and ran at 5-7% of the bf16 peak.
 //
-// The design at C = 96, 128, 192, 256 and 384 (`kWgmma`):
+// The design at C = 96, 128, 192, 256 and 384 (`kWgmma`, a block alone):
 //   * One producer thread keeps TMA loads of the weights in flight through a
 //     ring of S stages guarded by mbarriers. Each stage is one 64-row chunk
 //     of the 4C axis of a [4C, C] weight: W1^T (the wrapper transposes W1),
@@ -65,14 +65,47 @@
 //     the consumers by setmaxnreg.
 //   Rows past M are zero in the u and kdy tiles and are never stored.
 //
+// The design at C = 768 (kCluster = 2): a 64-row tile's u and kdy tiles
+// (192 KB), a 64-row weight chunk (96 KB) and a [64, C] f32 accumulator
+// (384 registers a thread of a warpgroup) do not fit one block. So a
+// thread-block cluster of two blocks takes each tile, block rank r holding
+// columns [384 r, 384 r + 384) of C: its halves of u and kdy, of every ring
+// stage (the K half of a W1^T or w2g chunk, the column half of a W2
+// chunk), of o or du; each block is tiled as C = 384 (two consumer
+// warpgroups of 192 accumulator columns, a producer warpgroup).
+//   * h = u W1c and dg = kdy w2g_c^T contract over C, so a block forms a
+//     partial over its half. The thread of the same index in the other
+//     block holds the same rows and columns: each thread sends the peer the
+//     half of its registers that the peer finalises (8 f32 of h, and of dg)
+//     into the peer's shared memory by st.async, whose bytes complete on the
+//     peer's mbarrier (no thread waits for a remote store to be
+//     acknowledged, as a release arrive on the peer's barrier would); the
+//     peer adds them to its own, a + b, the same bits in every launch.
+//   * Each block applies b1 and GELU (gelu') to its half of the chunk's
+//     columns and writes the bf16 g (dh16) into its own g tile and, by
+//     st.async, the peer's; a tile's mbarrier counts this block's warps and
+//     the peer's bytes before o (du) reads it. o and du have the block's own
+//     columns as N: no exchange.
+//   * LayerNorm: each block reads whole rows of s, so both hold the same
+//     statistics; the backward's row sums m1, m2 cross the cluster once,
+//     added in the same order in both blocks. Each block writes y or ds,
+//     and the row pass's side outputs, for the columns it owns: the row
+//     pass's ds stays bit for bit the input backward's.
+//   * The forward is software-pipelined by one chunk (the next chunk's h
+//     runs while this chunk's partial crosses the cluster and its GELU
+//     runs; the producer keeps W1^T a chunk ahead of W2). The backward has
+//     two ring stages, one chunk of w2g and of W1^T, and no room for that.
+//   * Launched with cudaLaunchKernelEx and a cluster dimension of 2; the
+//     mbarriers of both blocks are initialised before either block arrives
+//     on the other's (a cluster barrier), and every thread of both blocks
+//     meets at a cluster barrier at the end, so that no block exits while
+//     its peer may still reach its shared memory.
+//
 // The other widths built keep the WMMA kernels (fwd_kernel_wmma,
 // bwd_kernel_wmma): 16, 32 and 64 (the micro models) and 432 (convnext_iso:
-// not a multiple of the boxes' 64 columns), and 512, 768 and 1024, where a
-// 64-row tile's operands do not fit a block: at C = 768 the backward's u and
-// kdy tiles alone take 192 KB of the 227 KB, a weight chunk of 64 rows 96
-// KB, and a [64, C] f32 accumulator 384 registers a thread of a warpgroup.
-// ROADMAP B1 lists them; at C = 768 (ConvNeXt-T's stage 3, in the attacks)
-// the WMMA kernels are 3-4x slower than the unfused model path.
+// not a multiple of the boxes' 64 columns), and 512 and 1024 (ConvNeXt-B
+// and -L; ROADMAP B1), where a 64-row tile's operands do not fit a block
+// and the cluster above is not built yet.
 //
 // The WMMA design: each block owns BM rows, normalises them into a bf16
 // tile, and streams the 4C axis in chunks of BH columns; per chunk every
@@ -89,6 +122,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -504,7 +539,12 @@ int launch_bwd_wmma(const void* s, const float* keep, int rows_per_keep, const f
 // The widths that take the TMA + wgmma kernels; the others take the WMMA
 // kernels, chosen here at compile time.
 template <int C>
-constexpr bool kWgmma = C == 96 || C == 128 || C == 192 || C == 256 || C == 384;
+constexpr bool kWgmma = C == 96 || C == 128 || C == 192 || C == 256 || C == 384 || C == 768;
+
+// Blocks of a thread-block cluster that share each 64-row tile, block rank
+// r holding columns [C / kCluster r, + C / kCluster) of C (1: a block alone).
+template <int C>
+constexpr int kCluster = C == 768 ? 2 : 1;
 
 constexpr int kBox = 8192;            // a 64 x 64 bf16 box, 128-byte rows
 constexpr int kProducerRegs = 24;     // registers the producer warpgroup keeps
@@ -517,12 +557,14 @@ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 // the entry points refuse a plan that differs).
 template <int C, int MODE>
 struct Plan {
+  static constexpr int CL = kCluster<C>;         // blocks of a cluster
+  static constexpr int CB = C / CL;              // columns of C a block holds
   // row tiles of 64 rows: two up to C = 192, and at C = 96, whose
   // accumulators leave registers for more warpgroups, four in the forward
   // and three in the input backward (the row pass keeps two: its rows per
   // block divide the side buffers' padding)
-  static constexpr int R = C > 192 ? 1 : (C != 96 ? 2 : (MODE == kFwd ? 4 : (MODE == kBwdInput ? 3 : 2)));
-  static constexpr int G = C <= 192 ? 1 : 2;   // warpgroups over a row tile's columns
+  static constexpr int R = CB > 192 ? 1 : (C != 96 ? 2 : (MODE == kFwd ? 4 : (MODE == kBwdInput ? 3 : 2)));
+  static constexpr int G = CB <= 192 ? 1 : 2;    // warpgroups over a row tile's columns
   static constexpr int NWG = R * G;
   static constexpr int THREADS = 128 * (NWG + 1);  // and the producer warpgroup
   // registers of a consumer thread (setmaxnreg): the block is launched
@@ -534,40 +576,55 @@ struct Plan {
   static constexpr int BM = 64 * R;              // rows per block
   static constexpr int BH = 64;                  // 4C chunk: one ring stage
   static constexpr int NCH = 4 * C / BH;
-  static constexpr int CW = C / G;               // accumulator columns per warpgroup
+  static constexpr int CW = CB / G;              // accumulator columns per warpgroup
   static constexpr int N1 = BH / G;              // h and dg columns per warpgroup
-  static constexpr int BOXES = (C + 63) / 64;
-  static constexpr int TILE = kBox * BOXES;      // 64 rows of C, and a ring stage
+  static constexpr int NK = N1 / 2 / CL;         // h (dg) registers a thread finalises
+  static constexpr int BOXES = (CB + 63) / 64;
+  static constexpr int TILE = kBox * BOXES;      // 64 rows of CB, and a ring stage
   // shared memory: alignment slack, u (and kdy) tiles, two g/dh tiles per
   // row tile, the ring, row statistics and row-sum parts (backward),
-  // column-sum scratch (row pass), barriers
+  // column-sum scratch (row pass), the cluster's exchange of partial h
+  // (and dg), barriers. In a cluster the epilogue's row-sum parts and
+  // column-sum scratch reuse the u tile, which no wgmma reads by then.
   static constexpr int KDY_BYTES = MODE == kFwd ? 0 : R * TILE;
   static constexpr int STATS_BYTES = MODE == kFwd ? 0 : 2 * BM * 4;
-  static constexpr int PART_BYTES = MODE != kFwd && G > 1 ? 2 * G * BM * 4 : 0;
-  static constexpr int SCR_BYTES = MODE == kBwdRows ? NWG * 32 * (N1 + CW) : 0;
+  static constexpr int PART_BYTES = MODE != kFwd && G > 1 && CL == 1 ? 2 * G * BM * 4 : 0;
+  static constexpr int SCR_BYTES =
+      MODE == kBwdRows ? (CL == 1 ? NWG * 32 * (N1 + CW) : NWG * 32 * N1 / CL) : 0;
+  // a chunk's partials from the peer (h, and dg), and the peer's half of a g/dh tile
+  static constexpr int XCH_BYTES = CL == 1 ? 0 : (MODE == kFwd ? 1 : 2) * 128 * NWG * NK * 4;
+  static constexpr int GPEER_BYTES = 128 * NWG * NK / 2 * 4;
   static constexpr int FIXED = 1024 + R * TILE + KDY_BYTES + R * 2 * kBox + STATS_BYTES +
-                               PART_BYTES + SCR_BYTES + 256;
+                               PART_BYTES + SCR_BYTES + XCH_BYTES + 256;
   static constexpr int S_FIT = (kSmemMax - FIXED) / TILE;
   static constexpr int S = cmin(cmin(8, 2 * NCH), S_FIT);  // ring stages
   static constexpr int SMEM = FIXED + S * TILE;
   static_assert(C % 32 == 0 && CW % 32 == 0 && N1 % 32 == 0, "plan: widths");
   static_assert(S >= 2 && SMEM <= kSmemMax, "plan: shared memory");
   static_assert(128 * NWG * CREGS + 128 * kProducerRegs <= POOL, "plan: registers");
+  static_assert(CL == 1 || (CL == 2 && R == 1 && NK % 4 == 0 && (C / 32) % CL == 0 &&
+                            (2 * G * 64 + 2 * 64 + NWG * 8 * CW) * 4 <= TILE),
+                "plan: cluster");
 };
 
 // The block's shared memory under Plan P.
 template <class P>
 struct TailSmem {
-  unsigned char* u;     // [R] K-major bf16 tiles of 64 rows x C
+  unsigned char* u;     // [R] K-major bf16 tiles of 64 rows x CB
   unsigned char* kdy;   // [R] the same for kdy (backward)
   unsigned char* g;     // [R][2] the g or dh16 chunk, 64 x 64
-  unsigned char* ring;  // [S] weight chunks, 64 rows of C
+  unsigned char* ring;  // [S] weight chunks, 64 rows of CB
   float* mean;          // [BM] (backward)
   float* inv;           // [BM]
-  float* part;          // [2][R][G][64] row-sum parts (backward, G > 1)
-  float* scr;           // [NWG][8 * N1 + 8 * CW] column-sum scratch (row pass)
+  float* part;          // [2][R][G][64] row-sum parts (backward, G > 1, no cluster)
+  float* scr;           // [NWG][8 * N1 + 8 * CW] column-sum scratch (row pass; a
+                        // cluster: [NWG][8 * N1 / CL], the rest in the u tile)
+  float* xch;           // [1 or 2][NK / 4][128 NWG] float4: the peer's partial h (dg)
   uint64_t* full;       // [S]
   uint64_t* empty;      // [S]
+  uint64_t* xfull;      // [1] the peer's partials have landed (cluster)
+  uint64_t* gfull;      // [2] both blocks' halves of a g/dh tile are written (cluster)
+  uint64_t* rsfull;     // [1] the peer's row sums have landed (cluster, backward)
 
   __device__ explicit TailSmem(unsigned char* raw) {
     unsigned char* p = reinterpret_cast<unsigned char*>(
@@ -580,8 +637,12 @@ struct TailSmem {
     inv = mean + P::BM;  p += P::STATS_BYTES;
     part = reinterpret_cast<float*>(p);  p += P::PART_BYTES;
     scr = reinterpret_cast<float*>(p);   p += P::SCR_BYTES;
+    xch = reinterpret_cast<float*>(p);   p += P::XCH_BYTES;
     full = reinterpret_cast<uint64_t*>(p);
     empty = full + P::S;
+    xfull = empty + P::S;
+    gfull = xfull + 1;
+    rsfull = gfull + 2;
   }
 };
 
@@ -641,6 +702,9 @@ __device__ __forceinline__ void ring_release(const TailSmem<P>& sm, int item) {
   if (threadIdx.x % 32 == 0) mbar_arrive(&sm.empty[item % P::S]);
 }
 
+// The ring's barriers and, in a cluster, the exchange's; a cluster's
+// blocks start only when both have initialised theirs, since the peer
+// arrives on them
 template <class P>
 __device__ void ring_init(const TailSmem<P>& sm) {
   if (threadIdx.x == 0) {
@@ -648,9 +712,18 @@ __device__ void ring_init(const TailSmem<P>& sm) {
       mbar_init(&sm.full[st], 1);              // the producer's arrive with its bytes
       mbar_init(&sm.empty[st], 4 * P::NWG);    // one arrive per consumer warp
     }
+    if constexpr (P::CL > 1) {
+      mbar_init(sm.xfull, 1);                  // expect_peer, and the peer's bytes
+      mbar_init(&sm.gfull[0], 4 * P::NWG);     // each consumer warp, and the peer's bytes
+      mbar_init(&sm.gfull[1], 4 * P::NWG);
+      mbar_init(sm.rsfull, 1);
+    }
     mbar_fence_init();
   }
-  __syncthreads();
+  if constexpr (P::CL > 1)
+    cluster_sync();
+  else
+    __syncthreads();
 }
 
 // Registers per thread: the producer warpgroup keeps kProducerRegs and
@@ -658,48 +731,139 @@ __device__ void ring_init(const TailSmem<P>& sm) {
 // for three, 112 for four); an even split of 384 threads leaves 168, and
 // the backward's accumulators (du, h and dg: 160 registers at C = 192)
 // spilled there.
-// The producer warpgroup: its first thread loads item i, chunk i / 2 of map
-// `first` (i even) or `second` (i odd), into ring stage i % S.
-template <class P>
+// The producer warpgroup: its first thread loads item i into ring stage i %
+// S, columns col0.. (the block's CB) of a chunk of map `first` or `second`:
+// with LEAD = 0 chunk i / 2 of `first` (i even) or `second` (i odd); with
+// LEAD = 1 `first` runs one chunk ahead: chunk 0 of `first`, then chunk c +
+// 1 of `first` and chunk c of `second` in turn, then the last of `second`.
+template <class P, int LEAD = 0>
 __device__ void produce(const TailSmem<P>& sm, const CUtensorMap* first,
-                        const CUtensorMap* second) {
+                        const CUtensorMap* second, int col0) {
   setmaxnreg_dec<kProducerRegs>();
   if (threadIdx.x != 128 * P::NWG) return;
   for (int i = 0; i < 2 * P::NCH; ++i) {
     const int st = i % P::S;
     if (i >= P::S) mbar_wait(&sm.empty[st], (i / P::S - 1) & 1);
     unsigned char* dst = sm.ring + st * P::TILE;
-    const CUtensorMap* map = i % 2 == 0 ? first : second;
+    bool of_first = i % 2 == 0;
+    int chunk = i / 2;
+    if constexpr (LEAD == 1) {
+      of_first = i == 0 || (i % 2 == 1 && i < 2 * P::NCH - 1);
+      chunk = i == 0 ? 0 : (i == 2 * P::NCH - 1 ? P::NCH - 1 : (of_first ? (i + 1) / 2 : i / 2 - 1));
+    }
+    const CUtensorMap* map = of_first ? first : second;
     mbar_arrive_expect_tx(&sm.full[st], P::TILE);
 #pragma unroll
-    for (int b = 0; b < P::BOXES; ++b) tma_load_2d(dst + b * kBox, map, &sm.full[st], 64 * b, 64 * (i / 2));
+    for (int b = 0; b < P::BOXES; ++b)
+      tma_load_2d(dst + b * kBox, map, &sm.full[st], col0 + 64 * b, 64 * chunk);
   }
+}
+
+// the block's rank in its cluster (0 for a block alone)
+template <class P>
+__device__ __forceinline__ uint32_t block_rank() {
+  if constexpr (P::CL > 1)
+    return cluster_rank();
+  else
+    return 0;
+}
+
+// The end of a block: in a cluster, every thread of both blocks, so that
+// no block exits while its peer may still reach its shared memory.
+template <class P>
+__device__ __forceinline__ void block_end() {
+  if constexpr (P::CL > 1) cluster_sync();
+}
+
+// The cluster's exchange of a product that contracts over C (h = u W1c,
+// dg = kdy w2g_c^T): a block holds its partial over its CB columns of C for
+// the whole chunk, a thread N1 / 2 registers (d), and finalises NK of them:
+// rank r the registers [NK r, NK (r + 1)), chunk columns cg N1 + N1 / 2 r
+// .. + N1 / 2. The thread of the same index in the peer holds the same
+// rows and columns, so each thread sends the peer the half it finalises
+// into the peer's exchange slot `part` (0: h, 1: dg), its bytes completing
+// on the peer's xfull, and adds the half it receives to its own: a + b,
+// two terms, in every launch the same bits.
+template <class P>
+__device__ __forceinline__ void xch_send(const TailSmem<P>& sm, const float (&d)[P::N1 / 2],
+                                         int part, uint32_t rank) {
+  const uint32_t base = map_rank(sm.xch + part * (P::NK * 128 * P::NWG), rank ^ 1);
+  const uint32_t bar = map_rank(sm.xfull, rank ^ 1);
+#pragma unroll
+  for (int q = 0; q < P::NK / 4; ++q) {
+    // what the peer finalises (selects: a register array takes no run-time index)
+    const int lo = 4 * q, hi = P::NK + 4 * q;
+    st_async(base + (q * 128 * P::NWG + threadIdx.x) * 16,
+             rank ? make_float4(d[lo], d[lo + 1], d[lo + 2], d[lo + 3])
+                  : make_float4(d[hi], d[hi + 1], d[hi + 2], d[hi + 3]),
+             bar);
+  }
+}
+template <class P>
+__device__ __forceinline__ void xch_add(const TailSmem<P>& sm, const float (&d)[P::N1 / 2],
+                                        int part, uint32_t rank, float (&out)[P::NK]) {
+  const float4* src = reinterpret_cast<const float4*>(sm.xch + part * (P::NK * 128 * P::NWG));
+#pragma unroll
+  for (int q = 0; q < P::NK / 4; ++q) {
+    const float4 v = src[q * 128 * P::NWG + threadIdx.x];
+    const int lo = 4 * q, hi = P::NK + 4 * q;  // what this block finalises: hi in rank 1
+    out[4 * q] = (rank ? d[hi] : d[lo]) + v.x;
+    out[4 * q + 1] = (rank ? d[hi + 1] : d[lo + 1]) + v.y;
+    out[4 * q + 2] = (rank ? d[hi + 2] : d[lo + 2]) + v.z;
+    out[4 * q + 3] = (rank ? d[hi + 3] : d[lo + 3]) + v.w;
+  }
+}
+// This block's barrier `bar` (count 1) is to take `bytes` from the peer:
+// one consumer thread arrives, expecting them, and the phase completes
+// once they have landed, whichever comes first. (An arrive on the peer's
+// barrier with release at cluster scope instead waits for the thread's
+// remote stores to be acknowledged, twice a chunk.)
+__device__ __forceinline__ void expect_peer(uint64_t* bar, uint32_t bytes) {
+  if (threadIdx.x == 0) mbar_arrive_expect_tx(bar, bytes);
+}
+// this warp's part of this block's half of a g/dh tile is written: one
+// arrive on this block's `bar`, warp 0's also expecting the peer's half
+// (its st.async bytes)
+template <class P>
+__device__ __forceinline__ void arrive_tile(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x == 0)
+    mbar_arrive_expect_tx(bar, P::GPEER_BYTES);
+  else if (threadIdx.x % 32 == 0)
+    mbar_arrive(bar);
 }
 
 // LayerNorm of the row tile's 64 rows (row0..) into the swizzled bf16 tile
 // u, split over the tile's 4 G warps, whole rows a warp; rows past M become
 // 0. The backward also forms kdy = bf16(keep * dy) and keeps mean and inv.
 // A warp loads a batch of its rows before it reduces any: one row at a time
-// would wait out a round trip to HBM per row.
+// would wait out a round trip to HBM per row. In a cluster each block
+// reads whole rows of s, so both hold the same statistics, bit for bit, and
+// keeps its CB columns (rank r: c - CB r) of u, and of kdy.
 template <int C, class P, typename T, bool BWD>
 __device__ void ln_rows(const T* __restrict__ s, const float* __restrict__ ln_g,
                         const float* __restrict__ ln_b, const T* __restrict__ dy,
                         const float* __restrict__ keep, int rows_per_keep, int64_t row0, int64_t M,
-                        int cg, unsigned char* u, unsigned char* kdy, float* mean, float* inv) {
+                        int cg, uint32_t rank, unsigned char* u, unsigned char* kdy, float* mean,
+                        float* inv) {
   constexpr int VPL = C / 32;         // values per lane in a row
+  constexpr int VPB = VPL / P::CL;    // of them in the block's columns
   constexpr int NR = 16 / P::G;       // rows per warp
   constexpr int BATCH = 48 / VPL >= NR ? NR : (48 / VPL >= 8 ? 8 : 4);  // rows loaded at once
   static_assert(NR % BATCH == 0, "ln_rows: batches");
   const int lane = threadIdx.x % 32, wt = cg * 4 + (threadIdx.x / 32) % 4;
+  const int c0 = P::CB * rank;
   for (int k0 = 0; k0 < NR; k0 += BATCH) {
-    float v[BATCH][VPL], dv[BWD ? BATCH : 1][VPL];
+    float v[BATCH][VPL], dv[BWD ? BATCH : 1][VPB];
 #pragma unroll
     for (int k = 0; k < BATCH; ++k) {
       const int64_t row = row0 + wt + 4 * P::G * (k0 + k);
 #pragma unroll
-      for (int i = 0; i < VPL; ++i) {
-        v[k][i] = row < M ? to_f32(s[row * C + lane + 32 * i]) : 0.0f;
-        if constexpr (BWD) dv[k][i] = row < M ? to_f32(dy[row * C + lane + 32 * i]) : 0.0f;
+      for (int i = 0; i < VPL; ++i) v[k][i] = row < M ? to_f32(s[row * C + lane + 32 * i]) : 0.0f;
+      if constexpr (BWD) {
+#pragma unroll
+        for (int i = 0; i < VPB; ++i)
+          dv[k][i] = row < M ? to_f32(dy[row * C + c0 + lane + 32 * i]) : 0.0f;
       }
     }
 #pragma unroll
@@ -721,13 +885,14 @@ __device__ void ln_rows(const T* __restrict__ s, const float* __restrict__ ln_g,
 #pragma unroll
       for (int i = 0; i < VPL; ++i) {
         const int c = lane + 32 * i;
-        *reinterpret_cast<bf16*>(u + swz(rr, c)) =
-            __float2bfloat16(live ? (v[k][i] - mu) * iv * ln_g[c] + ln_b[c] : 0.0f);
+        if (P::CL == 1 || i / VPB == static_cast<int>(rank))
+          *reinterpret_cast<bf16*>(u + swz(rr, c - c0)) =
+              __float2bfloat16(live ? (v[k][i] - mu) * iv * ln_g[c] + ln_b[c] : 0.0f);
       }
       if constexpr (BWD) {
         const float kp = live ? keep_of(keep, rows_per_keep, row) : 0.0f;
 #pragma unroll
-        for (int i = 0; i < VPL; ++i)
+        for (int i = 0; i < VPB; ++i)
           *reinterpret_cast<bf16*>(kdy + swz(rr, lane + 32 * i)) = __float2bfloat16(kp * dv[k][i]);
         if (lane == 0) {
           mean[rr] = live ? mu : 0.0f;
@@ -739,11 +904,12 @@ __device__ void ln_rows(const T* __restrict__ s, const float* __restrict__ ln_g,
 }
 
 // Backward of the tail (kWgmma widths): ds from dy, with w2g = bf16(W2 *
-// gamma), over BM rows a block. FULL = false is the input-only backward
-// (_bwd_input_kernel); FULL = true is the full backward's row pass
-// (_bwd_kernel): the same ds, bit for bit, plus the side outputs of
-// FullOut, column sums per 64-row tile. Ring items: chunk j of w2g (2 j)
-// and of W1^T (2 j + 1).
+// gamma), over BM rows a block (a cluster: 64 rows, CB columns a block).
+// FULL = false is the input-only backward (_bwd_input_kernel); FULL = true
+// is the full backward's row pass (_bwd_kernel): the same ds, bit for bit,
+// plus the side outputs of FullOut, column sums per 64-row tile, each
+// written by the block that finalises its columns. Ring items: chunk j of
+// w2g (2 j) and of W1^T (2 j + 1).
 template <int C, typename T, bool FULL>
 __global__ void __launch_bounds__(Plan<C, FULL ? kBwdRows : kBwdInput>::THREADS, 1)
 bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ CUtensorMap w2g_map,
@@ -754,9 +920,12 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
   using P = Plan<C, FULL ? kBwdRows : kBwdInput>;
   extern __shared__ unsigned char smem_raw[];
   const TailSmem<P> sm(smem_raw);
+  const uint32_t rank = block_rank<P>();
+  const int c0 = P::CB * rank;  // the block's first column of C
   ring_init(sm);
   if (threadIdx.x >= 128 * P::NWG) {
-    produce(sm, &w2g_map, &w1t_map);
+    produce(sm, &w2g_map, &w1t_map, c0);
+    block_end<P>();
     return;
   }
   setmaxnreg_inc<P::CREGS>();
@@ -765,7 +934,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
   const int w = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
   const int rt = w / P::G, cg = w % P::G;
   const int wq = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int tile_idx = blockIdx.x * P::R + rt;  // this row tile's partial-sum row
+  const int tile_idx = blockIdx.x / P::CL * P::R + rt;  // this row tile's partial-sum row
   const int64_t row0 = static_cast<int64_t>(tile_idx) * 64;
   const int bar = 1 + rt, bar_n = 128 * P::G;
   unsigned char* u = sm.u + rt * P::TILE;
@@ -773,17 +942,18 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
   unsigned char* dht = sm.g + rt * 2 * kBox;
   float* mean = sm.mean + 64 * rt;
   float* inv = sm.inv + 64 * rt;
-  float* scr = sm.scr + w * (8 * P::N1 + 8 * P::CW);
+  float* scr = P::CL == 1 ? sm.scr + w * (8 * P::N1 + 8 * P::CW) : sm.scr + w * (8 * P::N1 / P::CL);
 
-  ln_rows<C, P, T, true>(s, ln_g, ln_b, dy, keep, rows_per_keep, row0, M, cg, u, kdy, mean, inv);
+  ln_rows<C, P, T, true>(s, ln_g, ln_b, dy, keep, rows_per_keep, row0, M, cg, rank, u, kdy, mean,
+                         inv);
   fence_proxy_async();
   named_bar_sync(bar, bar_n);
   if constexpr (FULL) {
     // u16 and kdy16 are the weight pass's operands: 16-byte chunks of the
     // tiles' rows
-    for (int i = threadIdx.x % bar_n; i < 64 * (C / 8); i += bar_n) {
-      const int r = i / (C / 8), c = (i % (C / 8)) * 8;
-      const size_t gi = static_cast<size_t>(row0 + r) * C + c;
+    for (int i = threadIdx.x % bar_n; i < 64 * (P::CB / 8); i += bar_n) {
+      const int r = i / (P::CB / 8), c = (i % (P::CB / 8)) * 8;
+      const size_t gi = static_cast<size_t>(row0 + r) * C + c0 + c;
       *reinterpret_cast<uint4*>(out.u16 + gi) = *reinterpret_cast<const uint4*>(u + swz(r, c));
       *reinterpret_cast<uint4*>(out.kdy16 + gi) = *reinterpret_cast<const uint4*>(kdy + swz(r, c));
     }
@@ -802,12 +972,12 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
     ring_wait(sm, ib);
     const unsigned char* wb = sm.ring + (ib % P::S) * P::TILE + cg * P::N1 * 128;
 #pragma unroll
-    for (int kk = 0; kk < C / 16; ++kk) wgmma_ss<P::N1, 0>(dg, kdesc(kdy, kk), kdesc(wb, kk));
+    for (int kk = 0; kk < P::CB / 16; ++kk) wgmma_ss<P::N1, 0>(dg, kdesc(kdy, kk), kdesc(wb, kk));
     wgmma_commit();
     ring_wait(sm, ia);
     const unsigned char* wa = sm.ring + (ia % P::S) * P::TILE;
 #pragma unroll
-    for (int kk = 0; kk < C / 16; ++kk)
+    for (int kk = 0; kk < P::CB / 16; ++kk)
       wgmma_ss<P::N1, 0>(h, kdesc(u, kk), kdesc(wa + cg * P::N1 * 128, kk));
     wgmma_commit();
     wgmma_wait<0>();  // dg, h and the previous chunk's du
@@ -817,51 +987,117 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
     ring_release(sm, ib);
     if (P::S > 2 && j > 0) ring_release(sm, ia - 2);
 
-    // dh = dg * gelu'(h + b1) in place of dg; its bf16 tile for du
     unsigned char* dh_s = dht + (j & 1) * kBox;
+    if constexpr (P::CL == 1) {
+      // dh = dg * gelu'(h + b1) in place of dg; its bf16 tile for du
 #pragma unroll
-    for (int i = 0; i < P::N1 / 2; i += 2) {
-      const int c = cg * P::N1 + acc_col(i);
-      const float2 bb = load2(b1 + 64 * j + c);
-      float g0, g1, d0, d1;
-      gelu_and_dgelu_tanh(h[i] + bb.x, g0, d0);
-      gelu_and_dgelu_tanh(h[i + 1] + bb.y, g1, d1);
-      dg[i] *= d0;
-      dg[i + 1] *= d1;
-      const uint32_t dhp = pack_bf16(dg[i], dg[i + 1]);
-      *reinterpret_cast<uint32_t*>(dh_s + swz(acc_row(i), c)) = dhp;
-      if constexpr (FULL) {
-        const int64_t row = row0 + acc_row(i);
-        const bool live = row < M;
-        const size_t gi = static_cast<size_t>(row) * (4 * C) + 64 * j + c;
-        *reinterpret_cast<uint32_t*>(out.g16 + gi) = live ? pack_bf16(g0, g1) : 0u;
-        *reinterpret_cast<uint32_t*>(out.dh16 + gi) = live ? dhp : 0u;
-      }
-    }
-    if constexpr (FULL) {
-      // db1: the f32 dh summed over this warp's two rows a lane, its 8 row
-      // lanes, then (after the barrier) its warpgroup's 4 warps, in order
-      float* s1 = scr + (j & 1) * 4 * P::N1;
-#pragma unroll
-      for (int q = 0; q < P::N1 / 8; ++q) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float v = dg[4 * q + e] + dg[4 * q + 2 + e];
-          v += __shfl_xor_sync(0xffffffffu, v, 4);
-          v += __shfl_xor_sync(0xffffffffu, v, 8);
-          v += __shfl_xor_sync(0xffffffffu, v, 16);
-          if (lane < 4) s1[wq * P::N1 + 8 * q + 2 * lane + e] = v;
+      for (int i = 0; i < P::N1 / 2; i += 2) {
+        const int c = cg * P::N1 + acc_col(i);
+        const float2 bb = load2(b1 + 64 * j + c);
+        float g0, g1, d0, d1;
+        gelu_and_dgelu_tanh(h[i] + bb.x, g0, d0);
+        gelu_and_dgelu_tanh(h[i + 1] + bb.y, g1, d1);
+        dg[i] *= d0;
+        dg[i + 1] *= d1;
+        const uint32_t dhp = pack_bf16(dg[i], dg[i + 1]);
+        *reinterpret_cast<uint32_t*>(dh_s + swz(acc_row(i), c)) = dhp;
+        if constexpr (FULL) {
+          const int64_t row = row0 + acc_row(i);
+          const bool live = row < M;
+          const size_t gi = static_cast<size_t>(row) * (4 * C) + 64 * j + c;
+          *reinterpret_cast<uint32_t*>(out.g16 + gi) = live ? pack_bf16(g0, g1) : 0u;
+          *reinterpret_cast<uint32_t*>(out.dh16 + gi) = live ? dhp : 0u;
         }
       }
-    }
-    fence_proxy_async();
-    named_bar_sync(bar, bar_n);
-    if constexpr (FULL) {
-      const float* s1 = scr + (j & 1) * 4 * P::N1;
-      const int t = threadIdx.x % 128;
-      if (t < P::N1)
-        out.db1_part[static_cast<size_t>(tile_idx) * (4 * C) + 64 * j + cg * P::N1 + t] =
-            s1[t] + s1[P::N1 + t] + s1[2 * P::N1 + t] + s1[3 * P::N1 + t];
+      if constexpr (FULL) {
+        // db1: the f32 dh summed over this warp's two rows a lane, its 8 row
+        // lanes, then (after the barrier) its warpgroup's 4 warps, in order
+        float* s1 = scr + (j & 1) * 4 * P::N1;
+#pragma unroll
+        for (int q = 0; q < P::N1 / 8; ++q) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v = dg[4 * q + e] + dg[4 * q + 2 + e];
+            v += __shfl_xor_sync(0xffffffffu, v, 4);
+            v += __shfl_xor_sync(0xffffffffu, v, 8);
+            v += __shfl_xor_sync(0xffffffffu, v, 16);
+            if (lane < 4) s1[wq * P::N1 + 8 * q + 2 * lane + e] = v;
+          }
+        }
+      }
+      fence_proxy_async();
+      named_bar_sync(bar, bar_n);
+      if constexpr (FULL) {
+        const float* s1 = scr + (j & 1) * 4 * P::N1;
+        const int t = threadIdx.x % 128;
+        if (t < P::N1)
+          out.db1_part[static_cast<size_t>(tile_idx) * (4 * C) + 64 * j + cg * P::N1 + t] =
+              s1[t] + s1[P::N1 + t] + s1[2 * P::N1 + t] + s1[3 * P::N1 + t];
+      }
+    } else {
+      // the cluster: h and dg summed over both blocks' halves of C for the
+      // chunk columns this block finalises (NK registers a thread, columns
+      // cg N1 + N1 / 2 rank ..); dh = dg * gelu'(h + b1) into both blocks'
+      // dh tiles
+      xch_send(sm, h, 0, rank);
+      xch_send(sm, dg, 1, rank);
+      float hs[P::NK], dgs[P::NK];
+      expect_peer(sm.xfull, P::XCH_BYTES);
+      mbar_wait_cluster(sm.xfull, j & 1);
+      xch_add(sm, h, 0, rank, hs);
+      xch_add(sm, dg, 1, rank, dgs);
+      const uint32_t dh_peer = map_rank(dh_s, rank ^ 1);
+      const uint32_t dh_bar = map_rank(&sm.gfull[j & 1], rank ^ 1);
+#pragma unroll
+      for (int i = 0; i < P::NK; i += 2) {
+        const int c = cg * P::N1 + P::N1 / 2 * rank + acc_col(i);
+        const float2 bb = load2(b1 + 64 * j + c);
+        float g0, g1, d0, d1;
+        gelu_and_dgelu_tanh(hs[i] + bb.x, g0, d0);
+        gelu_and_dgelu_tanh(hs[i + 1] + bb.y, g1, d1);
+        dgs[i] *= d0;
+        dgs[i + 1] *= d1;
+        const uint32_t dhp = pack_bf16(dgs[i], dgs[i + 1]);
+        const uint32_t off = swz(acc_row(i), c);
+        *reinterpret_cast<uint32_t*>(dh_s + off) = dhp;
+        st_async(dh_peer + off, dhp, dh_bar);
+        if constexpr (FULL) {
+          const int64_t row = row0 + acc_row(i);
+          const bool live = row < M;
+          const size_t gi = static_cast<size_t>(row) * (4 * C) + 64 * j + c;
+          *reinterpret_cast<uint32_t*>(out.g16 + gi) = live ? pack_bf16(g0, g1) : 0u;
+          *reinterpret_cast<uint32_t*>(out.dh16 + gi) = live ? dhp : 0u;
+        }
+      }
+      constexpr int NF = P::N1 / P::CL;  // chunk columns a warpgroup finalises
+      if constexpr (FULL) {
+        // db1 of this block's columns, summed as above
+        float* s1 = scr + (j & 1) * 4 * NF;
+#pragma unroll
+        for (int q = 0; q < P::NK / 4; ++q) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v = dgs[4 * q + e] + dgs[4 * q + 2 + e];
+            v += __shfl_xor_sync(0xffffffffu, v, 4);
+            v += __shfl_xor_sync(0xffffffffu, v, 8);
+            v += __shfl_xor_sync(0xffffffffu, v, 16);
+            if (lane < 4) s1[wq * NF + 8 * q + 2 * lane + e] = v;
+          }
+        }
+      }
+      // a proxy fence after this thread's writes to its own tile, and one
+      // after the wait for the peer's writes, before the wgmma reads them
+      fence_proxy_async();
+      arrive_tile<P>(&sm.gfull[j & 1]);
+      mbar_wait_cluster(&sm.gfull[j & 1], (j >> 1) & 1);
+      fence_proxy_async();
+      if constexpr (FULL) {
+        const float* s1 = scr + (j & 1) * 4 * NF;
+        const int t = threadIdx.x % 128;
+        if (t < NF)
+          out.db1_part[static_cast<size_t>(tile_idx) * (4 * C) + 64 * j + cg * P::N1 + NF * rank +
+                       t] = s1[t] + s1[NF + t] + s1[2 * NF + t] + s1[3 * NF + t];
+      }
     }
     // du += dh16 @ W1c: the W1^T stage as an MN-major B, this warpgroup's columns
     const unsigned char* wc = wa + (cg * P::CW / 64) * kBox;
@@ -884,14 +1120,14 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
   // LayerNorm backward: ds = inv * (dxh - mean(dxh) - xhat * mean(dxh * xhat)),
   // dxh = du * ln_g. A thread holds rows lo = acc_row(0) and lo + 8 of the
   // tile; the row sums go over its values, its quad, then the row tile's
-  // warpgroups in order.
+  // warpgroups in order, then (a cluster) the two blocks' sums.
   const int rlo = acc_row(0);
   float p1[2] = {0.0f, 0.0f}, p2[2] = {0.0f, 0.0f};
 #pragma unroll
   for (int i = 0; i < P::CW / 2; i += 2) {
     const int hi = (i / 2) % 2, rr = rlo + 8 * hi;
     const int64_t row = row0 + rr;
-    const int col = cg * P::CW + acc_col(i);
+    const int col = c0 + cg * P::CW + acc_col(i);
     const float2 x = row < M ? load2(s + row * C + col) : make_float2(0.0f, 0.0f);
     const float2 lg = load2(ln_g + col);
     const float x0 = row < M ? (x.x - mean[rr]) * inv[rr] : 0.0f;
@@ -910,8 +1146,11 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
       p2[hi] += __shfl_xor_sync(0xffffffffu, p2[hi], o);
     }
   }
+  // a cluster's epilogue scratch in the u tile: the row-sum parts [2][G][64],
+  // the peer's row sums [2][64], the column-sum scratch [NWG][8 CW]
+  float* epi = reinterpret_cast<float*>(sm.u);
   if constexpr (P::G > 1) {
-    float* part1 = sm.part + 64 * rt * P::G;  // [R][G][64], then part2 alike
+    float* part1 = (P::CL == 1 ? sm.part : epi) + 64 * rt * P::G;  // [R][G][64], then part2 alike
     float* part2 = part1 + P::G * P::BM;
     if (lane % 4 == 0) {
 #pragma unroll
@@ -933,7 +1172,27 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
       p2[hi] = b;
     }
   }
-  float* s2 = scr + 8 * P::N1;  // [2][4 warps][CW]: du * xhat, du (row pass)
+  if constexpr (P::CL > 1) {
+    // the two blocks' row sums: a + b, the same bits in both blocks
+    float* peer_rs = epi + 2 * P::G * 64;  // [2][64], written by the peer
+    if (cg == 0 && lane % 4 == 0) {
+      const uint32_t dst = map_rank(peer_rs, rank ^ 1), bar = map_rank(sm.rsfull, rank ^ 1);
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        st_async(dst + (rlo + 8 * hi) * 4, p1[hi], bar);
+        st_async(dst + (64 + rlo + 8 * hi) * 4, p2[hi], bar);
+      }
+    }
+    expect_peer(sm.rsfull, 2 * 64 * 4);
+    mbar_wait_cluster(sm.rsfull, 0);
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      p1[hi] += peer_rs[rlo + 8 * hi];
+      p2[hi] += peer_rs[64 + rlo + 8 * hi];
+    }
+  }
+  float* s2 = P::CL == 1 ? scr + 8 * P::N1  // [2][4 warps][CW]: du * xhat, du (row pass)
+                         : epi + 2 * P::G * 64 + 2 * 64 + w * 8 * P::CW;
 #pragma unroll
   for (int q = 0; q < P::CW / 8; ++q) {
     float cgx[2] = {0.0f, 0.0f}, cgb[2] = {0.0f, 0.0f};
@@ -941,7 +1200,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
     for (int hi = 0; hi < 2; ++hi) {
       const int i = 4 * q + 2 * hi, rr = rlo + 8 * hi;
       const int64_t row = row0 + rr;
-      const int col = cg * P::CW + acc_col(i);
+      const int col = c0 + cg * P::CW + acc_col(i);
       if (row < M) {
         const float2 x = load2(s + row * C + col);
         const float2 lg = load2(ln_g + col);
@@ -976,12 +1235,13 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
   if constexpr (FULL) {
     named_bar_sync(1 + P::R + w, 128);
     for (int t = threadIdx.x % 128; t < P::CW; t += 128) {
-      const size_t gi = static_cast<size_t>(tile_idx) * C + cg * P::CW + t;
+      const size_t gi = static_cast<size_t>(tile_idx) * C + c0 + cg * P::CW + t;
       out.dlng_part[gi] = s2[t] + s2[P::CW + t] + s2[2 * P::CW + t] + s2[3 * P::CW + t];
       out.dlnb_part[gi] =
           s2[4 * P::CW + t] + s2[5 * P::CW + t] + s2[6 * P::CW + t] + s2[7 * P::CW + t];
     }
   }
+  block_end<P>();
 }
 
 // a row-major bf16 [rows, cols] matrix in 64 x 64 boxes, 128-byte swizzle;
@@ -1000,9 +1260,10 @@ inline bool make_map(CUtensorMap* map, const void* base, int64_t rows, int cols)
 }
 
 // The plan the wrapper passes (ops/block_mlp.py tail_plan): rows per
-// block, chunk width, threads, output column split, shared-memory bytes.
+// block, chunk width, threads, output column split, shared-memory bytes,
+// blocks per cluster.
 struct PlanArgs {
-  int rows, chunk, threads, split, smem;
+  int rows, chunk, threads, split, smem, cluster;
 };
 
 template <int C, int MODE>
@@ -1010,12 +1271,50 @@ bool plan_ok(const PlanArgs& a) {
   if constexpr (kWgmma<C>) {
     using P = Plan<C, MODE>;
     return a.rows == P::BM && a.chunk == P::BH && a.threads == P::THREADS && a.split == P::G &&
-           a.smem == P::SMEM;
+           a.smem == P::SMEM && a.cluster == P::CL;
   } else {
     using K = Cfg<C>;
     const size_t smem = MODE == kFwd ? fwd_smem_bytes<C>() : bwd_smem_bytes<C>();
     return a.rows == K::BM && a.chunk == K::BH && a.threads == K::NTHREADS && a.split == K::NW &&
-           static_cast<size_t>(a.smem) == smem;
+           static_cast<size_t>(a.smem) == smem && a.cluster == 1;
+  }
+}
+
+// Launch a wgmma kernel of plan P over `rows` rows: a block per BM rows, or
+// at kCluster > 1 a cluster of CL blocks per 64-row tile (cudaLaunchKernelEx
+// with the cluster dimension). Returns cudaGetLastError(), or -3 when the
+// card cannot hold one such cluster at a time (asked once per kernel).
+template <class P, typename... Params, typename... Args>
+int launch_plan(void (*kern)(Params...), int64_t rows, cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned tiles = static_cast<unsigned>((rows + P::BM - 1) / P::BM);
+  if constexpr (P::CL == 1) {
+    kern<<<tiles, P::THREADS, P::SMEM, stream>>>(args...);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(tiles * P::CL);
+    cfg.blockDim = dim3(P::THREADS);
+    cfg.dynamicSmemBytes = P::SMEM;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = P::CL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    static int clusters = -1;  // that the card holds at a time
+    if (clusters < 0) {
+      int n = 0;
+      err = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      clusters = n;
+    }
+    if (clusters == 0) return -3;
+    err = cudaLaunchKernelEx(&cfg, kern, args...);
+    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
   }
 }
 
@@ -1027,14 +1326,9 @@ int launch_bwd_wgmma(const void* s, const float* keep, int rows_per_keep, const 
   using P = Plan<C, FULL ? kBwdRows : kBwdInput>;
   CUtensorMap a, b;
   if (!make_map(&a, w1t, 4 * C, C) || !make_map(&b, w2g, 4 * C, C)) return -2;
-  auto kern = bwd_kernel<C, T, FULL>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned grid = static_cast<unsigned>((rows + P::BM - 1) / P::BM);
-  kern<<<grid, P::THREADS, P::SMEM, stream>>>(a, b, static_cast<const T*>(s), keep, rows_per_keep,
-                                              ln_g, ln_b, b1, static_cast<const T*>(dy),
-                                              static_cast<T*>(ds), M, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_plan<P>(bwd_kernel<C, T, FULL>, rows, stream, a, b, static_cast<const T*>(s), keep,
+                        rows_per_keep, ln_g, ln_b, b1, static_cast<const T*>(dy),
+                        static_cast<T*>(ds), M, out);
 }
 
 // The backward at width C in the design built for it: w1 is W1^T [4C, C]

@@ -3,8 +3,10 @@
 // attention.cu: mbarriers, named barriers, TMA tile loads
 // through 2-D and 3-D tensor maps, bulk copies, register reallocation between
 // warpgroups (setmaxnreg), shared-memory matrix
-// descriptors for swizzled tiles, and warpgroup MMAs (wgmma) with bf16
-// operands and f32 accumulators in registers. Plain PTX, no library.
+// descriptors for swizzled tiles, warpgroup MMAs (wgmma) with bf16
+// operands and f32 accumulators in registers, and thread-block clusters
+// (distributed shared memory, cluster-scope mbarriers, cluster barriers).
+// Plain PTX, no library.
 //
 // The weight pass's operands are both MN-major (imm-trans-a = imm-trans-b =
 // 1): a tile holds rows of the reduction axis (K), each row contiguous along
@@ -497,6 +499,73 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+
+// ------------------------------------------------------------- clusters
+//
+// The blocks of a thread-block cluster read and write each other's shared
+// memory (distributed shared memory) through .shared::cluster addresses:
+// mapa turns the address of a variable in this block's shared memory into
+// the address of the same variable in block `rank` of the cluster. A block
+// sends a peer data with st.async, which completes its bytes on an mbarrier
+// in the peer's shared memory (release at cluster scope) as a TMA load
+// does: the sender does not wait for the store to land, and the peer's
+// wait on the barrier (acquire at cluster scope) sees the data.
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster (not .aligned: a warp may
+// arrive diverged); orders the shared-memory accesses before it, of every
+// block, before those after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the .shared::cluster address of `p` (this block's shared memory) in block `rank`
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+// store v at .shared::cluster address `addr` of a peer block, completing its
+// bytes on the peer's mbarrier at .shared::cluster address `bar`
+__device__ __forceinline__ void st_async(uint32_t addr, uint32_t v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(addr),
+               "r"(v), "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, [%2];\n" ::"r"(addr),
+               "f"(v), "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::
+          "r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// wait until the phase of parity `parity` of this block's mbarrier has
+// completed, acquiring at cluster scope what the arriving threads released
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
 
 // d += A (64 x 16, K-major, shared memory) @ B (16 x N, shared memory),
 // B K-major (TB = 0: rows of N, each contiguous along K) or MN-major (TB =

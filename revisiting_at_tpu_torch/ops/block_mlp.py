@@ -17,9 +17,10 @@ csrc/ replace its TPU kernels:
     cotangents, so the port has no second variant.
 
 The forward, the input backward and the row pass are TMA + wgmma kernels at
-C = 96, 128, 192, 256 and 384 and WMMA kernels at the other widths
-built; `tail_plan` gives each width's tiling, which the C entry points
-check against the one they were built with.
+C = 96, 128, 192, 256, 384 and 768 (there in clusters of two blocks, each
+holding half of C) and WMMA kernels at the other widths built; `tail_plan`
+gives each width's tiling, which the C entry points check against the one
+they were built with.
 
 The kernels are bound to PyTorch with ctypes and built with nvcc at first
 use into build/kernels/ (ops/cuda_build.py). The sources name what bounds
@@ -165,7 +166,12 @@ def reduce_plan(R: int, N: int) -> tuple[int, int, int]:
 ROW_PAD = 128
 # The widths whose forward, input backward and row pass are the TMA + wgmma
 # kernels (csrc/block_mlp_common.cuh kWgmma); the others keep the WMMA ones.
-WGMMA_WIDTHS = (96, 128, 192, 256, 384)
+WGMMA_WIDTHS = (96, 128, 192, 256, 384, 768)
+# Of those, the widths launched in thread-block clusters, with the blocks per
+# cluster (kCluster): each block of a cluster holds C / cluster of the
+# columns of the same 64-row tile. At C = 768 one block has no room for a
+# 64-row tile's u and kdy, two weight stages and the f32 accumulators.
+TAIL_CLUSTER = {768: 2}
 TAIL_MODES = ("fwd", "bwd_input", "bwd_full_rows")
 _SMEM_MAX = 232448  # dynamic shared memory an H100 block can use
 _BOX = 8192         # a 64 x 64 bf16 TMA box
@@ -186,6 +192,7 @@ class TailPlan(NamedTuple):
     acc_regs: int   # f32 accumulator registers per consumer thread (o or du, h, dg)
     regs: int       # registers a thread of the block may hold
     part_rows: int  # rows per row of the row pass's column sums
+    cluster: int    # blocks per thread-block cluster, each with C / cluster columns
 
 
 def _a128(n: int) -> int:
@@ -204,28 +211,38 @@ def tail_plan(C: int, mode: str) -> TailPlan:
     output columns (2 from C = 256), and a producer warpgroup; chunks of
     64 columns of 4C, as many ring stages as the shared memory holds (at
     most 8) beside the u (and kdy) tiles, two g/dh tiles per row tile and
-    the backward's row statistics and column-sum scratch."""
+    the backward's row statistics and column-sum scratch. At C = 768 a
+    cluster of two blocks takes each 64-row tile, each block the tiling of
+    its C / 2 columns, plus the buffer that receives the peer's partial h
+    (and dg); its epilogue's row-sum parts and column-sum scratch reuse the
+    u tile."""
     if mode not in TAIL_MODES:
         raise ValueError(f"tail_plan: unknown mode {mode!r}")
     if C <= 0 or C % 16:
         raise ValueError(f"tail_plan: C must be a positive multiple of 16, got {C}")
     bwd = mode != "fwd"
     if C in WGMMA_WIDTHS:
-        G = 1 if C <= 192 else 2
-        R = 1 if C > 192 else 2 if C != 96 else {"fwd": 4, "bwd_input": 3}.get(mode, 2)
-        nwg, bm, cw, n1 = R * G, 64 * R, C // G, 64 // G
+        cl = TAIL_CLUSTER.get(C, 1)
+        cb = C // cl  # columns of C a block holds
+        G = 1 if cb <= 192 else 2
+        R = 1 if cb > 192 else 2 if C != 96 else {"fwd": 4, "bwd_input": 3}.get(mode, 2)
+        nwg, bm, cw, n1 = R * G, 64 * R, cb // G, 64 // G
         threads = 128 * (nwg + 1)  # and the producer warpgroup
         # the block's registers, an even split's, which setmaxnreg moves
         # from the producer to the consumers
         pool = threads * (65536 // threads // 8 * 8)
         regs = min(240, (pool - 128 * _PRODUCER_REGS) // (128 * nwg) // 8 * 8)
-        tile = _BOX * -(-C // 64)
+        tile = _BOX * -(-cb // 64)
+        scratch = (n1 + cw if cl == 1 else n1 // cl) * nwg * 32
         fixed = (1024 + R * tile * (2 if bwd else 1) + R * 2 * _BOX
-                 + (2 * bm * 4 if bwd else 0) + (2 * G * bm * 4 if bwd and G > 1 else 0)
-                 + (nwg * 32 * (n1 + cw) if mode == "bwd_full_rows" else 0) + 256)
+                 + (2 * bm * 4 if bwd else 0)
+                 + (2 * G * bm * 4 if bwd and G > 1 and cl == 1 else 0)
+                 + (scratch if mode == "bwd_full_rows" else 0)
+                 + ((2 if bwd else 1) * 128 * nwg * (n1 // 2 // cl) * 4 if cl > 1 else 0)
+                 + 256)
         stages = min(8, 2 * (4 * C // 64), (_SMEM_MAX - fixed) // tile)
         return TailPlan("wgmma", bm, 64, threads, G, stages, fixed + stages * tile,
-                        cw // 2 + (n1 if bwd else n1 // 2), regs, 64)
+                        cw // 2 + (n1 if bwd else n1 // 2), regs, 64, cl)
     nt = C // 16
     nw = nt if nt < 6 else (8 if nt % 8 == 0 else (6 if nt % 6 == 0 else 9))
     bm = 64 if C <= 384 else (32 if C <= 768 else 16)
@@ -236,12 +253,12 @@ def tail_plan(C: int, mode: str) -> TailPlan:
     mt = bm // 16
     return TailPlan("wmma", bm, bh, 32 * nw, nw, 0, smem,
                     8 * mt * (nt // nw) + 8 * mt * (2 if bwd else 1),
-                    min(255, 65536 // (32 * nw) // 8 * 8), bm)
+                    min(255, 65536 // (32 * nw) // 8 * 8), bm, 1)
 
 
 def _plan_args(C: int, mode: str) -> tuple:
     p = tail_plan(C, mode)
-    return p.rows, p.chunk, p.threads, p.split, p.smem
+    return p.rows, p.chunk, p.threads, p.split, p.smem, p.cluster
 
 
 def tail_fusable(C: int, grad_mode: str, wide: bool = False) -> bool:
@@ -365,7 +382,7 @@ def _lib():
     global _lib_handle
     if _lib_handle is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        plan = [I] * 5  # rows, chunk, threads, split, smem
+        plan = [I] * 6  # rows, chunk, threads, split, smem, cluster
         fns = cuda_build.load("block_mlp", {
             "block_mlp_supports": [I],
             "block_mlp_fwd": [I, I, P, P, P, I, P, P, P, P, P, P, P, P, L, *plan, P],
@@ -428,7 +445,8 @@ def _w1_layout(w1_16, C, mode):
 
 def _raise_on(err, what):
     if err != 0:
-        cause = {-1: "unsupported width or plan", -2: "cuTensorMapEncodeTiled failed"}
+        cause = {-1: "unsupported width or plan", -2: "cuTensorMapEncodeTiled failed",
+                 -3: "no thread-block cluster of the plan fits the card"}
         raise RuntimeError(f"block_mlp {what} kernel launch failed: "
                            f"{cause.get(err, f'cudaError {err}')}")
 

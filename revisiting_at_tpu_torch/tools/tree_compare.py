@@ -10,9 +10,11 @@ kernels into the tree's own build/kernels/, all trees' nvcc processes
 started together. This tree comes last. At the main path's shapes:
 
   * the block tail's forward and input backward (`fwd_cuda`,
-    `bwd_input_cuda`) at ConvNeXt-T's four stages, batch 200, and its full
-    backward's row pass (`bwd_full_rows_cuda`) at stages 0-2 and ViT-S,
-    batch 80, each tree's output held to this tree's plain version within
+    `bwd_input_cuda`) at ConvNeXt-T's four stages, batch 200, and at stage
+    3 (C = 768) also at batch 80 and 32 (the training step's and APGD-CE's),
+    and its full backward's row pass (`bwd_full_rows_cuda`) at stages 0-2,
+    ViT-S and C = 768 (wide_tail's), batch 80, each tree's output held to
+    this tree's plain version within
     chip_smoke.py's TOL, with the ms beside the unfused model path's
     (use_pallas=0: cuBLAS matmuls, eager elementwise ops); with
     --tail-only nothing else is timed;
@@ -52,6 +54,8 @@ VIT = (197, 384)
 # the tail's forward and input backward: ConvNeXt-T's four stages at this batch
 TAIL_BATCH = 200
 TAIL_STAGES = STAGES + [(49, 768)]
+# stage 3's batches beside TAIL_BATCH: the training step's and APGD-CE's
+STAGE3_BATCHES = (BATCH, 32)
 # max |kernel - plain| <= TOL * max |plain| (chip_smoke.py's TOL for y and ds)
 TAIL_TOL = 2e-2
 HERE = Path(__file__).resolve().parents[2]
@@ -193,7 +197,9 @@ def compare_tail(mods, names, gen, label) -> None:
     bm_here = mods[-1][0]
     shapes = ([("fwd", TAIL_BATCH, rc) for rc in TAIL_STAGES]
               + [("bwd_input", TAIL_BATCH, rc) for rc in TAIL_STAGES]
-              + [("bwd_full_rows", BATCH, rc) for rc in STAGES + [VIT]])
+              + [(what, b, TAIL_STAGES[-1]) for what in ("fwd", "bwd_input")
+                 for b in STAGE3_BATCHES]
+              + [("bwd_full_rows", BATCH, rc) for rc in STAGES + [VIT, TAIL_STAGES[-1]]])
     for what, batch, (rows, C) in shapes:
         M = rows * batch
         d = tail_inputs(M, C, gen)

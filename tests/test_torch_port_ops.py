@@ -384,7 +384,8 @@ def _header():
 
 def test_tail_plan_mirrors_the_source():
     """tail_plan's constants are the header's: the widths built, those that
-    take the wgmma design (kWgmma), the row padding (kRowPad) and the
+    take the wgmma design (kWgmma), those launched in clusters with the
+    blocks per cluster (kCluster), the row padding (kRowPad) and the
     producer warpgroup's registers (kProducerRegs)."""
     import re
 
@@ -392,6 +393,10 @@ def test_tail_plan_mirrors_the_source():
     assert _built_widths() == list(BUILT_WIDTHS)
     line = next(ln for ln in src.splitlines() if "constexpr bool kWgmma = " in ln)
     assert tuple(int(w) for w in re.findall(r"C == (\d+)", line)) == tbm.WGMMA_WIDTHS
+    line = next(ln for ln in src.splitlines() if "constexpr int kCluster = " in ln)
+    size = int(re.search(r"\? (\d+) : 1;", line)[1])
+    assert {int(w): size for w in re.findall(r"C == (\d+)", line)} == tbm.TAIL_CLUSTER
+    assert set(tbm.TAIL_CLUSTER) <= set(tbm.WGMMA_WIDTHS)
     assert re.search(r"constexpr int kRowPad = (\d+);", src)[1] == str(tbm.ROW_PAD)
     assert re.search(r"kProducerRegs = (\d+)", src)[1] == str(tbm._PRODUCER_REGS)
 
@@ -405,9 +410,12 @@ def test_tail_plan_fits_the_card(C, mode):
     addresses; the row pass's rows per block and per column-sum row
     dividing the row padding (itself whole 64-row stages of the weight
     pass). The main
-    path's widths (96, 192, 384) take the TMA + wgmma design in every mode."""
+    path's widths (96, 192, 384, 768) take the TMA + wgmma design in every
+    mode, 768 in clusters of two blocks, each with the tiling of its half of
+    C and, in the backward, at least two ring stages."""
     p = tbm.tail_plan(C, mode)
     assert p.design == ("wgmma" if C in tbm.WGMMA_WIDTHS else "wmma")
+    assert p.cluster == tbm.TAIL_CLUSTER.get(C, 1)
     assert 0 < p.smem <= 232448
     assert p.chunk % 16 == 0 and (4 * C) % p.chunk == 0
     assert p.acc_regs + 32 <= p.regs <= 255
@@ -420,21 +428,25 @@ def test_tail_plan_fits_the_card(C, mode):
         # setmaxnreg moves registers within the block's launch allocation
         pool = p.threads * (65536 // p.threads // 8 * 8)
         assert p.regs * 128 * (p.threads // 128 - 1) + tbm._PRODUCER_REGS * 128 <= pool
-        assert 2 <= p.stages <= 8 and C % 32 == 0 and (C // p.split) % 32 == 0
+        assert 2 <= p.stages <= 8 and C % 32 == 0 and (C // p.cluster // p.split) % 32 == 0
         assert p.part_rows == 64
+        if p.cluster > 1:  # a cluster's blocks share one 64-row tile
+            assert p.cluster == 2 and p.rows == 64 and p.cluster <= 8
     else:
         assert p.stages == 0 and p.part_rows == p.rows and p.threads <= 1024
-    if C in (96, 192, 384):
+    if C in (96, 192, 384, 768):
         assert p.design == "wgmma"
 
 
 def test_tail_plan_main_path_values():
-    """The plans the H100 runs at ConvNeXt-T's stages 0-2 and ViT-S: four,
+    """The plans the H100 runs at ConvNeXt-T's four stages and ViT-S: four,
     three and two 64-row tiles a block at C = 96 (forward, input backward,
     row pass), two at C = 192, one tile split over two warpgroups at C =
-    384; the ring as deep as shared memory allows; the row pass's
-    column sums a row per 64-row tile, so 3920, 980 and 246 rows at batch 80
-    (ViT-S: 248)."""
+    384, and at C = 768 one tile per cluster of two blocks, each block
+    split over two warpgroups like C = 384, with three ring stages in the
+    forward and two in the backward; the ring as deep as shared memory
+    allows; the row pass's column sums a row per 64-row tile, so 3920, 980
+    and 246 rows at batch 80 (ViT-S: 248)."""
     assert tbm.tail_plan(96, "fwd")[:7] == ("wgmma", 256, 64, 640, 1, 6, 230656)
     assert tbm.tail_plan(96, "bwd_input")[:7] == ("wgmma", 192, 64, 512, 1, 5, 232192)
     assert tbm.tail_plan(96, "bwd_full_rows")[:7] == ("wgmma", 128, 64, 384, 1, 7, 225536)
@@ -442,7 +454,9 @@ def test_tail_plan_main_path_values():
     assert tbm.tail_plan(192, "bwd_full_rows")[:7] == ("wgmma", 128, 64, 384, 1, 3, 223488)
     assert tbm.tail_plan(384, "fwd")[:7] == ("wgmma", 64, 64, 384, 2, 3, 214272)
     assert tbm.tail_plan(384, "bwd_full_rows")[:7] == ("wgmma", 64, 64, 384, 2, 2, 230144)
-    assert tbm.tail_plan(768, "fwd").design == "wmma"
+    assert [tbm.tail_plan(768, m)[:7] + (tbm.tail_plan(768, m).cluster,) for m in tbm.TAIL_MODES] \
+        == [("wgmma", 64, 64, 384, 2, 3, 222464, 2), ("wgmma", 64, 64, 384, 2, 2, 231168, 2),
+            ("wgmma", 64, 64, 384, 2, 2, 232192, 2)]
     parts = [_row_pad(M) // tbm.tail_plan(C, "bwd_full_rows").part_rows
              for M, C in [(3136 * 80, 96), (784 * 80, 192), (196 * 80, 384), (197 * 80, 384)]]
     assert parts == [3920, 980, 246, 248]

@@ -1,12 +1,13 @@
 """The port's measurement scripts (revisiting_at_tpu_torch/tools/), on the
-CPU: the ptxas report parser and comparison, and the slice counts the
-weight-pass sweep tries. Neither needs a GPU for what is checked here.
+CPU: the ptxas report parser and comparison, the slice counts the
+weight-pass sweep tries, and the source lines the tail's variant timings
+patch. None needs a GPU for what is checked here.
 """
 
 import pytest
 
 from revisiting_at_tpu_torch.ops import block_mlp as tbm
-from revisiting_at_tpu_torch.tools import ptxas_compare, wgrad_slices
+from revisiting_at_tpu_torch.tools import ptxas_compare, tail_variants, wgrad_slices
 
 # two entries as nvcc's ptxas prints them; the anonymous namespace carries
 # a per-build hash (a9690f21 / 058fe1ae here)
@@ -69,3 +70,15 @@ def test_wgrad_slices_candidates_hold_the_plan(name, M, C):
         rows, n_cut = wgrad_slices._cut(m_pad, n)
         assert n_cut == n <= 64 and rows % tbm.WGRAD_DEPTH == 0
         assert (n - 1) * rows < m_pad <= n * rows
+
+
+@pytest.mark.parametrize("name", list(tail_variants.VARIANTS))
+def test_tail_variants_patch_lines_of_the_source(name):
+    """Every line a variant replaces is in the sources it copies, so no
+    variant silently times the kernels as built."""
+    from revisiting_at_tpu_torch.ops import cuda_build
+
+    src = "".join((cuda_build.CSRC / f).read_text() for f in ("block_mlp.cu",
+                                                              "block_mlp_common.cuh"))
+    for old, new in tail_variants.VARIANTS[name]:
+        assert old in src and old != new, (name, old[:60])
