@@ -29,10 +29,12 @@ Phases, each fatal on failure:
      7x7 depthwise conv's forward, dx, weight pass and reduction at
      ConvNeXt-T's gated stages (0-2) at batch 80, 224 and 320 px, on a
      ragged map and once in f32, and its one-launch reduction at the three
-     stages' partial shapes and a ragged one; each output within its own
-     tolerance (TOL). Two launches must give the same bits (every kernel),
-     the full backward's row pass must give the input backward's ds bit for
-     bit (stages 0-2 at batch 80, C = 768, ragged M with a keep), and six
+     stages' partial shapes and a ragged one (the dwconv's plan and blocks
+     per SM logged, the first launch of each of its TMA-ring kernels under
+     a watchdog); each output within its own tolerance (TOL). Two
+     launches must give the same bits (every kernel), the full backward's
+     row pass must give the input backward's ds bit for bit (stages 0-2
+     at batch 80, C = 768, ragged M with a keep), and six
      planted faults (one block's partial h left out of the C = 768
      cluster's exchange, a slice of M left out of dW1, a row group left
      out of db1, one zero key past N left unmasked in the attention, a
@@ -96,14 +98,15 @@ Phases, each fatal on failure:
      the step on ConvNeXt-T-CvSt with and without the dwconv kernel and on
      ViT-S-CvSt (bench.py's vit_s_fgsm_at), batch 80, timed in turns; the
      dwconv launches per step (45 forwards, 30 dx, 15 weight passes, one
-     reduction each); then
+     reduction each) and both ConvNeXt steps' profiles; then
      `cli.train.main --adv.attack fgsm` on ConvNeXt-T-CvSt and
      `cli.eval.main` on its EMA weights;
  15. timings of the dwconv kernels at the gated stage shapes, batch 80,
      beside their bounds, plain versions and the library's depthwise conv
      (F.conv2d(groups=C) on the channels_last bf16 map, and its autograd
-     backward for dx and for dw/db; torch.sum for the reduction, both also
-     by the profiler's device time).
+     backward for dx and for dw/db; torch.sum for the reduction), each
+     kernel and library call also by the profiler's device time, and the
+     weight pass with its reduction as one call, per stage and summed.
 
 The launch counters are zeroed just before each path (phases 4-5, 6, 7, 9,
 10, 11, 13 and 14) and read just after it: every kernel the path runs must
@@ -1041,7 +1044,22 @@ def check_dwconv(torch, dw, gen) -> dict:
              for px in (224, 320) for i, (side, C) in enumerate(DW_STAGES)]
     cases += [("ragged", 3, (37, 13), 40, torch.bfloat16),
               ("stage 1 224 px, f32", 4, 28, 192, torch.float32)]
-    th = dw._lib().dwconv_tile_rows()
+    th = dw.TILE
+    lib = dw._lib()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+        plan = dw.dwconv_plan(TRAIN_BATCH, 56, 56, 96, dtype, sms)
+        log(f"dwconv {dtype}: blocks per SM planned / fitting: forward and dx "
+            f"{plan.fwd_blocks_per_sm} / {lib.dwconv_occupancy(0, code)}, weight pass "
+            f"{plan.wgrad_blocks_per_sm} / {lib.dwconv_occupancy(1, code)} (shared memory "
+            f"{plan.fwd_smem} and {plan.wgrad_smem} bytes a block)")
+    # the first launch of each kernel under a watchdog: a ring stage whose
+    # bytes never land waits forever
+    for dtype in (torch.bfloat16, torch.float32):
+        x, w49, b, dy = dw_inputs(torch, 2, 30, 17, 40, dtype, gen)
+        first_launch(torch, f"dwconv forward {dtype}", lambda: dw.fwd_cuda(x, w49, b))
+        first_launch(torch, f"dwconv dx {dtype}", lambda: dw.dx_cuda(dy, w49))
+        first_launch(torch, f"dwconv weight pass {dtype}", lambda: dw.wgrad_partials_cuda(x, dy))
     for i, (name, B, side, C, dtype) in enumerate(cases):
         H, W = side if isinstance(side, tuple) else (side, side)
         what = f"{name} B={B} {H}x{W} C={C} {dtype}"
@@ -1098,20 +1116,24 @@ def check_dwconv(torch, dw, gen) -> dict:
     return err
 
 
-def dwconv_timings(torch, dw, gen, label) -> dict:
+def dwconv_timings(torch, dw, gen, label):
     """Phase 15: each dwconv kernel at ConvNeXt-T's gated stage shapes,
     batch 80, 224 px, beside its bound, its plain version (kernel and plain
     in turns p, k, k, p) and the library's depthwise conv: F.conv2d(groups=C)
     on the channels_last bf16 map with bf16 weights for the forward, its
     autograd backward with only the map requiring grad for dx, and with
-    only the weight and bias for dw/db; torch.sum for the reduction.
-    Returns {kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)} summed
-    over the three stages."""
-    import torch.nn.functional as F
+    only the weight and bias for dw/db; torch.sum for the reduction. Each
+    kernel and library call also by the profiler's device time, and the
+    weight pass with its reduction (one call, the library's function).
+    Returns ({kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)},
+    {kernel: (device_ms, library_device_ms)}, the weight pass with its
+    reduction (ms, device_ms)), summed over the three stages."""
+    from revisiting_at_tpu_torch.tools.tree_compare import dwconv_library
 
     keys = DW_KERNELS
     tot = {k: [0.0, 0.0, 0.0, 0.0, 0.0] for k in keys}  # ms, plain, ops, bytes, library
-    dev_tot = [0.0, 0.0]  # the reduction's and torch.sum's device time
+    dev_tot = {k: [0.0, 0.0] for k in keys}  # device: kernel, library
+    whole = [0.0, 0.0]  # the weight pass with its reduction: ms, device
 
     def turns(k_fn, p_fn, iters=10):
         p1, k1, k2, p2 = (time_ms(torch, f, iters) for f in (p_fn, k_fn, k_fn, p_fn))
@@ -1123,29 +1145,18 @@ def dwconv_timings(torch, dw, gen, label) -> dict:
         B, n = TRAIN_BATCH, TRAIN_BATCH * side * side * C
         x, w49, b, dy = dw_inputs(torch, B, side, side, C, torch.bfloat16, gen)
         part = dw.wgrad_partials_cuda(x, dy)
-        # the library's operands: NCHW views of the NHWC maps (channels_last)
+        # the library's calls on NCHW views of the NHWC maps (channels_last)
         # and timm's [C, 1, 7, 7] weight in bf16
-        x_cl, dy_cl = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
-        w_lib = w49.t().reshape(C, 1, 7, 7).bfloat16()
-        b_lib = b.bfloat16()
-        x_leaf = x_cl.detach().requires_grad_(True)
-        y_dx = F.conv2d(x_leaf, w_lib, b_lib, padding=3, groups=C)
-        w_leaf, b_leaf = w_lib.detach().requires_grad_(True), b_lib.detach().requires_grad_(True)
-        y_dw = F.conv2d(x_cl, w_leaf, b_leaf, padding=3, groups=C)
+        lib = dwconv_library(x, w49, b, dy)
         runs = {
             "dwconv_fwd": (lambda: dw.fwd_cuda(x, w49, b), lambda: dw.fwd_plain(x, w49, b),
-                           lambda: F.conv2d(x_cl, w_lib, b_lib, padding=3, groups=C),
-                           98 * n, 2 * n * 2 + 50 * C * 4),
+                           lib["fwd"], 98 * n, 2 * n * 2 + 50 * C * 4),
             "dwconv_dx": (lambda: dw.dx_cuda(dy, w49), lambda: dw.dx_plain(dy, w49, x.dtype),
-                          lambda: torch.autograd.grad(y_dx, x_leaf, dy_cl, retain_graph=True),
-                          98 * n, 2 * n * 2 + 49 * C * 4),
+                          lib["dx"], 98 * n, 2 * n * 2 + 49 * C * 4),
             # dw and db: 98 + 1 flops per element against reading x and dy;
             # the reduction writes the f32 results
             "dwconv_wgrad": (lambda: dw.wgrad_partials_cuda(x, dy),
-                             lambda: dw.wgrad_plain(x, dy),
-                             lambda: torch.autograd.grad(y_dw, (w_leaf, b_leaf), dy_cl,
-                                                         retain_graph=True),
-                             99 * n, 2 * n * 2),
+                             lambda: dw.wgrad_plain(x, dy), lib["wgrad"], 99 * n, 2 * n * 2),
             # the reduction reads the partials once and writes the f32 dw and db
             "dwconv_reduce": (lambda: dw.reduce_cuda(part), lambda: dw.reduce_plain(part),
                               lambda: torch.sum(part, 0), 0, part.numel() * 4 + 50 * C * 4),
@@ -1156,27 +1167,33 @@ def dwconv_timings(torch, dw, gen, label) -> dict:
             t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_HBM * 1e3
             for j, v in enumerate((k_ms, p_ms, t_ops, t_bytes, lib_ms)):
                 tot[k][j] += v
-            dev = ""
-            if k == "dwconv_reduce":  # a few microseconds: is the event loop timing the host?
-                dev_k, dev_lib = device_ms(torch, k_fn, 20), device_ms(torch, lib_fn, 20)
-                dev_tot = [sum_or_none(dev_tot[0], dev_k), sum_or_none(dev_tot[1], dev_lib)]
-                dev = f" (device {ms_or_na(dev_k)} ms, torch.sum's {ms_or_na(dev_lib)} ms)"
+            # the profiler's device time: the event loop also times the host
+            # where a call's dispatch outlasts its device work
+            dev_k, dev_lib = device_ms(torch, k_fn, 20), device_ms(torch, lib_fn, 20)
+            dev_tot[k] = [sum_or_none(dev_tot[k][0], dev_k), sum_or_none(dev_tot[k][1], dev_lib)]
             log(f"time {k:13s} B={B} {side}x{side} C={C:3d}: kernel {k_ms:.4f} ms"
                 + (f" ({flops / k_ms / 1e9:.1f} TFLOP/s fp32)" if flops else "")
-                + f"{dev}, plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                + f", device {ms_or_na(dev_k)} ms, bound "
                 f"{max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})"
+                f", plain {p_ms:.4f} ms, library {lib_ms:.4f} ms (device {ms_or_na(dev_lib)} ms)"
                 f" {label}")
+        w_fn = lambda: dw.wgrad_cuda(x, dy)  # noqa: E731
+        w_ms, w_dev = time_ms(torch, w_fn, 10), device_ms(torch, w_fn, 20)
+        whole = [whole[0] + w_ms, sum_or_none(whole[1], w_dev)]
         design = 2 * part.numel() * 4
-        log(f"dwconv B={B} {side}x{side} C={C}: partials {tuple(part.shape)}, "
+        log(f"time dwconv weight pass with its reduction B={B} {side}x{side} C={C}: {w_ms:.4f} "
+            f"ms, device {ms_or_na(w_dev)} ms; partials {tuple(part.shape)}, "
             f"{design / 1e6:.2f} MB written and read (the design's own traffic) {label}")
-        del x, dy, part, x_cl, dy_cl, x_leaf, y_dx, w_leaf, b_leaf, y_dw, runs
+        del x, dy, part, lib, runs
         torch.cuda.empty_cache()
-    r = tot["dwconv_reduce"]
-    log(f"dwconv reduction over the three stage shapes: event loop {r[0]:.4f} ms (torch.sum "
-        f"{r[4]:.4f} ms), device {ms_or_na(dev_tot[0])} ms (torch.sum {ms_or_na(dev_tot[1])} ms), bound "
-        f"{r[3]:.4f} ms {label}")
-    return {k: (v[0], v[1], max(v[2], v[3]), "operations" if v[2] >= v[3] else "bytes", v[4])
-            for k, v in tot.items()}
+    for k, v in tot.items():
+        log(f"{k} over the three stage shapes: kernel {v[0]:.4f} ms, device "
+            f"{ms_or_na(dev_tot[k][0])} ms, bound {max(v[2], v[3]):.4f} ms, plain {v[1]:.4f} ms, "
+            f"library {v[4]:.4f} ms (device {ms_or_na(dev_tot[k][1])} ms) {label}")
+    log(f"dwconv weight pass with its reduction over the three stage shapes: {whole[0]:.4f} ms, "
+        f"device {ms_or_na(whole[1])} ms {label}")
+    return ({k: (v[0], v[1], max(v[2], v[3]), "operations" if v[2] >= v[3] else "bytes", v[4])
+             for k, v in tot.items()}, {k: tuple(v) for k, v in dev_tot.items()}, tuple(whole))
 
 
 def dwconv_model_phase(torch, np, run_dir, init, seed, label) -> dict:
@@ -1281,8 +1298,9 @@ def dwconv_model_phase(torch, np, run_dir, init, seed, label) -> dict:
 def fgsm_phase(torch, np, repo, init, vit_init, seed, label) -> None:
     """Phase 14: the FGSM training step (bench.py's RS-FGSM) on
     ConvNeXt-T-CvSt with and without the dwconv kernel and on ViT-S-CvSt,
-    batch 80, in turns, with the dwconv launches per step; then the FGSM
-    train CLI on ConvNeXt-T-CvSt and cli.eval on its EMA weights."""
+    batch 80, in turns, with the dwconv launches per step and profiles of
+    both ConvNeXt steps; then the FGSM train CLI on ConvNeXt-T-CvSt and
+    cli.eval on its EMA weights."""
     from revisiting_at_tpu_torch.cli import eval as eval_cli
     from revisiting_at_tpu_torch.cli import train as train_cli
 
@@ -1312,6 +1330,9 @@ def fgsm_phase(torch, np, repo, init, vit_init, seed, label) -> None:
             f"alpha 1.25, use_pallas=1: {ms:.2f} ms/step, {1000.0 / ms:.3f} attack-steps/s "
             f"(= steps/s: one attack step per training step; runs of 5: "
             f"{', '.join('%.2f' % t for t in step_ms[name])}) {label}")
+    for name in names[:2]:  # ConvNeXt-T with and without the dwconv kernel
+        profile_breakdown(torch, f"FGSM train step B={TRAIN_BATCH} ({name}), per step",
+                          lambda: steps[name][1](steps[name][0], xb, yb), 3, label)
     del steps, xb, yb
     torch.cuda.empty_cache()
 
@@ -1900,7 +1921,7 @@ def main(argv=None) -> int:
     # ---------------------------------------------------------------- 13-15
     dw_launches = dwconv_model_phase(torch, np, run_dir, init, args.seed, label)
     fgsm_phase(torch, np, repo, init, vit_init, args.seed, label)
-    dw_times = dwconv_timings(torch, dw, gen, label)
+    dw_times, dw_device, dw_whole = dwconv_timings(torch, dw, gen, label)
 
     kernels = [dict(name=f"block_mlp_{k}", route="cuda", source=SOURCE[f"block_mlp_{k}"],
                     replaces=REPLACES[f"block_mlp_{k}"], launches=step_launches[f"block_mlp_{k}"],
@@ -1925,7 +1946,11 @@ def main(argv=None) -> int:
         k_ms, p_ms, b_ms, b_by, lib = dw_times[k]
         kernels.append(dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],
                             launches=dw_launches[k], max_abs_err=dw_err[k], ms=k_ms,
-                            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+                            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                            device_ms=dw_device[k][0], library_device_ms=dw_device[k][1]))
+    # the weight pass: also with its reduction, one call (the library's function)
+    next(k for k in kernels if k["name"] == "dwconv_wgrad").update(
+        with_reduce_ms=dw_whole[0], with_reduce_device_ms=dw_whole[1])
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

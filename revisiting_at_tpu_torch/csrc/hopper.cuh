@@ -1,11 +1,12 @@
 // Hopper (sm_90a) building blocks for the block-tail kernels of
-// block_mlp_common.cuh and block_mlp_bwd.cu and the attention kernels of
-// attention.cu: mbarriers, named barriers, TMA tile loads
-// through 2-D and 3-D tensor maps, bulk copies, register reallocation between
-// warpgroups (setmaxnreg), shared-memory matrix
-// descriptors for swizzled tiles, warpgroup MMAs (wgmma) with bf16
-// operands and f32 accumulators in registers, and thread-block clusters
-// (distributed shared memory, cluster-scope mbarriers, cluster barriers).
+// block_mlp_common.cuh and block_mlp_bwd.cu, the attention kernels of
+// attention.cu and the depthwise conv of dwconv.cu: mbarriers, named
+// barriers, TMA tile loads through 2-D, 3-D and 4-D tensor maps and
+// stores through 4-D ones, bulk copies, register reallocation between
+// warpgroups (setmaxnreg), shared-memory matrix descriptors for swizzled
+// tiles, warpgroup MMAs (wgmma) with bf16 operands and f32 accumulators in
+// registers, and thread-block clusters (distributed shared memory,
+// cluster-scope mbarriers, cluster barriers).
 // Plain PTX, no library.
 //
 // The weight pass's operands are both MN-major (imm-trans-a = imm-trans-b =
@@ -220,6 +221,44 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map, uint64_t
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// TMA: the box at (c0, c1, c2, c3) of a 4-D tensor map into shared memory
+// (the depthwise conv's NHWC halos); the bytes complete a transaction on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// TMA: shared memory into the box at (c0, c1, c2, c3) of a 4-D tensor map;
+// the box's elements outside the tensor are not written. The store joins
+// this thread's open bulk group (bulk_commit closes it).
+__device__ __forceinline__ void tma_store_4d(const void* map, const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's committed bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// this thread's committed bulk stores are complete
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)

@@ -13,6 +13,13 @@ Hand-written Hopper kernels in csrc/dwconv.cu replace its TPU kernels:
     per-block partials and a reduction sums them in a fixed order, in one
     launch whatever their number.
 
+The forward (and dx) and the weight pass are persistent kernels fed by a
+TMA ring: 14 x 14-pixel, 32-channel tiles whose halos arrive through a 4-D
+tensor map (its zero fill is the SAME padding), a producer warp and four
+consumer warps of 7 x 7 outputs each; the stencil's tiles leave by TMA
+stores, which clip the map's edges. `dwconv_plan` gives their tiling and
+grids from the shapes and the SM count alone; the C entry points check it.
+
 The JAX package's `dwconv7x7_v2` runs other TPU kernels (`_fwd_kernel_v2`,
 `_bwd_kernel_v2`) that differ from v1 only in how the TPU schedules its
 sublane shifts (one misaligned copy per column offset); they compute the
@@ -36,7 +43,9 @@ plain version; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import types
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -50,9 +59,83 @@ TAPS = K * K
 # Launches of each kernel, counted where the wrapper launches it.
 LAUNCHES = {"fwd": 0, "dx": 0, "wgrad": 0, "reduce": 0}
 
-# blocks the weight pass aims for: the (image, band) tiles are cut into
-# chunks, one per block and column tile, so that about this many fill the card
-_WGRAD_BLOCKS = 1024
+# The kernels' tiling (csrc/dwconv.cu): output rows and columns of a tile,
+# channels of a tile, threads of a block (four consumer warps and the
+# producer), ring stages; a partial row of the weight pass holds 49 dw taps
+# and db.
+TILE = 14
+GROUP = 32
+THREADS = 160
+STAGES = 2
+PARTS = TAPS + 1
+MAX_C = 384
+_HALO = TILE + K - 1
+# blocks per SM each kernel is planned for, by the map's element size
+# (bf16: 128 registers a thread; f32: the shared memory)
+_FWD_BLOCKS = {2: 3, 4: 1}
+_WGRAD_BLOCKS = {2: 2, 4: 1}
+_ELEM = {torch.bfloat16: 2, torch.float32: 4}
+
+
+class DwconvPlan(NamedTuple):
+    """The tiling and grids of the dwconv kernels at one shape."""
+    tile: int           # output rows and columns of a tile
+    group: int          # channels of a tile
+    threads: int        # threads of a block
+    stages: int         # TMA ring stages
+    bands: int          # tiles down the map
+    ctiles: int         # tiles across it
+    groups: int         # channel groups
+    tiles: int          # the stencil's tiles: groups * B * bands * ctiles
+    fwd_blocks_per_sm: int
+    fwd_grid: int       # persistent blocks of the forward and dx
+    fwd_smem: int       # their dynamic shared memory, bytes
+    wgrad_blocks_per_sm: int
+    per_chunk: int      # the weight pass's (image, band, column tile) items a block
+    part_rows: int      # its chunks, the partial rows the reduction sums
+    wgrad_grid: int     # groups * part_rows
+    wgrad_smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def dwconv_plan(B: int, H: int, W: int, C: int, dtype: torch.dtype, sms: int) -> DwconvPlan:
+    """The plan csrc/dwconv.cu builds for x [B, H, W, C] of `dtype` on a
+    card with `sms` SMs; its C entry points recompute it and refuse (-1) a
+    plan they would not build.
+
+    Stencil: tiles of TILE x TILE pixels and GROUP channels, in (channel
+    group, image, band, column tile) order, fewer than 2^31, split into
+    fwd_grid contiguous runs, one per block: as many blocks as fit on the
+    card at once (fwd_blocks_per_sm per SM), at most one per tile. Weight
+    pass: the (image, band, column tile) items of each channel group cut
+    into part_rows chunks of per_chunk items, so that the groups *
+    part_rows blocks fit on the card at once; block chunk * groups + group
+    writes row `chunk` of the partials. Each block's shared memory is its
+    ring (a tile's halo, and the weight pass's dy tile, per stage) with 128
+    bytes of alignment slack, the stencil's output tile, and the ring's
+    mbarriers. Nothing but the shapes and the SM count enters, so the
+    partials and their sum are the same bits on every launch."""
+    if dtype not in _ELEM:
+        raise ValueError(f"dwconv_plan: dtype must be float32 or bfloat16, got {dtype}")
+    if min(B, H, W, C, sms) <= 0 or C % 8 or C > MAX_C:
+        raise ValueError(f"dwconv_plan: expected B, H, W, SMs >= 1 and C a multiple of 8 up to "
+                         f"{MAX_C}, got B={B}, H={H}, W={W}, C={C}, sms={sms}")
+    es = _ELEM[dtype]
+    bands, ctiles, groups = -(-H // TILE), -(-W // TILE), -(-C // GROUP)
+    items = B * bands * ctiles
+    tiles = groups * items
+    if tiles >= 2 ** 31:
+        raise ValueError(f"dwconv_plan: {tiles} tiles, the kernels take fewer than 2^31")
+    halo, dy = _HALO * _HALO * GROUP * es, TILE * TILE * GROUP * es
+    fwd_bps, wgrad_bps = _FWD_BLOCKS[es], _WGRAD_BLOCKS[es]
+    want = min(items, max(1, sms * wgrad_bps // groups))
+    per_chunk = -(-items // want)
+    part_rows = -(-items // per_chunk)
+    bars = 2 * STAGES * 8  # a full and an empty mbarrier per stage
+    return DwconvPlan(TILE, GROUP, THREADS, STAGES, bands, ctiles, groups, tiles,
+                      fwd_bps, min(tiles, sms * fwd_bps), 128 + STAGES * halo + dy + bars,
+                      wgrad_bps, per_chunk, part_rows, groups * part_rows,
+                      128 + STAGES * (halo + dy) + bars)
 
 
 def tap_major(w: torch.Tensor) -> torch.Tensor:
@@ -117,14 +200,28 @@ def _lib():
         Pt, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         _lib_handle = types.SimpleNamespace(**cuda_build.load("dwconv", {
             "dwconv_supports": [I],
-            "dwconv_tile_rows": [],
-            "dwconv_tile_cols": [],
-            "dwconv_parts": [],
-            "dwconv_fwd": [I, I, Pt, Pt, Pt, Pt, I, I, I, I, Pt],
-            "dwconv_wgrad": [I, Pt, Pt, I, I, I, I, L, I, Pt, Pt],
+            "dwconv_occupancy": [I, I],
+            "dwconv_fwd": [I, I, Pt, Pt, Pt, Pt, I, I, I, I, I, I, I, Pt],
+            "dwconv_wgrad": [I, Pt, Pt, I, I, I, I, I, I, I, L, I, Pt, Pt],
             "dwconv_reduce": [Pt, L, L, Pt, Pt],
         }))
     return _lib_handle
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """The SMs of the card t lies on (read once per card)."""
+    return _sms(t.get_device())
+
+
+def plan_for(x: torch.Tensor) -> DwconvPlan:
+    """dwconv_plan for the NHWC map x on its card."""
+    B, H, W, C = x.shape
+    return dwconv_plan(B, H, W, C, x.dtype, sm_count(x))
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -143,7 +240,7 @@ def _check_map(name, t, shape=None, dtype=None):
     C = t.shape[-1]
     if not _lib().dwconv_supports(C):
         raise NotImplementedError(f"dwconv7x7 CUDA kernel: unsupported width C = {C} "
-                                  "(a multiple of 8, at most 384)")
+                                  f"(a multiple of 8, at most {MAX_C})")
     return t.shape
 
 
@@ -156,8 +253,8 @@ def _check_vec(name, t, shape, device):
 
 def _raise_on(err, what):
     if err != 0:
-        raise RuntimeError(f"dwconv {what} kernel launch failed: "
-                           f"{'unsupported shape' if err == -1 else f'cudaError {err}'}")
+        why = {-1: "unsupported shape or plan", -2: "no tensor map"}.get(err, f"cudaError {err}")
+        raise RuntimeError(f"dwconv {what} kernel launch failed: {why}")
 
 
 def _launch_stencil(src, w49, b, dx: bool):
@@ -165,10 +262,12 @@ def _launch_stencil(src, w49, b, dx: bool):
     _check_vec("w", w49, (TAPS, C), src.device)
     if not dx:
         _check_vec("b", b, (C,), src.device)
+    plan = plan_for(src)
     out = torch.empty_like(src)
     err = cuda_build.launch(src, _lib().dwconv_fwd, _DTYPE_CODE[src.dtype], int(dx),
                             src.data_ptr(), w49.data_ptr(), None if dx else b.data_ptr(),
-                            out.data_ptr(), B, H, W, C)
+                            out.data_ptr(), B, H, W, C, plan.fwd_grid, plan.stages,
+                            plan.fwd_smem)
     _raise_on(err, "dx" if dx else "forward")
     LAUNCHES["dx" if dx else "fwd"] += 1
     return out
@@ -186,23 +285,18 @@ def dx_cuda(dy, w49):
 
 
 def wgrad_partials_cuda(x, dy):
-    """Launch the weight pass: partials [R, 50 * C] f32, row r holding one
-    block's dw (taps 0-48, each C wide) and db (the last C). The (image,
-    band) tiles are cut into chunks by the shapes alone, so the summed
-    result is the same bits every run."""
+    """Launch the weight pass: partials [R, 50 * C] f32, R = the plan's
+    part_rows, row r holding the dw (taps 0-48, each C wide) and db (the
+    last C) of chunk r's blocks, one per channel group. The chunks come
+    from the shapes and the SM count alone, so the summed result is the
+    same bits every run."""
     B, H, W, C = _check_map("x", x)
     _check_map("dy", dy, x.shape, x.dtype)
-    lib = _lib()
-    bands = -(-H // lib.dwconv_tile_rows())
-    ctiles = -(-W // lib.dwconv_tile_cols())
-    items = B * bands
-    per_block_row = ctiles * -(-C // 32)
-    per_chunk = -(-items // max(1, min(items, -(-_WGRAD_BLOCKS // per_block_row))))
-    n_chunks = -(-items // per_chunk)
-    part = torch.empty(n_chunks * ctiles, lib.dwconv_parts() * C, dtype=torch.float32,
-                       device=x.device)
-    err = cuda_build.launch(x, lib.dwconv_wgrad, _DTYPE_CODE[x.dtype], x.data_ptr(),
-                            dy.data_ptr(), B, H, W, C, per_chunk, n_chunks, part.data_ptr())
+    plan = plan_for(x)
+    part = torch.empty(plan.part_rows, PARTS * C, dtype=torch.float32, device=x.device)
+    err = cuda_build.launch(x, _lib().dwconv_wgrad, _DTYPE_CODE[x.dtype], x.data_ptr(),
+                            dy.data_ptr(), B, H, W, C, plan.wgrad_grid, plan.stages,
+                            plan.wgrad_smem, plan.per_chunk, plan.part_rows, part.data_ptr())
     _raise_on(err, "weight-gradient")
     LAUNCHES["wgrad"] += 1
     return part

@@ -1,7 +1,8 @@
 """Time the block tail's row kernels, the column reduction and the qkv
-attention forward of several trees of the port in turns, on one GPU.
+attention forward (or, with --dwconv, the 7x7 depthwise conv's kernels) of
+several trees of the port in turns, on one GPU.
 
-    python3 -m revisiting_at_tpu_torch.tools.tree_compare [--tail-only] TREE [TREE ...]
+    python3 -m revisiting_at_tpu_torch.tools.tree_compare [--tail-only | --dwconv] TREE [TREE ...]
 
 Each TREE is a checkout of the repository (for example the parent commit
 unpacked by `git archive` into a directory under build/). Its package
@@ -32,6 +33,13 @@ max]) and by torch.profiler's device time (every launch of a call booked),
 with the launches per call. Each tree's output is compared with this
 tree's plain version and, bit for bit, with the other trees'. Prints one
 line per measurement, with the card's name and power limit.
+
+With --dwconv only the depthwise conv is compared (only its source is
+built): the forward (`fwd_cuda`), dx (`dx_cuda`) and the weight pass with
+its reduction (`wgrad_cuda`) at ConvNeXt-T's gated stages 0-2 (DW_SHAPES:
+batch 80, 224 px, bf16), beside the library's depthwise conv (as
+chip_smoke.py's phase 15 calls it), with the medians summed over the
+stages and whether y, dx, dw and db are the same bits in every tree.
 """
 
 from __future__ import annotations
@@ -58,7 +66,22 @@ TAIL_STAGES = STAGES + [(49, 768)]
 STAGE3_BATCHES = (BATCH, 32)
 # max |kernel - plain| <= TOL * max |plain| (chip_smoke.py's TOL for y and ds)
 TAIL_TOL = 2e-2
+# the dwconv at ConvNeXt-T's gated stages (C <= 384), 224 px: (B, H, W, C),
+# and chip_smoke.py's tolerances of its outputs
+DW_SHAPES = [(BATCH, 56, 56, 96), (BATCH, 28, 28, 192), (BATCH, 14, 14, 384)]
+DW_TOL = {"y": 2e-2, "dx": 2e-2, "dw": 3e-6, "db": 2e-6}
 HERE = Path(__file__).resolve().parents[2]
+MODES = {"--tail-only": "tail", "--dwconv": "dwconv"}
+
+
+def parse_args(argv) -> tuple[str, list[Path]]:
+    """(mode, trees): mode 'all', 'tail' (--tail-only) or 'dwconv'
+    (--dwconv); the trees given, then this one."""
+    flags = [a for a in argv if a in MODES]
+    if len(flags) > 1:
+        raise SystemExit(f"tree_compare: give at most one of {', '.join(MODES)}")
+    trees = [Path(a) for a in argv if a not in MODES]
+    return (MODES[flags[0]] if flags else "all"), trees + [HERE]
 
 
 def card() -> str:
@@ -67,9 +90,9 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def load_tree(root: Path, tag: int):
-    """The ops modules (block_mlp, attention, cuda_build) of the package in
-    root, loaded under a name of its own."""
+def load_tree(root: Path, tag: int, modules=("block_mlp", "attention", "cuda_build")):
+    """The ops modules (by default block_mlp, attention, cuda_build) of the
+    package in root, loaded under a name of its own."""
     if root.resolve() == HERE:
         name = "revisiting_at_tpu_torch"
     else:
@@ -80,8 +103,7 @@ def load_tree(root: Path, tag: int):
         module = importlib.util.module_from_spec(spec)
         sys.modules[name] = module
         spec.loader.exec_module(module)
-    return tuple(importlib.import_module(f"{name}.ops.{m}")
-                 for m in ("block_mlp", "attention", "cuda_build"))
+    return tuple(importlib.import_module(f"{name}.ops.{m}") for m in modules)
 
 
 def time_ms(fn, iters=20) -> float:
@@ -221,28 +243,107 @@ def compare_tail(mods, names, gen, label) -> None:
         torch.cuda.empty_cache()
 
 
+def dwconv_calls(dw, x, w49, b, dy) -> dict:
+    """{kernel: call} of one tree's dwconv kernels on one input."""
+    return {"fwd": lambda: dw.fwd_cuda(x, w49, b), "dx": lambda: dw.dx_cuda(dy, w49),
+            "wgrad": lambda: dw.wgrad_cuda(x, dy)}
+
+
+def dwconv_library(x, w49, b, dy) -> dict:
+    """The library's depthwise conv on the same operands, as chip_smoke.py's
+    phase 15 times it: F.conv2d(groups=C) on NCHW views of the NHWC maps
+    with bf16 weights, its autograd backward for dx, and for dw and db."""
+    import torch.nn.functional as F
+
+    C = x.shape[-1]
+    x_cl, dy_cl = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    w_lib, b_lib = w49.t().reshape(C, 1, 7, 7).bfloat16(), b.bfloat16()
+    x_leaf = x_cl.detach().requires_grad_(True)
+    y_dx = F.conv2d(x_leaf, w_lib, b_lib, padding=3, groups=C)
+    w_leaf, b_leaf = w_lib.detach().requires_grad_(True), b_lib.detach().requires_grad_(True)
+    y_dw = F.conv2d(x_cl, w_leaf, b_leaf, padding=3, groups=C)
+    return {"fwd": lambda: F.conv2d(x_cl, w_lib, b_lib, padding=3, groups=C),
+            "dx": lambda: torch.autograd.grad(y_dx, x_leaf, dy_cl, retain_graph=True),
+            "wgrad": lambda: torch.autograd.grad(y_dw, (w_leaf, b_leaf), dy_cl,
+                                                 retain_graph=True)}
+
+
+def compare_dwconv(mods, names, gen, label) -> None:
+    """Each tree's dwconv forward, dx and weight pass (with its reduction)
+    at DW_SHAPES, in turns with the other trees and the library; each
+    output held to this tree's plain version, and bit for bit to the other
+    trees'."""
+    dw_here = mods[-1][0]
+    total = {}  # (kernel, name) -> [event median, device] summed over the stages
+    for B, H, W, C in DW_SHAPES:
+        rnd = lambda *sh: torch.randn(*sh, generator=gen, device="cuda")  # noqa: E731
+        x, w49, b, dy = (rnd(B, H, W, C).bfloat16(), 0.2 * rnd(49, C), 0.1 * rnd(C),
+                         rnd(B, H, W, C).bfloat16())
+        ref = dict(zip(("y", "dx", "dw", "db"),
+                       (dw_here.fwd_plain(x, w49, b), dw_here.dx_plain(dy, w49, x.dtype),
+                        *dw_here.wgrad_plain(x, dy))))
+        outs = []
+        for n, (dw, _) in zip(names, mods):
+            calls = dwconv_calls(dw, x, w49, b, dy)
+            got = dict(zip(("y", "dx", "dw", "db"),
+                           (calls["fwd"](), calls["dx"](), *calls["wgrad"]())))
+            for k, g in got.items():
+                e = (g.float() - ref[k].float()).abs().max().item()
+                scale = ref[k].float().abs().max().item()
+                if not e <= DW_TOL[k] * scale:
+                    raise AssertionError(f"{n}: dwconv {k} B={B} {H}x{W} C={C}: error {e} > "
+                                         f"{DW_TOL[k]} * {scale}")
+            outs.append(got)
+        for k in ("y", "dx", "dw", "db"):
+            same = [n for n, o in zip(names, outs) if torch.equal(o[k], outs[-1][k])]
+            print(f"dwconv {k} B={B} {H}x{W} C={C}: bitwise equal to this tree's in {same} of "
+                  f"{names}", flush=True)
+        lib = dwconv_library(x, w49, b, dy)
+        for kern in ("fwd", "dx", "wgrad"):
+            fns = {n: dwconv_calls(dw, x, w49, b, dy)[kern] for n, (dw, _) in zip(names, mods)}
+            fns["library"] = lib[kern]
+            res = in_turns(fns)
+            report(f"dwconv {kern} B={B} {H}x{W} C={C}:", res, label)
+            for n, (med, _, _, dev, _) in res.items():
+                t = total.setdefault((kern, n), [0.0, 0.0])
+                t[0] += med
+                t[1] = None if dev is None or t[1] is None else t[1] + dev
+        del x, dy, ref, outs, lib
+        torch.cuda.empty_cache()
+    for (kern, n), (med, dev) in total.items():
+        dev_s = "not measured" if dev is None else f"{dev:.4f} ms"
+        print(f"dwconv {kern} over stages 0-2, B={BATCH}, {n}: event medians {med:.4f} ms, "
+              f"device {dev_s} {label}", flush=True)
+
+
 def main(argv=None) -> int:
-    args = sys.argv[1:] if argv is None else argv
-    tail_only = "--tail-only" in args
-    trees = [Path(a) for a in args if a != "--tail-only"] + [HERE]
+    mode, trees = parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("tree_compare: no GPU", file=sys.stderr)
         return 2
     label = f"[{card()}]"
-    mods = [load_tree(t, i) for i, t in enumerate(trees)]
+    modules = ("dwconv", "cuda_build") if mode == "dwconv" else ("block_mlp", "attention",
+                                                                  "cuda_build")
+    mods = [load_tree(t, i, modules) for i, t in enumerate(trees)]
     names = [str(t) for t in trees]
-    threads = [threading.Thread(target=cb.build) for _, _, cb in mods]
+    if mode == "dwconv":  # build the dwconv's source alone in every tree
+        for *_, cb in mods:
+            cb.SOURCES = {"dwconv": cb.SOURCES["dwconv"]}
+    threads = [threading.Thread(target=m[-1].build) for m in mods]
     for b in threads:
         b.start()
     for b in threads:
         b.join()
-    for bm, att, _ in mods:  # raises here if a build failed
-        bm._lib()
-        att._lib()
+    for m in mods:  # raises here if a build failed
+        for op in m[:-1]:
+            op._lib()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if mode == "dwconv":
+        compare_dwconv(mods, names, gen, label)
+        return 0
     bm_here, att_here = mods[-1][0], mods[-1][1]
     compare_tail(mods, names, gen, label)
-    if tail_only:
+    if mode == "tail":
         return 0
 
     # the column reduction

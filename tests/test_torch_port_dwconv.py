@@ -184,3 +184,153 @@ def test_block_gate_is_c_at_most_384(monkeypatch, dim, routed):
     for flag in (False, True):
         ConvNeXtBlock(dim, use_pallas_dwconv=flag).eval()(x)
     assert calls == ([1] if routed else [])
+
+
+# ------------------------------------------------------------ dwconv_plan
+# The CUDA kernels' plan, checked on the CPU (the kernels run on the card).
+# ConvNeXt-T's gated stages (C <= 384) at 224 and 320 px, batch 80 and 32;
+# a ragged map (an odd number of bands, one column tile, a channel group cut
+# short); a map in f32. SMs: the H100 SXM's 132.
+SMS = 132
+PLAN_SHAPES = ([(B, side * px // 224, side * px // 224, C, torch.bfloat16)
+                for px in (224, 320) for B in (80, 32) for side, C in ((56, 96), (28, 192),
+                                                                        (14, 384))]
+               + [(3, 37, 13, 40, torch.bfloat16), (4, 28, 28, 192, torch.float32)])
+
+
+def _plan_id(shape):
+    B, H, W, C, dtype = shape
+    return f"B{B}-{H}x{W}-C{C}-{str(dtype).split('.')[-1]}"
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=_plan_id)
+def test_dwconv_plan_at_the_gated_shapes(shape):
+    """The plan's tiling: 14 x 14-pixel tiles of 32 channels, which divide
+    the gated stages' 56, 28 and 14 at 224 px; every tile a block at most,
+    and no more blocks than fit on the card at once (the persistent walk);
+    every weight-pass chunk holds items. Well under a second of CPU."""
+    B, H, W, C, dtype = shape
+    p = tdw.dwconv_plan(B, H, W, C, dtype, SMS)
+    assert (p.tile, p.group, p.threads, p.stages) == (14, 32, 160, 2)
+    if H in (56, 28, 14):
+        assert H % p.tile == 0 and W % p.tile == 0
+    assert (p.bands, p.ctiles, p.groups) == (-(-H // 14), -(-W // 14), -(-C // 32))
+    items = B * p.bands * p.ctiles
+    assert p.tiles == p.groups * items
+    assert 1 <= p.fwd_grid == min(p.tiles, SMS * p.fwd_blocks_per_sm)
+    assert p.part_rows * p.per_chunk >= items > (p.part_rows - 1) * p.per_chunk
+    assert p.wgrad_grid == p.groups * p.part_rows <= max(p.groups, SMS * p.wgrad_blocks_per_sm)
+
+
+def _stencil_runs(p, B):
+    """The (group, image, band, column tile) tiles of each block, as
+    dwconv_fwd_kernel splits them: block i takes [tiles * i / G, tiles *
+    (i + 1) / G) with the column tile fastest and the group slowest."""
+    for i in range(p.fwd_grid):
+        t0, t1 = p.tiles * i // p.fwd_grid, p.tiles * (i + 1) // p.fwd_grid
+        assert t1 > t0, "a block without tiles"
+        for t in range(t0, t1):
+            ct, t = t % p.ctiles, t // p.ctiles
+            band, t = t % p.bands, t // p.bands
+            yield i, t // B, t % B, band, ct
+
+
+def _wgrad_runs(p):
+    """The (group, image, band, column tile) items of each weight-pass
+    block, as dwconv_wgrad_kernel takes them: block chunk * groups + g."""
+    per_image = p.bands * p.ctiles
+    items = p.tiles // p.groups
+    for blk in range(p.wgrad_grid):
+        g, chunk = blk % p.groups, blk // p.groups
+        i0, i1 = chunk * p.per_chunk, min(items, (chunk + 1) * p.per_chunk)
+        assert i1 > i0, "a weight-pass block without items"
+        for it in range(i0, i1):
+            b, r = divmod(it, per_image)
+            yield chunk, g, b, *divmod(r, p.ctiles)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=_plan_id)
+def test_dwconv_plan_tiles_cover_every_output_once(shape):
+    """Every (image, row, column, channel) of the map lies in exactly one
+    tile of the stencil's walk and in exactly one item of the weight
+    pass's (one block per channel group and chunk), counted on a map of
+    counters; a block's run of stencil tiles spans no more channel groups
+    than its length forces (it reloads its weights once per group). Up to
+    0.4 s of CPU (B = 80 at 320 px)."""
+    B, H, W, C, dtype = shape
+    p = tdw.dwconv_plan(B, H, W, C, dtype, SMS)
+    T_, G = p.tile, p.group
+    for runs in ("stencil", "wgrad"):
+        seen = np.zeros((B, H, W, C), np.uint8)
+        walk = (((g, b, band, ct) for _, g, b, band, ct in _stencil_runs(p, B))
+                if runs == "stencil" else
+                ((g, b, band, ct) for _, g, b, band, ct in _wgrad_runs(p)))
+        for g, b, band, ct in walk:
+            seen[b, band * T_:(band + 1) * T_, ct * T_:(ct + 1) * T_, g * G:(g + 1) * G] += 1
+        assert seen.min() == 1 and seen.max() == 1, runs
+    groups_per_block = {}
+    for i, g, *_ in _stencil_runs(p, B):
+        groups_per_block.setdefault(i, set()).add(g)
+    run, per_group = -(-p.tiles // p.fwd_grid), p.tiles // p.groups  # longest run, a group
+    assert all(len(gs) <= 1 + -(-run // per_group) for gs in groups_per_block.values())
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=_plan_id)
+def test_dwconv_plan_shared_memory_fits(shape):
+    """Each kernel's shared memory fits a block's 227 KB, and the blocks
+    per SM the plan counts on fit an SM's 228 KB with the 1 KB a resident
+    block reserves; the weight pass's end (four warps' 50 x 32 f32 sums)
+    fits its ring, and the stencil's ring its output tile. Well under a
+    second of CPU."""
+    B, H, W, C, dtype = shape
+    p = tdw.dwconv_plan(B, H, W, C, dtype, SMS)
+    es = 2 if dtype == torch.bfloat16 else 4
+    ring_fwd, ring_wgrad = 2 * 20 * 20 * 32 * es, 2 * (20 * 20 + 14 * 14) * 32 * es
+    out_tile = 14 * 14 * 32 * es  # the stencil's staged outputs
+    assert p.fwd_smem >= 128 + ring_fwd + out_tile and p.wgrad_smem >= 128 + ring_wgrad
+    for smem, bps in ((p.fwd_smem, p.fwd_blocks_per_sm), (p.wgrad_smem, p.wgrad_blocks_per_sm)):
+        assert smem <= 227 * 1024
+        assert bps * (smem + 1024) <= 228 * 1024
+    assert 4 * 50 * 32 * 4 <= ring_wgrad
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=_plan_id)
+def test_dwconv_wrappers_launch_the_plan(monkeypatch, shape):
+    """The wrappers hand the C entry points the plan, and the weight pass's
+    partials have the plan's part_rows rows of 50 * C, which the reduction
+    then sums: the entry points are replaced by recorders and the SM count
+    by 132, so this runs on the CPU. Well under a second of CPU."""
+    B, H, W, C, dtype = shape
+    p = tdw.dwconv_plan(B, H, W, C, dtype, SMS)
+    calls = {}
+    lib = type("Lib", (), {
+        "dwconv_supports": staticmethod(lambda c: c % 8 == 0 and c <= 384),
+        "dwconv_fwd": staticmethod(lambda *a: calls.setdefault("fwd", a) and 0),
+        "dwconv_wgrad": staticmethod(lambda *a: calls.setdefault("wgrad", a) and 0)})
+    monkeypatch.setattr(tdw, "_lib", lambda: lib)
+    monkeypatch.setattr(tdw, "sm_count", lambda t: SMS)
+    monkeypatch.setattr(tdw.cuda_build, "launch", lambda t, fn, *a: fn(*a, None))
+    x = torch.zeros(B, H, W, C, dtype=dtype)
+    tdw.fwd_cuda(x, torch.zeros(49, C), torch.zeros(C))
+    part = tdw.wgrad_partials_cuda(x, x)
+    assert calls["fwd"][6:13] == (B, H, W, C, p.fwd_grid, p.stages, p.fwd_smem)
+    assert calls["wgrad"][3:12] == (B, H, W, C, p.wgrad_grid, p.stages, p.wgrad_smem,
+                                    p.per_chunk, p.part_rows)
+    assert part.shape == (p.part_rows, tdw.PARTS * C) and part.dtype == torch.float32
+
+
+def test_dwconv_plan_depends_on_shapes_and_sms_alone():
+    """The plan is a pure function of (B, H, W, C, dtype, SMs): the same
+    arguments give the same plan, recomputed without the cache; a card
+    with fewer SMs gets fewer blocks over the same tiles; shapes outside
+    the gate are refused. Well under a second of CPU."""
+    fresh = tdw.dwconv_plan.__wrapped__
+    for B, H, W, C, dtype in PLAN_SHAPES:
+        assert fresh(B, H, W, C, dtype, SMS) == tdw.dwconv_plan(B, H, W, C, dtype, SMS)
+    a, b = fresh(80, 56, 56, 96, torch.bfloat16, 132), fresh(80, 56, 56, 96, torch.bfloat16, 114)
+    assert a.tiles == b.tiles and b.fwd_grid < a.fwd_grid and b.wgrad_grid <= a.wgrad_grid
+    for bad in ((80, 56, 56, 100), (80, 56, 56, 392), (0, 56, 56, 96)):
+        with pytest.raises(ValueError):
+            fresh(*bad, torch.bfloat16, SMS)
+    with pytest.raises(ValueError):
+        fresh(80, 56, 56, 96, torch.float16, SMS)

@@ -1,13 +1,20 @@
 """The port's measurement scripts (revisiting_at_tpu_torch/tools/), on the
 CPU: the ptxas report parser and comparison, the slice counts the
-weight-pass sweep tries, and the source lines the tail's variant timings
-patch. None needs a GPU for what is checked here.
+weight-pass sweep tries, the source lines the tail's and the dwconv's
+variant timings patch, and the tree comparison's modes and dwconv shapes. None needs a GPU
+for what is checked here.
 """
 
-import pytest
+from pathlib import Path
 
+import pytest
+import torch
+
+import chip_smoke
 from revisiting_at_tpu_torch.ops import block_mlp as tbm
-from revisiting_at_tpu_torch.tools import ptxas_compare, tail_variants, wgrad_slices
+from revisiting_at_tpu_torch.ops import dwconv as tdw
+from revisiting_at_tpu_torch.tools import (dwconv_variants, ptxas_compare, tail_variants,
+                                           tree_compare, wgrad_slices)
 
 # two entries as nvcc's ptxas prints them; the anonymous namespace carries
 # a per-build hash (a9690f21 / 058fe1ae here)
@@ -82,3 +89,49 @@ def test_tail_variants_patch_lines_of_the_source(name):
                                                               "block_mlp_common.cuh"))
     for old, new in tail_variants.VARIANTS[name]:
         assert old in src and old != new, (name, old[:60])
+
+
+@pytest.mark.parametrize("argv,mode", [(["build/parent"], "all"),
+                                       (["--tail-only", "build/parent"], "tail"),
+                                       (["--dwconv", "build/parent"], "dwconv"),
+                                       (["build/parent", "--dwconv"], "dwconv")])
+def test_tree_compare_modes(argv, mode):
+    """A flag anywhere picks the mode; the trees keep their order and this
+    tree comes last."""
+    got, trees = tree_compare.parse_args(argv)
+    assert got == mode and trees == [Path("build/parent"), tree_compare.HERE]
+
+
+def test_tree_compare_refuses_two_modes():
+    with pytest.raises(SystemExit):
+        tree_compare.parse_args(["--dwconv", "--tail-only", "build/parent"])
+
+
+def test_tree_compare_dwconv_shapes_are_the_gated_stages():
+    """--dwconv times ConvNeXt-T's gated stages 0-2 at the training batch
+    and 224 px, as chip_smoke.py's phase 15 does, whose tiles divide the
+    maps (no padding tile), and holds the outputs to chip_smoke.py's
+    tolerances."""
+    assert tree_compare.DW_SHAPES == [(chip_smoke.TRAIN_BATCH, side, side, C)
+                                      for side, C in chip_smoke.DW_STAGES]
+    for B, H, W, C in tree_compare.DW_SHAPES:
+        p = tdw.dwconv_plan(B, H, W, C, torch.bfloat16, 132)
+        assert C <= tdw.MAX_C and H % p.tile == 0 and W % p.tile == 0
+    assert tree_compare.DW_TOL == {k: chip_smoke.TOL[f"dw_{k}"] for k in ("y", "dx", "dw", "db")}
+
+
+@pytest.mark.parametrize("name", list(dwconv_variants.VARIANTS))
+def test_dwconv_variants_patch_lines_of_the_source(name):
+    """Every line or region a dwconv variant replaces is in csrc/dwconv.cu
+    (patch raises otherwise), every variant but the kernels as built
+    changes it, and a variant that builds other blocks per SM hands the
+    wrapper a plan for them."""
+    from revisiting_at_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC / "dwconv.cu").read_text()
+    subs, plan = dwconv_variants.VARIANTS[name]
+    out = dwconv_variants.patch(src, subs, name)
+    assert (out == src) == (name == "as built")
+    builds_blocks = any(old in (dwconv_variants._FWD_BLOCKS, dwconv_variants._WGRAD_BLOCKS)
+                        for old, _ in subs)
+    assert builds_blocks == bool(plan)
