@@ -106,10 +106,31 @@ Phases, each fatal on failure:
      (F.conv2d(groups=C) on the channels_last bf16 map, and its autograd
      backward for dx and for dw/db; torch.sum for the reduction), each
      kernel and library call also by the profiler's device time, and the
-     weight pass with its reduction as one call, per stage and summed.
+     weight pass with its reduction as one call, per stage and summed;
+ 16. the full recipe on real images: (a) ImageFolder trees of JPEGs made
+     from --seed in a temporary directory (train 8 classes x 60, each
+     linked under 5 more names so that an epoch outlasts the loader's
+     batches in flight, val 8 x 25, ImageNet's sizes); (b) augment_batch
+     (RandAugment, erasing, flip) on the card against the CPU at batch 8
+     with the same draws and noise, then timed alone at batch 80, 224 px,
+     whole and by part (flip, photometric layers, warp, erasing), each with
+     its operator calls, and each photometric op on the whole batch (the
+     fixed-shape formulation's cost); (c) the training step of phase 6 with the full
+     recipe (uint8 batch from the folder, RandAugment, erasing and flip,
+     mixup, APGD, AdamW, EMA, use_pallas=1), 2 warm-up steps that alone
+     must launch the tail kernels, then in turns with phase 6's step, and
+     profiled (the augmentation as its own span), one step against the CPU
+     plain version at batch 2 with the same draws; (d) the loader alone for
+     one epoch (images/s with min(8, CPUs) workers), then `cli.train.main`
+     on the folders with augmentations for 2 epochs whose ramp goes 192 ->
+     224 px, the wait on the loader per step beside the step time once the
+     batches in flight at the epoch's start are used up; (e)
+     `cli.eval.main --data_dir` on the val folder with its EMA weights;
+     then the fork server and the loader workers are stopped, and no
+     process this run started may be left running.
 
 The launch counters are zeroed just before each path (phases 4-5, 6, 7, 9,
-10, 11, 13 and 14) and read just after it: every kernel the path runs must
+10, 11, 13, 14 and 16) and read just after it: every kernel the path runs must
 have launched there. The `launches` of the kernels line are phase 6's for
 the block tail, phase 10's for the attention and phase 13's training step
 for the dwconv. The second-to-last line is a
@@ -555,16 +576,18 @@ def convnext_t_dwconv(torch, dtype, use_pallas: bool = True):
 
 def build_train_step(torch, state_dict, *, use_pallas: bool, device: str, seed: int,
                      arch: str = "convnext_tiny", dwconv: bool = False,
-                     attack: str = "apgd"):
+                     attack: str = "apgd", randaug: bool = False, augment_draws=None):
     """The training step as bench.py builds it, on the port: the arch with
     ConvStem (ConvNeXt-T-CvSt, or ViT-S-CvSt for vit_s) in bf16 with f32
     params, AdamW(wd 0.05, the family's decay rule) on the cosine schedule
     (lr 1e-3, peak epoch 20, 300 epochs, 5,000 iterations per epoch), mixup
     with label smoothing 0.1, 2-step APGD Linf 4/255 (or, attack='fgsm',
     bench.py's RS-FGSM: alpha 1.25, 4/255), EMA 0.9999. dwconv: ConvNeXt-T-
-    CvSt with use_pallas_dwconv=1 (convnext_t_dwconv)."""
+    CvSt with use_pallas_dwconv=1 (convnext_t_dwconv). randaug: the full
+    recipe's RandAugment, erasing and flip before mixup (bench.py's aug=True
+    row), with augment_draws injected when given."""
     from revisiting_at_tpu_torch.ckpt.convert import load_state_dict
-    from revisiting_at_tpu_torch.data import MixupConfig
+    from revisiting_at_tpu_torch.data import MixupConfig, RandAugmentConfig
     from revisiting_at_tpu_torch.models import get_model
     from revisiting_at_tpu_torch.train import (AdvConfig, LRConfig, TrainState, ema_init,
                                                make_lr_schedule, make_optimizer,
@@ -584,7 +607,8 @@ def build_train_step(torch, state_dict, *, use_pallas: bool, device: str, seed: 
     step = make_train_step(model, adv=AdvConfig(attack=attack, norm="Linf", eps=4.0 / 255.0,
                                                 n_iter=2, alpha=1.25),
                            mixup=MixupConfig(num_classes=1000, label_smoothing=0.1),
-                           ema_decay=0.9999, seed=seed)
+                           randaug=RandAugmentConfig() if randaug else None,
+                           augment_draws=augment_draws, ema_decay=0.9999, seed=seed)
     return TrainState(model, opt, ema_init(model)), step
 
 
@@ -597,14 +621,22 @@ def run_steps(torch, state, step, x, y, n):
     return (time.time() - t0) * 1000 / n, [float(v) for v in losses]
 
 
-def steps_in_turns(torch, steps, x, y, order, warm):
-    """`warm` warm-up steps of each {name: (state, step)}, then runs of 5
-    steps in `order`. Returns ({name: ms per step of each run}, {name: the
-    losses})."""
-    losses = {name: run_steps(torch, *steps[name], x, y, warm)[1] for name in steps}
+def steps_in_turns(torch, steps, inputs, order, warm, require=None):
+    """`warm` warm-up steps of each {name: (state, step)} on its {name: (x,
+    y)}, then runs of 5 steps in `order`. require {name: (path, kernels)}:
+    the launch counts are zeroed just before that step's warm-up and
+    checked just after it, so that they are its own. Returns ({name: ms per
+    step of each run}, {name: the losses})."""
+    losses = {}
+    for name in steps:
+        if require and name in require:
+            zero_launches()
+        losses[name] = run_steps(torch, *steps[name], *inputs[name], warm)[1]
+        if require and name in require:
+            require_launches(*require[name])
     step_ms = {name: [] for name in steps}
     for name in order:
-        ms, ls = run_steps(torch, *steps[name], x, y, 5)
+        ms, ls = run_steps(torch, *steps[name], *inputs[name], 5)
         step_ms[name].append(ms)
         losses[name] += ls
     return step_ms, losses
@@ -624,7 +656,8 @@ def check_dw_per_step(launches, n_steps, attack) -> None:
 
 
 def check_step_against_cpu(torch, np, state_dict, seed, arch="convnext_tiny",
-                           probes=("stages.0.blocks.0.mlp.fc1.weight",), dwconv=False):
+                           probes=("stages.0.blocks.0.mlp.fc1.weight",), dwconv=False,
+                           augment=False):
     """One kernel step on the card against the same step on the CPU, where
     every kernel takes its plain version, at batch 2: the loss and the
     global gradient norm within 2e-2, and the gradient of each probe (a
@@ -632,20 +665,27 @@ def check_step_against_cpu(torch, np, state_dict, seed, arch="convnext_tiny",
     backward; a block's conv_dw weight on the dwconv route: dwconv weight
     pass) at cosine similarity above 0.99. bf16 convolutions and the
     attack's sign steps round differently on the two devices, so this is a
-    check of the path, not of the last bits."""
+    check of the path, not of the last bits. augment: the full recipe on a
+    uint8 batch, both devices given the same augmentation draws and erasing
+    noise (a rotation and a shear, equalize and color, one image erased)."""
     rng = np.random.RandomState(seed + 1)
     x = torch.from_numpy(rng.uniform(0, 1, (2, 224, 224, 3)).astype(np.float32))
     y = torch.from_numpy(rng.randint(0, 1000, 2))
+    kw = {}
+    if augment:
+        x = (x * 255).to(torch.uint8)
+        kw = dict(randaug=True, augment_draws=lambda step, b, h, w: fixed_draws(torch, b, h, w))
     out = {}
     for device in ("cuda", "cpu"):
         state, step = build_train_step(torch, state_dict, use_pallas=True, device=device,
-                                       seed=seed, arch=arch, dwconv=dwconv)
+                                       seed=seed, arch=arch, dwconv=dwconv, **kw)
         metrics = step(state, x.to(device), y.to(device))
         grads = [state.model.get_parameter(name).grad.float().cpu() for name in probes]
         out[device] = (float(metrics["loss"]), float(metrics["grad_norm"]), grads)
     (lc, nc, gc), (lp, np_, gp) = out["cuda"], out["cpu"]
     cos = [float((a * b).sum() / (a.norm() * b.norm())) for a, b in zip(gc, gp)]
-    log(f"{arch}{' (dwconv kernel)' if dwconv else ''} train step vs CPU plain version "
+    log(f"{arch}{' (dwconv kernel)' if dwconv else ''}{' (full recipe)' if augment else ''} "
+        f"train step vs CPU plain version "
         f"(batch 2): loss {lc:.5f} / {lp:.5f}, "
         f"grad_norm {nc:.4f} / {np_:.4f}, gradient cosine "
         + ", ".join(f"{n} {c:.5f}" for n, c in zip(probes, cos)))
@@ -692,8 +732,8 @@ def _profile_once(torch, what: str, fn, n: int, label: str):
                 "gemm": 0.0, "conv": 0.0, "other": 0.0}
     top = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
+        if e.device_type != DeviceType.CUDA or e.key == "augment":
+            continue  # "augment": the step's span on the device, not a kernel
         us = e.self_device_time_total / n
         name = e.key
         low = name.lower()
@@ -713,6 +753,9 @@ def _profile_once(torch, what: str, fn, n: int, label: str):
     lib_dw = sum(e.device_time_total for e in prof.key_averages(group_by_input_shape=True)
                  if e.key in ("aten::convolution", "aten::convolution_backward")
                  and e.device_type == DeviceType.CPU and _depthwise_7x7(e.input_shapes)) / n
+    # the kernels of the train step's "augment" span: RandAugment, erasing and flip
+    aug = sum(e.device_time_total for e in prof.key_averages()
+              if e.key == "augment" and e.device_type == DeviceType.CPU) / n
     device = sum(families.values()) / 1000
     if device <= 0:
         return None
@@ -723,10 +766,11 @@ def _profile_once(torch, what: str, fn, n: int, label: str):
         + f"; depthwise 7x7 convolutions: dwconv kernels {families['dwconv kernels'] / 1000:.2f}"
         f" ms, library ops {lib_dw / 1000:.2f} ms (conv less those: "
         f"{max(families['conv'] - lib_dw, 0.0) / 1000:.2f} ms)"
+        + f"; augmentation (the step's augment span, within the families) {aug / 1000:.2f} ms"
         + "; top: " + "; ".join(f"{name} {us / 1000:.2f} ms" for us, name in top[:6])
         + f" {label}")
     out = {k: v / 1000 for k, v in families.items()}
-    out.update(wall=wall, device=device, library_depthwise=lib_dw / 1000)
+    out.update(wall=wall, device=device, library_depthwise=lib_dw / 1000, augment=aug / 1000)
     return out
 
 
@@ -823,8 +867,8 @@ def vit_step_phase(torch, np, init, seed, label):
     probe = steps["kernel"][0].model.blocks[0].attn.qkv.weight
     before = probe.detach().clone()
     zero_launches()
-    step_ms, losses = steps_in_turns(torch, steps, xb, yb, ("kernel", "plain", "plain", "kernel"),
-                                     warm=2)
+    step_ms, losses = steps_in_turns(torch, steps, dict.fromkeys(steps, (xb, yb)),
+                                     ("kernel", "plain", "plain", "kernel"), warm=2)
     launches = require_launches("the ViT training step (phase 10)", TAIL_KERNELS + ATT_KERNELS)
     for name, ls in losses.items():
         if not all(np.isfinite(ls)):
@@ -1260,7 +1304,7 @@ def dwconv_model_phase(torch, np, run_dir, init, seed, label) -> dict:
     model = steps["dwconv"][0].model
     before = model.stages[0].blocks[0].conv_dw.weight.detach().clone()
     zero_launches()
-    step_ms, losses = steps_in_turns(torch, steps, xb, yb,
+    step_ms, losses = steps_in_turns(torch, steps, dict.fromkeys(steps, (xb, yb)),
                                      ("dwconv", "library", "library", "dwconv"), warm=5)
     launches = require_launches("the dwconv training step (phase 13)",
                                 DW_KERNELS + TAIL_KERNELS)
@@ -1318,7 +1362,8 @@ def fgsm_phase(torch, np, repo, init, vit_init, seed, label) -> None:
     xb, yb = xb.cuda(), yb.cuda()
     zero_launches()
     names = list(steps)
-    step_ms, losses = steps_in_turns(torch, steps, xb, yb, names + names[::-1], warm=5)
+    step_ms, losses = steps_in_turns(torch, steps, dict.fromkeys(steps, (xb, yb)),
+                                     names + names[::-1], warm=5)
     launches = require_launches("the FGSM training steps (phase 14)",
                                 DW_KERNELS + TAIL_KERNELS + ATT_KERNELS)
     check_dw_per_step(launches, 5 + 10, "fgsm")
@@ -1363,6 +1408,319 @@ def fgsm_phase(torch, np, repo, init, vit_init, seed, label) -> None:
     log(f"cli.train --adv.attack fgsm + cli.eval: epoch {epoch[0]}, eval {res}, "
         f"{time.time() - t0:.1f} s")
     require_launches("the FGSM train CLI (phase 14)", TAIL_KERNELS)
+
+
+def fixed_draws(torch, b, h, w, seed=0):
+    """Augmentation draws from a fixed generator, made to cover the paths:
+    image 0 rotated then equalized, flipped and erased, image 1 sheared then
+    colored; the erasing noise drawn on the host, so that either device
+    gets the same draws."""
+    import dataclasses
+
+    from revisiting_at_tpu_torch.data import draw_augment
+
+    d = draw_augment(torch.Generator().manual_seed(seed), b, h, w)
+    op, apply = d.op_idx.clone(), d.apply.clone()
+    flip, erase = d.flip.clone(), d.erase.clone()
+    op[:, 0] = torch.tensor([3, 1])
+    op[:, min(1, b - 1)] = torch.tensor([11, 7])
+    apply[:, :2] = True
+    flip[0] = erase[0] = True
+    noise = torch.randn((int(erase.sum()), h, w, 3), generator=torch.Generator().manual_seed(seed))
+    return dataclasses.replace(d, op_idx=op, apply=apply, flip=flip, erase=erase, noise=noise)
+
+
+TRAIN_LINKS = 5  # each train JPEG's extra names: 2,880 images, 36 batches of TRAIN_BATCH
+
+
+def make_image_folder(np, root: Path, seed: int) -> tuple[Path, Path]:
+    """Phase 16's ImageFolder trees of JPEGs made with numpy and PIL from the
+    seed, at ImageNet's usual sizes (500x375, 375x500 and odd ones): train
+    8 classes x 60 images, each also linked under TRAIN_LINKS more names, so
+    that an epoch (36 batches) outlasts the 16 batches that 8 loader
+    workers have in flight from its start; val 8 x 25 with ILSVRC2012_val_*
+    basenames spread over the classes."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    sizes = [(375, 500), (500, 375), (333, 500), (500, 333), (281, 500), (375, 375), (427, 640)]
+    grain = rng.randint(-12, 13, (704, 704, 3)).astype(np.int16)  # fine detail, cut per image
+    n_classes = 8
+    for split, per_class in (("train", 60), ("val", 25)):
+        n = n_classes * per_class
+        for v in range(n):
+            h, w = sizes[v % len(sizes)]
+            coarse = rng.randint(0, 256, (h // 16 + 1, w // 16 + 1, 3)).astype(np.uint8)
+            img = np.asarray(Image.fromarray(coarse).resize((w, h), Image.BILINEAR), np.int16)
+            dy, dx = rng.randint(0, 704 - h + 1), rng.randint(0, 704 - w + 1)
+            img = np.clip(img + grain[dy:dy + h, dx:dx + w], 0, 255).astype(np.uint8)
+            c = v % n_classes
+            d = root / split / f"n{c:08d}"
+            d.mkdir(parents=True, exist_ok=True)
+            name = (f"ILSVRC2012_val_{(v * 37) % n + 1:08d}" if split == "val"
+                    else f"n{c:08d}_{v // n_classes}")
+            Image.fromarray(img).save(d / f"{name}.JPEG", quality=90)
+            for k in range(TRAIN_LINKS if split == "train" else 0):
+                os.link(d / f"{name}.JPEG", d / f"{name}_{k}.JPEG")
+    return root / "train", root / "val"
+
+
+def op_counts(torch, fn, n: int = 3) -> tuple[float, str]:
+    """(operators called from Python, device kernels and copies) per call of
+    fn, from one torch.profiler trace of n calls: the trace's top-level
+    aten:: events and its device events ("not measured" where the trace
+    holds none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    ops = sum(e.device_type == DeviceType.CPU and e.cpu_parent is None
+              and e.name.startswith("aten::") for e in events)
+    kernels = sum(e.device_type == DeviceType.CUDA for e in events) / n
+    return ops / n, f"{kernels:.1f}" if kernels else "not measured"
+
+
+def descendants() -> dict[int, str]:
+    """This process's descendants still alive, as pid -> command name,
+    from /proc."""
+    parent, name = {}, {}
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            head, rest = stat.read_text().rsplit(")", 1)
+        except (OSError, ValueError):
+            continue
+        state, ppid = rest.split()[:2]
+        if state != "Z":
+            pid = int(stat.parent.name)
+            parent[pid], name[pid] = int(ppid), head.split("(", 1)[1]
+    out, todo = {}, [os.getpid()]
+    while todo:
+        p = todo.pop()
+        for c, pp in parent.items():
+            if pp == p and c not in out:
+                out[c] = name[c]
+                todo.append(c)
+    return out
+
+
+def recipe_phase(torch, np, init, seed, label) -> None:
+    """Phase 16: the full recipe on real images, in a temporary directory
+    removed at the end, with the fork server and its loader workers stopped."""
+    import shutil
+    import tempfile
+
+    from revisiting_at_tpu_torch.data.folder import stop_fork_server
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_images_"))
+    try:
+        _recipe_phase(torch, np, tmp, init, seed, label)
+    finally:
+        stop_fork_server()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _recipe_phase(torch, np, tmp, init, seed, label) -> None:
+    import gc
+
+    from revisiting_at_tpu_torch.cli import eval as eval_cli
+    from revisiting_at_tpu_torch.cli import train as train_cli
+    from revisiting_at_tpu_torch.data import augment as aug
+    from revisiting_at_tpu_torch.data import draw_augment
+    from revisiting_at_tpu_torch.data.folder import FolderConfig, FolderLoader, fork_server
+
+    took = {}
+    # (a) the image folders, while the fork server, from which (d)'s loader
+    # workers fork, imports torch
+    t0 = time.time()
+    fork_server()
+    train_dir, val_dir = make_image_folder(np, tmp, seed)
+    n_train = 480 * (1 + TRAIN_LINKS)
+    first = FolderLoader(FolderConfig(root=str(train_dir), resolution=224, batch_size=TRAIN_BATCH,
+                                      num_parallel=0, seed=seed))
+    x_real, y_real = next(iter(first))
+    del first
+    took["a"] = time.time() - t0
+    log(f"image folder: 480 train JPEGs under {n_train} names and 200 val JPEGs, "
+        f"{took['a']:.1f} s")
+
+    # (b) augment_batch on the card against the CPU, then alone at B = 80, and by part
+    t0 = time.time()
+    draws = fixed_draws(torch, 8, 224, 224, seed)
+    got = aug.augment_batch(x_real[:8].cuda(), draws).cpu()
+    ref = aug.augment_batch(x_real[:8], draws)
+    d = (got - ref).abs()
+    share, worst = float((d <= 1e-5).float().mean()), float(d.max())
+    log(f"augment_batch B=8 224px, card vs CPU (same draws and noise): {share:.6f} of the "
+        f"elements within 1e-5, max_abs_err {worst:.3e} (tolerance: 0.99 within 1e-5, all "
+        f"within 2^-7, as the CPU tests hold the port to JAX)")
+    if not (torch.isfinite(got).all() and share >= 0.99 and worst <= 2.0 ** -7):
+        raise AssertionError("augment_batch on the card disagrees with the CPU")
+    xb, yb = x_real.cuda(), y_real.cuda()
+    gen = torch.Generator().manual_seed(seed)
+    noise_gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def augment():
+        return aug.augment_batch(xb, draw_augment(gen, TRAIN_BATCH, 224, 224),
+                                 generator=noise_gen)
+
+    ev = time_ms(torch, augment, 20)
+    dev = device_ms(torch, augment, 10)
+    ops, launched = op_counts(torch, augment)
+    floor_ms = TRAIN_BATCH * 224 * 224 * 3 * (1 + 4) / PEAK_HBM * 1e3  # uint8 in, f32 out
+    log(f"augment_batch B={TRAIN_BATCH} 224px uint8 (draws made on the host each call): "
+        f"{ev:.4f} ms (CUDA events), device {ms_or_na(dev)} ms, {ops:.1f} operator calls and "
+        f"{launched} device kernels and copies a call; bytes in and out once: "
+        f"{floor_ms:.4f} ms {label}")
+    t1 = time.perf_counter()
+    for _ in range(20):
+        d80 = draw_augment(gen, TRAIN_BATCH, 224, 224)
+    draw_ms = (time.perf_counter() - t1) * 1000 / 20
+    x1 = aug.hflip(xb.float() * (1.0 / 255.0), d80.flip)
+    x2, mats = aug.photometric_layers(x1, d80)
+    x3 = aug.warp_affine_batch(x2, mats)
+    parts = {"uint8 to [0, 1] and flip": lambda: aug.hflip(xb.float() * (1.0 / 255.0), d80.flip),
+             "photometric layers and matrices": lambda: aug.photometric_layers(x1, d80),
+             "warp, both passes": lambda: aug.warp_affine_batch(x2, mats),
+             "erasing": lambda: aug.random_erasing(x3, d80, noise_gen)}
+    for name, fn in parts.items():
+        ops, launched = op_counts(torch, fn)
+        log(f"augment_batch part at B={TRAIN_BATCH} 224px, {name}: {time_ms(torch, fn, 20):.4f} "
+            f"ms (CUDA events), device {ms_or_na(device_ms(torch, fn, 10))} ms, {ops:.1f} "
+            f"operator calls, {launched} device kernels and copies {label}")
+    log(f"augment_batch part: draw_augment at B={TRAIN_BATCH} on the host: {draw_ms:.4f} ms")
+    # the fixed-shape alternative (JAX's): every photometric op on the whole
+    # batch, then a select per image, in each layer
+    lvl, sign = (t.cuda() for t in (d80.lvl[0], d80.sign[0]))
+    whole = {k: time_ms(torch, lambda: op(x1, lvl, sign), 10)
+             for k, op in aug.PHOTOMETRIC.items()}
+    pick = (d80.op_idx[0] == 1).cuda()[:, None, None, None]
+    select = time_ms(torch, lambda: torch.where(pick, x2, x1), 10)
+    log(f"photometric ops on the whole batch of {TRAIN_BATCH} at 224 px (CUDA events, ms): "
+        + ", ".join(f"{aug.PHOTOMETRIC[k].__name__} {v:.4f}" for k, v in whole.items())
+        + f"; sum {sum(whole.values()):.4f}, one select {select:.4f}: a layer of the "
+        f"fixed-shape formulation at least {sum(whole.values()) + len(whole) * select:.4f} "
+        f"{label}")
+    del x1, x2, x3, mats
+    took["b"] = time.time() - t0
+
+    # (c) the full-recipe step, in turns with phase 6's step; its warm-up
+    # alone must launch the tail kernels
+    t0 = time.time()
+    rng = np.random.RandomState(seed)
+    x6 = torch.from_numpy(rng.uniform(0, 1, (TRAIN_BATCH, 224, 224, 3)).astype(np.float32))
+    inputs = {"full recipe": (xb, yb),
+              "phase 6, no augmentation": (x6.cuda(), torch.from_numpy(
+                  rng.randint(0, 1000, TRAIN_BATCH)).cuda())}
+    steps = {name: build_train_step(torch, init, use_pallas=True, device="cuda", seed=seed,
+                                    randaug=name == "full recipe") for name in inputs}
+    step_ms, losses = steps_in_turns(
+        torch, steps, inputs, ("full recipe", "phase 6, no augmentation",
+                               "phase 6, no augmentation", "full recipe"), warm=2,
+        require={"full recipe": ("the full-recipe training step (phase 16)", TAIL_KERNELS)})
+    for name, v in step_ms.items():
+        if not all(np.isfinite(losses[name])):
+            raise AssertionError(f"{name} step: non-finite loss {losses[name]}")
+        ms = sum(v) / len(v)
+        log(f"train step convnext_tiny+ConvStem bf16 B={TRAIN_BATCH} 224px 2-step APGD, tail "
+            f"kernels ({name}): {ms:.2f} ms/step, {2000.0 / ms:.3f} attack-steps/s (runs of 5: "
+            f"{', '.join('%.2f' % t for t in v)}) {label}")
+    t1 = time.time()
+    name = "full recipe"  # phase 6 profiles its own step; one step keeps the trace short
+    profile_breakdown(torch, f"train step B={TRAIN_BATCH} ({name}), per step",
+                      lambda: steps[name][1](steps[name][0], *inputs[name]), 1, label)
+    t2 = time.time()
+    del steps, inputs, xb, yb, x6
+    torch.cuda.empty_cache()
+    check_step_against_cpu(torch, np, init, seed, augment=True)
+    took["c"] = time.time() - t0
+    log(f"phase 16 (c): steps {t1 - t0:.1f} s, profile {t2 - t1:.1f} s, the step against the "
+        f"CPU {time.time() - t2:.1f} s")
+
+    # (d) the loader alone for one epoch, then the folder train CLI with a
+    # resolution ramp
+    t0 = time.time()
+    workers = min(8, os.cpu_count() or 1)
+    loader = FolderLoader(FolderConfig(root=str(train_dir), resolution=224, batch_size=TRAIN_BATCH,
+                                       num_parallel=workers, pin_memory=True, seed=seed))
+    arrivals, t1 = [], time.time()
+    for _ in loader:
+        arrivals.append(time.time() - t1)
+    del loader
+    gc.collect()
+    # batches arrive in rounds of one per worker: the rate between the ends
+    # of the first and the last whole round leaves out the workers' start
+    last = workers * (len(arrivals) // workers)
+    loader_rate = (last - workers) * TRAIN_BATCH / (arrivals[last - 1] - arrivals[workers - 1])
+    log(f"loader, train transform at 224 px, {workers} worker processes ({os.cpu_count()} "
+        f"CPUs): {loader_rate:.1f} images/s over batches {workers + 1}-{last} of "
+        f"{len(arrivals)}; the first batch after {arrivals[0]:.2f} s (the workers starting, "
+        f"forked from the fork server started in (a)) {label}")
+    zero_launches()
+    log_every = 6
+    t1 = time.time()
+    trainer = train_cli.main([
+        "--model.arch", "convnext_tiny", "--model.not_original", "1",
+        "--model.add_normalization", "0", "--model.model_ema", "1", "--adv.attack", "apgd",
+        "--adv.n_iter", "2", "--data.dataset", "folder", "--data.augmentations", "1",
+        "--data.train_dataset", str(train_dir), "--data.val_dataset", str(val_dir),
+        "--data.num_workers", str(workers), "--data.in_memory", "0",
+        "--training.batch_size", str(TRAIN_BATCH), "--training.epochs", "2",
+        "--training.use_pallas", "1", "--resolution.min_res", "192", "--resolution.max_res",
+        "224", "--resolution.start_ramp", "0", "--resolution.end_ramp", "1",
+        "--validation.batch_size", "50", "--validation.max_batches", "2", "--logging.folder",
+        str(tmp / "runs"), "--logging.log_every_steps", str(log_every), "--device", "cuda"])
+    run, steps_per_epoch = trainer.logger.dir, trainer.iters_per_epoch
+    del trainer
+    gc.collect()
+    records = [json.loads(line) for line in (run / "log").read_text().splitlines()]
+    changes = [r["res"] for r in records if r.get("event") == "resolution_change"]
+    epochs = [r for r in records if "train_loss" in r]
+    if not (changes == [192, 224] and [e["res"] for e in epochs] == [192, 224]
+            and all(np.isfinite(e["train_loss"]) for e in epochs)
+            and records[-1].get("event") == "final_val"):
+        raise AssertionError(f"cli.train on the image folder: bad records {records}")
+    windows = [r for r in records if r.get("event") == "step"]
+    steady = 3 * log_every  # past the 2 * workers batches in flight from the epoch's start
+    for e in epochs:
+        late = [r for r in windows if r["epoch"] == e["epoch"]][steady // log_every:]
+        n_steps = log_every * len(late)
+        step_ms = sum(log_every * TRAIN_BATCH * 1000 / r["imgs_per_s"] for r in late) / n_steps
+        wait_ms = 1000 * sum(r["data_wait"] for r in late) / n_steps
+        log(f"cli.train folder epoch {e['epoch']} at {e['res']} px, {steps_per_epoch} steps of "
+            f"{TRAIN_BATCH}: {e['epoch_time']:.2f} s, the first batch waited "
+            f"{e['data_wait_first']:.2f} s, all {steps_per_epoch} waited {e['data_wait']:.2f} s; "
+            f"steps {steady + 1}-{steady + n_steps}: {step_ms:.1f} ms a step, of which "
+            f"{wait_ms:.1f} ms waiting on the loader ({workers} workers, {os.cpu_count()} CPUs); "
+            f"the loader alone at {loader_rate:.1f} images/s would keep such steps waiting "
+            f"{max(0.0, 1000 * TRAIN_BATCH / loader_rate - step_ms):.1f} ms; loss "
+            f"{e['train_loss']:.4f} {label}")
+    log(f"cli.train on the image folder: resolution changes {changes}, "
+        f"{time.time() - t1:.1f} s with model build and validation")
+    require_launches("the image-folder train CLI (phase 16)", TAIL_KERNELS)
+    torch.cuda.empty_cache()
+    took["d"] = time.time() - t0
+
+    # (e) the eval CLI on the val folder with the EMA weights
+    zero_launches()
+    t0 = time.time()
+    res = eval_cli.main(["--run_dir", str(run), "--torch_ckpt",
+                         str(run / "ckpt" / "weights_ema_1.pt"), "--use_pallas", "1",
+                         "--data_dir", str(val_dir), "--n_ex", "100", "--batch_size", "50",
+                         "--n_iter", "5", "--device", "cuda"])
+    if res["Linf"]["n"] != 100 or not 0.0 <= res["Linf"]["robust"] <= 1.0:
+        raise AssertionError(f"cli.eval --data_dir: bad result {res}")
+    took["e"] = time.time() - t0
+    log(f"cli.eval --data_dir (100 val images, short AutoAttack): {res}, {took['e']:.1f} s")
+    # the attacks run only on points the 12-step model classifies right
+    require_launches("the image-folder eval CLI (phase 16)", ("block_mlp_fwd",))
+    log(f"phase 16: {sum(took.values()):.1f} s; "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in took.items()))
 
 
 def main(argv=None) -> int:
@@ -1655,8 +2013,8 @@ def main(argv=None) -> int:
     probe = steps["kernel"][0].model.stages[0].blocks[0].mlp.fc1.weight
     before = probe.detach().clone()
     zero_launches()
-    step_ms, losses = steps_in_turns(torch, steps, xb, yb, ("kernel", "plain", "plain", "kernel"),
-                                     warm=2)
+    step_ms, losses = steps_in_turns(torch, steps, dict.fromkeys(steps, (xb, yb)),
+                                     ("kernel", "plain", "plain", "kernel"), warm=2)
     step_launches = require_launches("the training step (phase 6)", TAIL_KERNELS)
     for name, ls in losses.items():
         if not all(np.isfinite(ls)):
@@ -1922,6 +2280,13 @@ def main(argv=None) -> int:
     dw_launches = dwconv_model_phase(torch, np, run_dir, init, args.seed, label)
     fgsm_phase(torch, np, repo, init, vit_init, args.seed, label)
     dw_times, dw_device, dw_whole = dwconv_timings(torch, dw, gen, label)
+
+    # ---------------------------------------------------------------- 16
+    recipe_phase(torch, np, init, args.seed, label)
+    left = descendants()
+    if left:
+        raise AssertionError(f"processes still running after the last phase: {left}")
+    log("no process of this run is left running")
 
     kernels = [dict(name=f"block_mlp_{k}", route="cuda", source=SOURCE[f"block_mlp_{k}"],
                     replaces=REPLACES[f"block_mlp_{k}"], launches=step_launches[f"block_mlp_{k}"],

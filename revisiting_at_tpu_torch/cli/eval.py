@@ -10,7 +10,14 @@ the strict load (bicubic, models/pos_embed.py; unchanged if it matches).
 Usage:
   python -m revisiting_at_tpu_torch.cli.eval --run_dir runs/<run> \
       --torch_ckpt weights.pt [--l_norms Linf] [--n_ex 5000] [--batch_size 200] \
-      [--n_iter 100] [--use_pallas 1] [--synthetic] [--device cuda]
+      [--n_iter 100] [--use_pallas 1] [--data_dir <imagenet>/val | --synthetic] \
+      [--device cuda]
+
+--data_dir reads the first --n_ex images by basename of an ImageFolder tree
+(the robustbench subset) through the eval transform of data/folder.py:
+the short side to img_size / 0.875 and the centre crop (a warp resize at 384
+px and above), decoded by a pool of threads. The images stay uint8 on the
+host; AutoAttack converts each batch it sends to the device. --synthetic evaluates random images.
 
 A run trained by the JAX package is exported to a .pt first with
 `python -m revisiting_at_tpu.cli.export --run_dir <run> --out weights.pt`.
@@ -19,6 +26,7 @@ A run trained by the JAX package is exported to a .pt first with
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from pathlib import Path
 
@@ -37,7 +45,8 @@ def get_args(argv=None):
     p.add_argument("--eps", type=float, default=None)
     p.add_argument("--full_aa", type=int, default=0)
     p.add_argument("--img_size", type=int, default=224)
-    p.add_argument("--data_dir", type=str, default="")
+    p.add_argument("--data_dir", type=str, default="",
+                   help="ImageFolder root of the eval images (e.g. ImageNet val)")
     p.add_argument("--synthetic", action="store_true",
                    help="evaluate on random images (smoke tests only: numbers are meaningless)")
     p.add_argument("--only_clean", action="store_true")
@@ -53,12 +62,25 @@ def get_args(argv=None):
 
 
 def load_eval_set(args, num_classes: int):
-    """Synthetic eval set, the JAX evaluator's draw (RandomState(0))."""
+    """The eval set: the first n_ex images of --data_dir by basename, resized
+    and centre-cropped at img_size, as uint8 (revisiting_at_tpu/cli/
+    eval.py:85-113); or, with --synthetic, the JAX evaluator's random draw
+    (RandomState(0))."""
     if args.data_dir:
-        raise NotImplementedError("--data_dir: the data pipeline is ROADMAP A10")
+        from ..data.folder import FolderConfig, FolderLoader
+
+        # read once: decoded by min(8, CPUs) threads of this process, as
+        # tf.data's 8 parallel calls, with no worker processes to start
+        loader = FolderLoader(FolderConfig(
+            root=args.data_dir, resolution=args.img_size, batch_size=args.batch_size,
+            is_train=False, drop_remainder=False, sort_by_basename=True,
+            subset_size=args.n_ex, num_parallel=min(8, os.cpu_count() or 1),
+            cache_decoded=True))
+        xs, ys = zip(*((img.numpy(), lab.numpy()) for img, lab in loader))
+        return np.concatenate(xs), np.concatenate(ys).astype(np.int64)
     if not args.synthetic:
-        raise SystemExit("no --data_dir given: pass --synthetic to run on random images "
-                         "(smoke test only)")
+        raise SystemExit("no --data_dir given: pass --data_dir /path/to/val for a real "
+                         "evaluation, or --synthetic to run on random images (smoke test only)")
     print("WARNING: --synthetic evaluation: accuracies below are meaningless")
     rng = np.random.RandomState(0)
     x = rng.uniform(0, 1, size=(args.n_ex, args.img_size, args.img_size, 3)).astype(np.float32)

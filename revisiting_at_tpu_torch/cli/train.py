@@ -3,7 +3,18 @@
   python -m revisiting_at_tpu_torch.cli.train \
       --model.arch convnext_tiny --model.not_original 1 --model.add_normalization 0 \
       --adv.attack apgd --adv.n_iter 2 --model.model_ema 1 --training.use_pallas 1 \
-      --data.dataset synthetic --training.batch_size 80 [--device cuda]
+      --data.augmentations 1 --data.dataset folder --data.train_dataset <root>/train \
+      --data.val_dataset <root>/val --data.num_workers 8 --training.batch_size 80 \
+      [--device cuda]
+
+`--data.dataset folder` reads ImageFolder trees through the port's PIL +
+DataLoader pipeline (data/folder.py): the train loader from
+`data.train_dataset` (set to each resolution of the ramp, starting at
+`resolution.min_res`), the val loader from `data.val_dataset` (synthetic
+data without it, as in JAX), `data.num_workers` worker processes, the
+decoded cache with `data.in_memory`. `--data.dataset synthetic` trains on
+random images. `data.augmentations` adds RandAugment, erasing and flip on the
+device inside the step, then mixup.
 
 The flags are the JAX CLI's flat `--section.param value` (or `=value`), so a
 run's params.json keeps the JAX contract. Two more flags are the port's and
@@ -16,6 +27,34 @@ from __future__ import annotations
 
 import argparse
 import sys
+
+
+def folder_loaders(cfg, pin_memory: bool):
+    """(train_data_factory(res), val loader or None) from the data section,
+    as revisiting_at_tpu/cli/train.py:55-114 builds them. The factory gives
+    one train loader, its workers kept, at each resolution of the ramp."""
+    from ..data.folder import FolderConfig, FolderLoader
+
+    d = cfg.data
+    train = []
+
+    def train_data_factory(res: int):
+        if not train:
+            train.append(FolderLoader(FolderConfig(
+                root=d.train_dataset, resolution=res, batch_size=cfg.training.batch_size,
+                is_train=True, seed=d.seed, num_parallel=d.num_workers,
+                subset_size=d.subset_size, cache_decoded=bool(d.in_memory),
+                pin_memory=pin_memory)))
+        return train[0].set_resolution(res)
+
+    val_data = None
+    if d.val_dataset:
+        val_data = FolderLoader(FolderConfig(
+            root=d.val_dataset, resolution=cfg.validation.resolution,
+            batch_size=cfg.validation.batch_size, is_train=False, drop_remainder=True,
+            num_parallel=d.num_workers, cache_decoded=bool(d.in_memory),
+            pin_memory=pin_memory))
+    return train_data_factory, val_data
 
 
 def main(argv=None):
@@ -36,7 +75,17 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but CUDA is not available (pass --device cpu "
                          "to train on the CPU)")
-    trainer = Trainer(cfg, device=device, synthetic_batches=args.synthetic_batches)
+    train_data = val_data = train_data_factory = None
+    if cfg.data.dataset == "folder":
+        if not cfg.data.train_dataset:
+            raise SystemExit("data.dataset=folder needs data.train_dataset (an ImageFolder "
+                             "root); pass --data.dataset synthetic to train on random images")
+        train_data_factory, val_data = folder_loaders(cfg, pin_memory=device.type == "cuda")
+        r = cfg.resolution
+        train_data = train_data_factory(r.min_res if r.min_res < r.max_res else r.max_res)
+    trainer = Trainer(cfg, device=device, synthetic_batches=args.synthetic_batches,
+                      train_data=train_data, val_data=val_data,
+                      train_data_factory=train_data_factory)
     if cfg.training.eval_only:
         acc, n = trainer.single_val()
         trainer.logger.log({"eval_only_acc": acc, "points": n})

@@ -2,15 +2,18 @@
 (its mesh=None path).
 
 One call of the step:
-  mixup/cutmix -> APGD or FGSM in eval mode with the block tail's
+  uint8 -> [0, 1] -> RandAugment, erasing and flip (with data.augmentations)
+  -> mixup/cutmix -> APGD or FGSM in eval mode with the block tail's
   input-only backward -> training forward in train mode -> loss -> weight
   backward (the tail's full backward) -> AdamW with the LR schedule -> EMA
   update.
 
 The JAX step is one pure jitted function; here the model, the optimizer and
 the EMA tensors are updated in place, and the step returns its metrics.
-Randomness per step: the mixup draws come from a CPU torch.Generator seeded
-from (seed, step), or from an injected `mixup_draws(step, h, w)`; FGSM's
+Randomness per step: the augmentation draws and the mixup draws come from
+CPU torch.Generators seeded from (seed, step), or from an injected
+`augment_draws(step, b, h, w)` and `mixup_draws(step, h, w)`; the erasing
+noise from a generator on the batch's device seeded the same way; FGSM's
 random start from a generator on the batch's device seeded the same way,
 or from an injected `attack_draws(step, shape)`; DropPath draws from the
 model's `drop_generator`, seeded the same way per step.
@@ -36,6 +39,7 @@ import torch
 from torch import nn
 
 from ..attacks import apgd_attack, fgsm_train
+from ..data.augment import AugmentDraws, RandAugmentConfig, augment_batch, draw_augment
 from ..data.mixup import MixupConfig, MixupDraws, draw_mixup, mixup_cutmix
 from ..ops.losses import ce_indiv, soft_target_ce
 from .ema import ema_update
@@ -93,10 +97,11 @@ def attack_grad_mode(m: nn.Module):
 
 
 def to_unit_pixels(images: torch.Tensor) -> torch.Tensor:
-    """Canonical [0, 1] f32 pixels: uint8 is scaled by 1/255, floats are
-    taken as already in [0, 1]."""
+    """Canonical [0, 1] f32 pixels: uint8 is scaled by the f32 1/255 (the
+    product XLA makes of JAX's /255, on either device), floats are taken as
+    already in [0, 1]."""
     if images.dtype == torch.uint8:
-        return images.float() / 255.0
+        return images.float() * (1.0 / 255.0)
     return images.float()
 
 
@@ -115,8 +120,8 @@ class AdvConfig:
 
 
 def step_seed(seed: int, step: int, stream: int) -> int:
-    """Seed of one random stream (1: mixup, 2: DropPath, 3: FGSM's start)
-    at one step."""
+    """Seed of one random stream (1: mixup, 2: DropPath, 3: FGSM's start,
+    4: the augmentation draws, 5: the erasing noise) at one step."""
     return (seed * 1_000_003 + step * 8 + stream) % (2 ** 63 - 1)
 
 
@@ -125,8 +130,10 @@ def make_train_step(
     *,
     adv: AdvConfig,
     mixup: MixupConfig | None,
+    randaug: RandAugmentConfig | None = None,
     ema_decay: float = 0.0,
     seed: int = 0,
+    augment_draws: Callable[[int, int, int, int], AugmentDraws] | None = None,
     mixup_draws: Callable[[int, int, int], MixupDraws] | None = None,
     attack_draws: Callable[[int, tuple[int, ...]], torch.Tensor] | None = None,
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], dict[str, torch.Tensor]]:
@@ -134,8 +141,11 @@ def make_train_step(
     metrics {loss, train_acc, adv_acc, grad_norm} as 0-d tensors. The state
     is updated in place and its step advanced by one.
 
-    mixup_draws(step, h, w), when given, replaces the generator's mixup
-    draws; attack_draws(step, shape), FGSM's raw U(0, 1) start draw."""
+    randaug: RandAugment with erasing and flip on the batch's device, before
+    mixup, in JAX's order (train_step.py:146-151). augment_draws(step, b, h,
+    w), when given, replaces the generator's augmentation draws (its noise,
+    if set, the erasing fill); mixup_draws(step, h, w), the mixup draws;
+    attack_draws(step, shape), FGSM's raw U(0, 1) start draw."""
     if adv.attack not in ("apgd", "fgsm", "none"):
         raise ValueError(f"unknown attack {adv.attack!r}")
     core = _grad_mode_owner(model) or model
@@ -145,6 +155,17 @@ def make_train_step(
         images = to_unit_pixels(images)
         labels = labels.long()
         targets = labels
+        if randaug is not None:
+            b, h, w, _ = images.shape
+            if augment_draws is not None:
+                draws = augment_draws(state.step, b, h, w)
+            else:
+                gen = torch.Generator().manual_seed(step_seed(seed, state.step, 4))
+                draws = draw_augment(gen, b, h, w, randaug)
+            noise_gen = torch.Generator(device=images.device).manual_seed(
+                step_seed(seed, state.step, 5))
+            with torch.profiler.record_function("augment"):  # a profiler span, free when off
+                images = augment_batch(images, draws, randaug, generator=noise_gen)
         if mixup is not None:
             _, h, w, _ = images.shape
             if mixup_draws is not None:

@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from revisiting_at_tpu.data import augment as jaug
 from revisiting_at_tpu.data import mixup as jmix
 from revisiting_at_tpu.models import ConvStem1 as JaxConvStem1
 from revisiting_at_tpu.models import get_model as jax_get_model
@@ -18,7 +19,7 @@ from revisiting_at_tpu.train import schedule as jsched
 from revisiting_at_tpu.train.state import TrainState as JaxState
 from revisiting_at_tpu.train.train_step import make_train_step as jax_make_train_step
 from revisiting_at_tpu_torch.ckpt.convert import jax_params_to_state_dict, load_state_dict
-from revisiting_at_tpu_torch.data import MixupConfig, MixupDraws
+from revisiting_at_tpu_torch.data import AugmentDraws, MixupConfig, MixupDraws
 from revisiting_at_tpu_torch.models import ConvNeXt, ConvStem1
 from revisiting_at_tpu_torch.models import get_model as torch_get_model
 from revisiting_at_tpu_torch.train import (LRConfig, TrainState, ema_init, make_lr_schedule,
@@ -166,6 +167,44 @@ def jax_mixup_draws(seed, cfg):
             float(jax.random.beta(k_lam_c, cfg.cutmix_alpha, cfg.cutmix_alpha)),
             int(jax.random.randint(ky, (), 0, h)), int(jax.random.randint(kx, (), 0, w)))
     return draws
+
+
+def jax_augment_draws(rng, b, h, w, cfg=jaug.RandAugmentConfig(), re_prob=0.25, hflip=0.5):
+    """AugmentDraws replaying JAX's augment_batch(rng, ...) on b images of
+    h x w: its key layout split(rng, 3b) -> keys[0] flip, keys[1, 0]
+    RandAugment (fold_in(layer), split 4), keys[2] erasing (split 6), and
+    the erasing noise of the images that erase (augment.py:412-418,
+    444-458)."""
+    keys = jax.random.split(rng, 3 * b).reshape(3, b, -1)
+    flip = [bool(jax.random.bernoulli(keys[0, i], hflip)) for i in range(b)]
+    layers = []
+    for layer in range(cfg.num_layers):
+        k_op, k_apply, k_lvl, k_sign = jax.random.split(jax.random.fold_in(keys[1, 0], layer), 4)
+        layers.append((
+            jax.random.randint(k_op, (b,), 0, jaug.N_OPS),
+            jnp.clip(cfg.magnitude + cfg.mstd * jax.random.normal(k_lvl, (b,)), 0.0, 10.0),
+            jnp.where(jax.random.bernoulli(k_sign, shape=(b,)), 1.0, -1.0),
+            jax.random.bernoulli(k_apply, cfg.prob, (b,))))
+    erase, target, log_r, top, left, noise = [], [], [], [], [], []
+    for i in range(b):
+        ks = jax.random.split(keys[2, i], 6)
+        t = h * w * jax.random.uniform(ks[1], minval=0.02, maxval=1.0 / 3.0)
+        lr = jax.random.uniform(ks[2], minval=jnp.log(0.3), maxval=jnp.log(1.0 / 0.3))
+        eh = jnp.clip(jnp.round(jnp.sqrt(t * jnp.exp(lr))), 1, h).astype(jnp.int32)
+        ew = jnp.clip(jnp.round(jnp.sqrt(t / jnp.exp(lr))), 1, w).astype(jnp.int32)
+        erase.append(bool(jax.random.bernoulli(ks[0], re_prob)))
+        target.append(float(t))
+        log_r.append(float(lr))
+        top.append(int(jax.random.randint(ks[3], (), 0, jnp.maximum(h - eh, 1))))
+        left.append(int(jax.random.randint(ks[4], (), 0, jnp.maximum(w - ew, 1))))
+        if erase[-1]:
+            noise.append(np.asarray(jax.random.normal(ks[5], (h, w, 3), jnp.float32)))
+    T = lambda v, dt: torch.from_numpy(np.array(v, dt))  # noqa: E731
+    per_layer = [np.stack([np.asarray(lay[j]) for lay in layers]) for j in range(4)]
+    return AugmentDraws(T(flip, bool), T(per_layer[0], np.int64), T(per_layer[1], np.float32),
+                        T(per_layer[2], np.float32), T(per_layer[3], bool), T(erase, bool),
+                        T(target, np.float32), T(log_r, np.float32), T(top, np.int64),
+                        T(left, np.int64), T(np.stack(noise), np.float32) if noise else None)
 
 
 def jax_attack_draws(seed):

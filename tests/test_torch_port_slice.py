@@ -102,7 +102,7 @@ def test_eval_cli_on_cpu(run_dir):
 
 @pytest.mark.parametrize("extra,err", [
     (["--device", "cpu", "--tp", "2"], SystemExit),
-    (["--device", "cpu", "--data_dir", "/nonexistent"], NotImplementedError),
+    (["--device", "cpu", "--data_dir", "/nonexistent"], FileNotFoundError),
     (["--device", "cpu", "--full_aa", "1", "--synthetic"], NotImplementedError),
     (["--device", "cpu", "--torch_ckpt", ""], SystemExit),
 ])
@@ -128,7 +128,8 @@ def test_port_never_imports_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'revisiting_at_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'revisiting_at_tpu', 'tensorflow', "
+        "'torchvision')]\n"
         "assert len(mods) >= 20 and not bad, (len(mods), bad)\n"
         "print(len(mods))\n"
     )

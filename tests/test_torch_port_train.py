@@ -29,9 +29,10 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from _torch_port_util import (NCLS, TAIL_ARGS, images, jax_mixup_draws, jax_mixup_key,
-                              jax_params, jax_tail_cotangents, rel_err, step_mismatches,
-                              tail_inputs)
+from _torch_port_util import (NCLS, TAIL_ARGS, images, jax_augment_draws, jax_mixup_draws,
+                              jax_mixup_key, jax_params, jax_step_key, jax_tail_cotangents,
+                              rel_err, step_mismatches, tail_inputs)
+from revisiting_at_tpu.data import augment as jaug
 from revisiting_at_tpu.data import mixup as jmix
 from revisiting_at_tpu.models import get_model as jax_get_model
 from revisiting_at_tpu.train import ema as jema
@@ -45,7 +46,7 @@ from revisiting_at_tpu_torch.ckpt.convert import jax_params_to_state_dict, load_
 from revisiting_at_tpu_torch.cli import eval as eval_cli
 from revisiting_at_tpu_torch.cli import train as train_cli
 from revisiting_at_tpu_torch.config import config_from_args
-from revisiting_at_tpu_torch.data import MixupConfig, draw_mixup, mixup_cutmix
+from revisiting_at_tpu_torch.data import MixupConfig, RandAugmentConfig, draw_mixup, mixup_cutmix
 from revisiting_at_tpu_torch.models import get_model
 from revisiting_at_tpu_torch.models.convnext import ConvNeXtBlock, drop_path_keep
 from revisiting_at_tpu_torch.ops import block_mlp as tbm
@@ -249,16 +250,17 @@ def jax_trajectory():
     return params, out
 
 
-def _port_step(params, *, learning_rate=None):
+def _port_step(params, *, learning_rate=None, augment_draws=None, use_pallas=True):
     model, _ = get_model("convnext_micro", not_original=True, num_classes=NCLS,
-                         dtype=torch.float32, use_pallas=True)
+                         dtype=torch.float32, use_pallas=use_pallas)
     load_state_dict(model, jax_params_to_state_dict(params, "convnext_micro"))
     opt = make_optimizer(model, weight_decay=WD, family="convnext",
                          learning_rate=learning_rate or make_lr_schedule(LRConfig(**LR), 2))
     state = TrainState(model, opt, ema_init(model))
     cfg = MixupConfig(num_classes=NCLS)
+    aug = dict(randaug=RandAugmentConfig(), augment_draws=augment_draws) if augment_draws else {}
     step = make_train_step(model, adv=AdvConfig(attack="apgd", n_iter=2), mixup=cfg,
-                           ema_decay=EMA, seed=0, mixup_draws=jax_mixup_draws(0, cfg))
+                           ema_decay=EMA, seed=0, mixup_draws=jax_mixup_draws(0, cfg), **aug)
     return state, step
 
 
@@ -272,6 +274,38 @@ def test_train_step_matches_jax(jax_trajectory):
     state, step = _port_step(params)
     assert _step_mismatches(state, step, trajectory) == []
     assert state.step == STEPS and state.optimizer.count == STEPS
+
+
+def test_train_step_with_randaug_matches_jax():
+    """One step of the full recipe on a uint8 batch: RandAugment, erasing
+    and flip (JAX's key 3 of the step, replayed), then mixup and 2-step
+    APGD, against the JAX step at the tolerances above; the block tail's
+    plain path on both sides (the fused tail's parity is the test above)."""
+    jm, _ = jax_get_model("convnext_micro", not_original=True, num_classes=NCLS,
+                          dtype=jnp.float32)
+    params = jax_params("convnext_micro", True, 32, 0)
+    tx = jopt.make_optimizer(optimizer="adamw", weight_decay=WD, family="convnext",
+                             learning_rate=jsched.make_lr_schedule(jsched.LRConfig(**LR), 2),
+                             params=params)
+    state = JaxState(step=jnp.zeros((), jnp.int32), params=params, opt_state=tx.init(params),
+                     ema_params=jema.ema_init(params))
+    step = jax_make_train_step(jm, tx, adv=JaxAdv(attack="apgd", n_iter=2),
+                               mixup=jmix.MixupConfig(num_classes=NCLS),
+                               randaug=jaug.RandAugmentConfig(), ema_decay=EMA, seed=0,
+                               donate=False)
+    x = (images(n=4, seed=3) * 255).astype(np.uint8)
+    y = np.random.RandomState(4).randint(0, NCLS, 4).astype(np.int32)
+    state, metrics = step(state, jnp.asarray(x), jnp.asarray(y))
+    trajectory = [({k: float(v) for k, v in metrics.items()},
+                   jax_params_to_state_dict(jax.tree.map(np.asarray, state.params),
+                                            "convnext_micro"),
+                   jax_params_to_state_dict(jax.tree.map(np.asarray, state.ema_params),
+                                            "convnext_micro"))]
+    draws = jax_augment_draws(jax_step_key(0, 0, 3), 4, 32, 32)
+    assert draws.apply.any() and draws.flip.any()  # the step augments
+    port_state, port_step = _port_step(params, augment_draws=lambda step, b, h, w: draws,
+                                       use_pallas=False)
+    assert step_mismatches(port_state, port_step, trajectory, x, y) == []
 
 
 @pytest.mark.parametrize("fault", ["flipped_wd_mask", "lr_one_step_late"])
@@ -393,8 +427,11 @@ def test_train_cli_end_to_end_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("extra,err", [
-    (["--data.augmentations", "1"], NotImplementedError),
-    (["--data.dataset", "folder"], NotImplementedError),
+    # image folders and augmentation run now: a missing folder, or a folder
+    # run without its train root, is refused
+    (["--data.augmentations", "1", "--data.dataset", "folder", "--data.train_dataset",
+      "/nonexistent"], FileNotFoundError),
+    (["--data.dataset", "folder"], SystemExit),
     (["--dist.fsdp", "2"], NotImplementedError),
     (["--dist.multihost", "1"], NotImplementedError),
     (["--validation.adv_val_freq", "1"], NotImplementedError),
