@@ -127,10 +127,28 @@ Phases, each fatal on failure:
      batches in flight at the epoch's start are used up; (e)
      `cli.eval.main --data_dir` on the val folder with its EMA weights;
      then the fork server and the loader workers are stopped, and no
-     process this run started may be left running.
+     process this run started may be left running;
+ 17. full AutoAttack (APGD-CE, APGD-T, FAB-T, Square): (a) `cli.eval.main
+     --full_aa 1 --use_pallas 1` on phase 4's ConvNeXt-T-CvSt run at 224 px,
+     16 images labelled by the model, Linf and L2 with tiny --l_epss so
+     that every attack has a worklist, --save_imgs (each .npy inside its
+     eps-ball and the box), 5 iterations, 50 queries; (b) FAB-T alone (10
+     iterations, one target) and Square alone (50 queries) through
+     AutoAttack at batch 200, Linf 4/255, the kernels and use_pallas=0 in
+     turns, ms per iteration or query, points broken, the kernel path
+     profiled (device busy share); FAB-T must launch the tail's forward and input
+     backward, Square the forward and no backward; the iteration's two
+     Linf projections timed alone; (c) on a small f32 tanh MLP, the card
+     against the CPU within the CPU tests' tolerances: FAB (3 norms, 20
+     iterations), each iteration a step of the card from the CPU's carry
+     (the card's own trajectory logged), and Square (3 norms, 30 queries)
+     with the same draws; (d) `cli.runner` with one job on the card, after
+     which no process it started may be left; (e) `cli.eval.main
+     --full_aa 1` on phase 9's ViT-S-CvSt, 8 images labelled by the model,
+     which must launch the attention's forward and both backward passes.
 
 The launch counters are zeroed just before each path (phases 4-5, 6, 7, 9,
-10, 11, 13, 14 and 16) and read just after it: every kernel the path runs must
+10, 11, 13, 14, 16 and 17) and read just after it: every kernel the path runs must
 have launched there. The `launches` of the kernels line are phase 6's for
 the block tail, phase 10's for the attention and phase 13's training step
 for the dwconv. The second-to-last line is a
@@ -1723,6 +1741,283 @@ def _recipe_phase(torch, np, tmp, init, seed, label) -> None:
         + ", ".join(f"({k}) {v:.1f} s" for k, v in took.items()))
 
 
+# -------------------------------------------------------------- phase 17
+
+FULL_AA_BATCH = 200  # AutoAttack's batch
+FAB_ITERS, SQUARE_QUERIES = 10, 50  # phase 17 (b): one FAB target, Square's queries
+
+
+def eval_model(torch, arch, weights, use_pallas=True, img_size=224):
+    """The bf16 model cli.eval builds from a run, on the card, input-only tail backward."""
+    from revisiting_at_tpu_torch.ckpt.convert import load_torch_checkpoint
+    from revisiting_at_tpu_torch.models import get_model
+    from revisiting_at_tpu_torch.train.train_step import input_grad_view
+
+    m, _ = get_model(arch, not_original=True, dtype=torch.bfloat16, use_pallas=use_pallas,
+                     img_size=img_size)
+    load_torch_checkpoint(weights, m)
+    return input_grad_view(m.cuda().eval().requires_grad_(False))
+
+
+def predicted(torch, np, model, x, bs=50) -> "np.ndarray":
+    """The model's own labels for x (NHWC f32 numpy), so that every point starts robust."""
+    out = []
+    with torch.no_grad():
+        for i in range(0, len(x), bs):
+            out.append(model(torch.from_numpy(x[i:i + bs]).cuda()).argmax(-1).cpu().numpy())
+    return np.concatenate(out)
+
+
+def own_labels(torch, np, eval_cli, model, argv):
+    """The eval set cli.eval.main(argv) loads, labelled with `model`'s
+    predictions (a random-weight model is right about no random label, and
+    the attacks run only on points it gets right). Run before the counts are
+    set to 0, so that these launches are not counted with cli.eval's."""
+    from revisiting_at_tpu_torch.config import load_params_json
+
+    args = eval_cli.get_args(argv)
+    x, _ = eval_cli.load_eval_set(
+        args, load_params_json(Path(args.run_dir) / "params.json").data.num_classes)
+    return x, predicted(torch, np, model, x)
+
+
+def eval_on(eval_cli, argv, x, y):
+    """cli.eval.main(argv) on the eval set (x, y) in place of the one it loads."""
+    load = eval_cli.load_eval_set
+    eval_cli.load_eval_set = lambda args, num_classes: (x, y)
+    try:
+        return eval_cli.main(argv)
+    finally:
+        eval_cli.load_eval_set = load
+
+
+def attacks_in_log(path: Path, start: int) -> list[str]:
+    """The 'robust accuracy after <ATTACK>' lines written to a log after its line `start`."""
+    lines = path.read_text().splitlines()[start:] if path.exists() else []
+    return [line for line in lines if line.startswith("robust accuracy after")]
+
+
+def check_saved(np, res, x, norm, eps) -> float:
+    """The .npy x_adv that cli.eval saved for norm: shape, finite, the eps-ball
+    and the box. Returns its largest perturbation."""
+    adv = np.load(res[norm]["adv_path"], mmap_mode="r")
+    d = (np.asarray(adv) - x).reshape(len(x), -1)
+    size = float((np.abs(d).max(1) if norm == "Linf" else np.sqrt((d * d).sum(1))).max())
+    if adv.shape != x.shape or not np.isfinite(adv).all():
+        raise AssertionError(f"saved {norm} x_adv: shape {adv.shape} or non-finite values")
+    if size > eps * 1.001 + 1e-6 or adv.min() < 0 or adv.max() > 1:
+        raise AssertionError(f"saved {norm} x_adv leaves the eps ball ({size} > {eps}) or the box")
+    return size
+
+
+def fab_against_cpu(torch, fab, mlp, xs, ys, yt, norm, n_iter) -> None:
+    """FAB on the card against the CPU, one target. Each iteration the card
+    steps from the CPU's carry, and its carry must agree with the CPU's
+    within the CPU tests' tolerances (res rtol 2e-3, atol 1e-5; x1 and
+    x_best atol 2e-3): that holds the math of every step. The card's own
+    trajectory is compared at the end and only logged: a misclassification
+    decided at the boundary (FAB walks along it) can go the other way after
+    a few iterations of 1e-6 differences, and the trajectories then part."""
+    cpu = fab.fab_single_init(xs)
+    own = fab.fab_single_init(xs.cuda())
+    args = lambda dev: (mlp(dev), xs.to(dev), ys.to(dev), yt.to(dev))  # noqa: E731
+    worst = [0.0, 0.0]
+    for it in range(n_iter):
+        step = fab.fab_single_chunk(*args("cuda"), tuple(t.cuda() for t in cpu), 1, norm=norm)
+        cpu = fab.fab_single_chunk(*args("cpu"), cpu, 1, norm=norm)
+        own = fab.fab_single_chunk(*args("cuda"), own, 1, norm=norm)
+        x1, xb, res = (t.cpu() for t in step)
+        e_x = max((x1 - cpu[0]).abs().max().item(), (xb - cpu[1]).abs().max().item())
+        e_res = (res - cpu[2]).abs().max().item()
+        worst = [max(worst[0], e_x), max(worst[1], e_res)]
+        if not (e_x <= 2e-3 and torch.allclose(res, cpu[2], rtol=2e-3, atol=1e-5)):
+            raise AssertionError(f"FAB {norm} iteration {it}: the card's step from the CPU's "
+                                 f"carry disagrees with the CPU's (x {e_x:.3e}, res {e_res:.3e})")
+    found = cpu[2] < 1e9
+    own_res = (own[2].cpu() - cpu[2]).abs().max().item()
+    own_x = (own[1].cpu() - cpu[1])[found].abs().max().item() if found.any() else 0.0
+    log(f"phase 17 (c) FAB {norm} card vs CPU, {n_iter} iterations, {int(found.sum())}/8 points "
+        f"found: each step from the CPU's carry within x {worst[0]:.3e}, res {worst[1]:.3e}; "
+        f"the card's own trajectory at the end: x_best max_abs_err {own_x:.3e}, res "
+        f"{own_res:.3e}")
+
+
+def full_aa_phase(torch, np, repo, seed, label) -> None:
+    """Phase 17: full AutoAttack (APGD-CE, APGD-T, FAB-T, Square) through
+    cli.eval on ConvNeXt-T-CvSt and ViT-S-CvSt, FAB-T and Square alone at
+    batch 200 (kernels and use_pallas=0 in turns), the attack math on the
+    card against the CPU, and cli.runner."""
+    from revisiting_at_tpu_torch.cli import eval as eval_cli
+    from revisiting_at_tpu_torch.cli import runner
+    from revisiting_at_tpu_torch.evals import AutoAttack, AutoAttackConfig, TorchSquareDraws
+    from revisiting_at_tpu_torch.evals import fab, square
+
+    took = {}
+    run_dir, vit_dir = repo / "build" / "smoke_run", repo / "build" / "smoke_run_vit"
+    weights = run_dir / "weights.pt"
+    # points must survive APGD for FAB-T and Square to have a worklist
+    epss = {"Linf": 0.1 / 255.0, "L2": 0.05}
+
+    # (a) cli.eval --full_aa 1 on phase 4's run, labels the model's own
+    t0 = time.time()
+    fused = eval_model(torch, "convnext_tiny", weights)
+    log_path = run_dir / "evaluated_logs_Linf,L2_1.txt"
+    start = len(log_path.read_text().splitlines()) if log_path.exists() else 0
+    argv = ["--run_dir", str(run_dir), "--torch_ckpt", str(weights), "--use_pallas", "1",
+            "--synthetic", "--full_aa", "1", "--l_norms", "Linf,L2",
+            "--l_epss", f"{epss['Linf']:.8f},{epss['L2']}", "--save_imgs", "--n_ex", "16",
+            "--batch_size", "16", "--img_size", "224", "--n_iter", "5", "--square_queries",
+            "50", "--device", "cuda"]
+    x_eval, y_eval = own_labels(torch, np, eval_cli, fused, argv)
+    zero_launches()
+    res = eval_on(eval_cli, argv, x_eval, y_eval)
+    require_launches("the full-AA eval path (phase 17 (a))", ("block_mlp_fwd",
+                                                              "block_mlp_bwd_input"))
+    after = attacks_in_log(log_path, start)
+    log(f"phase 17 (a) cli.eval --full_aa 1: {res}; {after}")
+    if [line.split(":")[0].split()[-1] for line in after] != ["APGD-CE", "APGD-T", "FAB-T",
+                                                               "SQUARE"] * 2:
+        raise AssertionError(f"cli.eval --full_aa 1 did not run all four attacks on both norms: "
+                             f"{after}")
+    for norm, eps in epss.items():
+        size = check_saved(np, res, x_eval, norm, eps)
+        log(f"phase 17 (a) saved {norm} x_adv {res[norm]['adv_path']}: largest perturbation "
+            f"{size:.6f} <= eps {eps:.6f}")
+    took["a"] = time.time() - t0
+
+    # (b) FAB-T and Square alone at batch 200, the kernels and use_pallas=0 in turns
+    t0 = time.time()
+    models = {"kernels": fused, "plain": eval_model(torch, "convnext_tiny", weights, False)}
+    x = np.random.RandomState(seed + 17).uniform(0, 1, (FULL_AA_BATCH, 224, 224, 3)) \
+        .astype(np.float32)
+    y = predicted(torch, np, fused, x)
+    eps = 4.0 / 255.0
+
+    def attack(name, kind, n):
+        cfg = AutoAttackConfig(norm="Linf", eps=eps, attacks_to_run=(kind,), n_iter=n,
+                               n_target_classes=1, square_n_queries=n,
+                               batch_size=FULL_AA_BATCH, seed=seed, verbose=False)
+        return AutoAttack(models[name], cfg, device="cuda")
+
+    for kind, n, what in (("fab-t", FAB_ITERS, "iteration"), ("square", SQUARE_QUERIES, "query")):
+        for name in models:  # warm-up: the first launches, the library's autotuning
+            attack(name, kind, 2)._run_attack(kind, 0, x, y)
+        times = {name: [] for name in models}
+        broke = {}
+        zero_launches()
+        for name in ("kernels", "plain", "plain", "kernels"):
+            aa = attack(name, kind, n)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            _, flipped = aa._run_attack(kind, 0, x, y)
+            times[name].append((time.time() - t1) * 1000 / n)
+            broke[name] = int(flipped.sum())
+        launches = require_launches(
+            f"{kind} alone at B={FULL_AA_BATCH} (phase 17 (b))",
+            ("block_mlp_fwd", "block_mlp_bwd_input") if kind == "fab-t" else ("block_mlp_fwd",))
+        if kind == "square" and launches["block_mlp_bwd_input"]:
+            raise AssertionError("Square launched the input backward: it makes no gradient")
+        extra = ("the target class's forward" if kind == "fab-t" else "the init query")
+        for name, v in times.items():
+            log(f"{kind} convnext_tiny+ConvStem bf16 B={FULL_AA_BATCH} 224px Linf 4/255 ({name}): "
+                f"{sum(v) / len(v):.2f} ms per {what} (runs {', '.join('%.2f' % t for t in v)}; "
+                f"{extra} included), broke {broke[name]}/{FULL_AA_BATCH} {label}")
+        t1 = time.time()
+        profile_breakdown(torch, f"{kind} B={FULL_AA_BATCH} (kernels), {n} {what}s",
+                          lambda: attack("kernels", kind, n)._run_attack(kind, 0, x, y), 1, label)
+        log(f"phase 17 (b) {kind}: profile {time.time() - t1:.1f} s")
+        if kind == "fab-t":
+            # the iteration's two box-and-hyperplane projections alone (Linf:
+            # 30 bisection steps each), on a gradient-shaped w
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            t = torch.from_numpy(x).cuda().reshape(FULL_AA_BATCH, -1)
+            w = torch.randn(t.shape, generator=gen, device="cuda")
+            b = (w * t).sum(1) - 0.5 * w.abs().sum(1) * eps
+            def both():
+                return fab._project(t, w, b, "Linf"), fab._project(t, w, b, "Linf")
+            log(f"fab-t B={FULL_AA_BATCH}: the two Linf projections of an iteration "
+                f"{time_ms(torch, both, 5):.2f} ms (device {ms_or_na(device_ms(torch, both, 5))} "
+                f"ms) {label}")
+            del t, w, b
+    del models, x, y
+    torch.cuda.empty_cache()
+    took["b"] = time.time() - t0
+
+    # (c) the attack math on the card against the CPU: a tanh MLP in f32, the same draws
+    t0 = time.time()
+    rng = np.random.RandomState(seed)
+    w1 = torch.from_numpy(rng.randn(300, 24).astype(np.float32) * 0.1)
+    w2 = torch.from_numpy(rng.randn(24, 7).astype(np.float32) * 0.8)
+    xs = torch.from_numpy(rng.uniform(0.25, 0.75, (8, 10, 10, 3)).astype(np.float32))
+
+    def mlp(dev):
+        a, b = w1.to(dev), w2.to(dev)
+        return lambda z: torch.tanh(z.reshape(z.shape[0], -1) @ a) @ b
+
+    ys = mlp("cpu")(xs).argmax(-1)
+    yt = mlp("cpu")(xs).argsort(-1)[:, -2]
+    for norm in ("Linf", "L2", "L1"):
+        fab_against_cpu(torch, fab, mlp, xs, ys, yt, norm, 20)
+        eps_n = {"Linf": 0.05, "L2": 1.5, "L1": 12.0}[norm]
+        kw = dict(norm=norm, eps=eps_n, n_queries=30)
+        x_ref, acc_ref = square.square_attack(mlp("cpu"), xs, ys,
+                                              draws=TorchSquareDraws(seed, "cpu"), **kw)
+        x_got, acc_got = square.square_attack(mlp("cuda"), xs.cuda(), ys.cuda(),
+                                              draws=TorchSquareDraws(seed, "cpu", "cuda"), **kw)
+        e_sq = (x_got.cpu() - x_ref).abs().max().item()
+        tol = 1e-6 if norm == "Linf" else 1e-5
+        log(f"phase 17 (c) Square {norm} card vs CPU, 30 queries: x max_abs_err {e_sq:.3e} "
+            f"(tolerance {tol:.0e}), acc equal {torch.equal(acc_got.cpu(), acc_ref)}, "
+            f"{int((~acc_ref).sum())}/8 broken")
+        if not (e_sq <= tol and torch.equal(acc_got.cpu(), acc_ref)):
+            raise AssertionError(f"Square {norm} on the card disagrees with the CPU")
+    took["c"] = time.time() - t0
+
+    # (d) cli.runner, one job on the card, then no process of it left
+    t0 = time.time()
+    cwd = os.getcwd()
+    os.chdir(repo)  # the job imports the package from the checkout
+    try:
+        runner.main(["--runs", str(run_dir), "--l_norms", "Linf", "--img_sizes", "224",
+                     "--full_aa", "1", "--n_ex", "8", "--batch_size", "8", "--",
+                     "--torch_ckpt", str(weights), "--use_pallas", "1", "--synthetic",
+                     "--n_iter", "2", "--square_queries", "5", "--device", "cuda"])
+    finally:
+        os.chdir(cwd)
+    left = descendants()
+    if left:
+        raise AssertionError(f"processes still running after cli.runner: {left}")
+    took["d"] = time.time() - t0
+
+    # (e) cli.eval --full_aa 1 on phase 9's ViT-S-CvSt, labels the model's own
+    t0 = time.time()
+    del fused
+    torch.cuda.empty_cache()
+    vit = eval_model(torch, "vit_s", vit_dir / "weights.pt")
+    log_path = vit_dir / "evaluated_logs_Linf_1.txt"
+    start = len(log_path.read_text().splitlines()) if log_path.exists() else 0
+    argv = ["--run_dir", str(vit_dir), "--torch_ckpt", str(vit_dir / "weights.pt"),
+            "--use_pallas", "1", "--synthetic", "--full_aa", "1", "--l_norms", "Linf",
+            "--l_epss", f"{epss['Linf']:.8f}", "--n_ex", "8", "--batch_size", "8",
+            "--img_size", "224", "--n_iter", "2", "--square_queries", "10", "--device", "cuda"]
+    x_eval, y_eval = own_labels(torch, np, eval_cli, vit, argv)
+    del vit
+    zero_launches()
+    res = eval_on(eval_cli, argv, x_eval, y_eval)
+    require_launches("the ViT full-AA eval path (phase 17 (e))",
+                     ATT_KERNELS + ("block_mlp_fwd", "block_mlp_bwd_input"))
+    after = attacks_in_log(log_path, start)
+    log(f"phase 17 (e) cli.eval --full_aa 1 vit_s: {res}; {after}")
+    if [line.split(":")[0].split()[-1] for line in after] != ["APGD-CE", "APGD-T", "FAB-T",
+                                                               "SQUARE"]:
+        raise AssertionError(f"cli.eval --full_aa 1 on the ViT did not run all four attacks: "
+                             f"{after}")
+    torch.cuda.empty_cache()
+    took["e"] = time.time() - t0
+    log(f"phase 17: {sum(took.values()):.1f} s; "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in took.items()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2287,6 +2582,9 @@ def main(argv=None) -> int:
     if left:
         raise AssertionError(f"processes still running after the last phase: {left}")
     log("no process of this run is left running")
+
+    # ---------------------------------------------------------------- 17
+    full_aa_phase(torch, np, repo, args.seed, label)
 
     kernels = [dict(name=f"block_mlp_{k}", route="cuda", source=SOURCE[f"block_mlp_{k}"],
                     replaces=REPLACES[f"block_mlp_{k}"], launches=step_launches[f"block_mlp_{k}"],

@@ -9,9 +9,21 @@ the strict load (bicubic, models/pos_embed.py; unchanged if it matches).
 
 Usage:
   python -m revisiting_at_tpu_torch.cli.eval --run_dir runs/<run> \
-      --torch_ckpt weights.pt [--l_norms Linf] [--n_ex 5000] [--batch_size 200] \
-      [--n_iter 100] [--use_pallas 1] [--data_dir <imagenet>/val | --synthetic] \
+      --torch_ckpt weights.pt [--l_norms Linf,L2] [--l_epss 4,2] [--full_aa 1] \
+      [--n_ex 5000] [--batch_size 200] [--n_iter 100] [--square_queries 5000] \
+      [--save_imgs] [--use_pallas 1] [--data_dir <imagenet>/val | --synthetic] \
       [--device cuda]
+
+--full_aa 1 runs standard AutoAttack (APGD-CE, APGD-T, FAB-T, Square),
+0 its short mode (APGD-CE, APGD-T). --l_epss gives one eps per norm of
+--l_norms (a Linf eps above 1 is in 1/255) and overrides --eps.
+--save_imgs writes each norm's x_adv to
+<run_dir>/aa_adv_{n_ex}_{norm}_{eps:.5f}.npy through a memmap.
+--stem_s2d is accepted and does nothing: the JAX package's space-to-depth
+stem convolution computes what the plain convolution does. So are
+--fab_iter_chunk and --square_query_chunk: the JAX package splits FAB and
+Square into compiled programs of that many iterations or queries, which
+changes no result; here the attacks run eagerly, one launch at a time.
 
 --data_dir reads the first --n_ex images by basename of an ImageFolder tree
 (the robustbench subset) through the eval transform of data/folder.py:
@@ -43,6 +55,8 @@ def get_args(argv=None):
     p.add_argument("--n_ex", type=int, default=5000)
     p.add_argument("--l_norms", type=str, default="Linf", help="comma-separated")
     p.add_argument("--eps", type=float, default=None)
+    p.add_argument("--l_epss", type=str, default="",
+                   help="comma-separated eps per norm, aligned with --l_norms; overrides --eps")
     p.add_argument("--full_aa", type=int, default=0)
     p.add_argument("--img_size", type=int, default=224)
     p.add_argument("--data_dir", type=str, default="",
@@ -50,10 +64,22 @@ def get_args(argv=None):
     p.add_argument("--synthetic", action="store_true",
                    help="evaluate on random images (smoke tests only: numbers are meaningless)")
     p.add_argument("--only_clean", action="store_true")
+    p.add_argument("--save_imgs", action="store_true",
+                   help="write x_adv of each norm to <run_dir>/aa_adv_{n_ex}_{norm}_{eps}.npy")
     p.add_argument("--n_iter", type=int, default=100)
+    p.add_argument("--square_queries", type=int, default=5000,
+                   help="Square attack query budget (autoattack n_queries)")
+    p.add_argument("--fab_iter_chunk", type=int, default=50,
+                   help="accepted for the JAX CLI's sake; no effect (the attacks run eagerly)")
+    p.add_argument("--square_query_chunk", type=int, default=500,
+                   help="accepted for the JAX CLI's sake; no effect (the attacks run eagerly)")
     p.add_argument("--use_pallas", type=int, default=0,
                    help="the fused kernels: the block tail (ConvNeXt and ViT blocks) and "
                         "the ViT attention")
+    p.add_argument("--wide_tail", type=int, default=-1,
+                   help="the fused tail past C = 512 in training mode; -1: on for convnext_large")
+    p.add_argument("--stem_s2d", type=int, default=0,
+                   help="accepted for the JAX CLI's sake; no effect (the plain stem conv)")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--shard_eval", type=int, default=0)
     p.add_argument("--tp", type=int, default=0)
@@ -98,6 +124,11 @@ def main(argv=None) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but CUDA is not available (pass --device cpu "
                          "to evaluate on the CPU)")
+    norms = args.l_norms.split(",")
+    epss = [float(e) for e in args.l_epss.split(",")] if args.l_epss else None
+    if epss is not None and len(epss) != len(norms):
+        raise SystemExit(f"--l_epss has {len(epss)} values for the {len(norms)} norms of "
+                         f"--l_norms: give one eps per norm")
     if not args.torch_ckpt:
         raise SystemExit(
             f"no --torch_ckpt: export the run first with `python -m "
@@ -119,6 +150,7 @@ def main(argv=None) -> dict:
         use_blurpool=bool(cfg.training.use_blurpool),
         add_normalization=bool(cfg.model.add_normalization),
         use_pallas=bool(args.use_pallas), img_size=args.img_size,
+        wide_tail=None if args.wide_tail < 0 else bool(args.wide_tail),
     )
     sd = read_torch_checkpoint(args.torch_ckpt)
     if meta.family == "vit":
@@ -129,27 +161,33 @@ def main(argv=None) -> dict:
     attack_view = input_grad_view(model)
 
     x, y = load_eval_set(args, cfg.data.num_classes)
-    norms = args.l_norms.split(",")
     logger = EvalLogger(str(run_dir / f"evaluated_logs_{args.l_norms}_{args.full_aa}.txt"))
 
     results = {}
-    for norm in norms:
-        eps = args.eps if args.eps is not None else EPS_DICT["imagenet"][norm]
+    for norm_idx, norm in enumerate(norms):
+        if epss is not None:
+            eps = epss[norm_idx]
+        else:
+            eps = args.eps if args.eps is not None else EPS_DICT["imagenet"][norm]
         if eps > 1 and norm == "Linf":
             eps /= 255.0
         attacks = STANDARD_ATTACKS if args.full_aa else SHORT_ATTACKS
         aa = AutoAttack(attack_view, AutoAttackConfig(
             norm=norm, eps=eps, attacks_to_run=attacks, n_iter=args.n_iter,
-            batch_size=args.batch_size), logger=logger, device=device)
+            square_n_queries=args.square_queries, batch_size=args.batch_size),
+            logger=logger, device=device)
         logger.log(f"norm={norm} eps={eps:.5f} attacks={attacks}")
         if args.only_clean:
             acc = float(aa.clean_accuracy(x, y).mean())
             logger.log(f"clean accuracy: {acc:.2%} ({len(x)} pts)")
             results[norm] = dict(eps=eps, clean=acc, n=len(x))
             continue
-        _, robust = aa.run_standard_evaluation(x, y)
+        out_path = run_dir / f"aa_adv_{args.n_ex}_{norm}_{eps:.5f}.npy" if args.save_imgs else None
+        _, robust = aa.run_standard_evaluation(x, y, out_path=out_path)
         logger.log(f"robust accuracy ({norm}): {robust.mean():.2%} ({len(x)} pts)")
         results[norm] = dict(eps=eps, robust=float(robust.mean()), n=len(x))
+        if out_path is not None:
+            results[norm]["adv_path"] = str(out_path)
     return results
 
 

@@ -5,6 +5,15 @@ from .autoattack import (
     AutoAttack,
     AutoAttackConfig,
     torch_noise,
+    torch_square_draws,
+)
+from .fab import fab_attack_single_target, fab_attack_targeted
+from .square import (
+    SquareDraws,
+    TorchSquareDraws,
+    square_attack,
+    square_attack_l1,
+    square_attack_l2,
 )
 
 __all__ = [
@@ -13,5 +22,13 @@ __all__ = [
     "STANDARD_ATTACKS",
     "AutoAttack",
     "AutoAttackConfig",
+    "SquareDraws",
+    "TorchSquareDraws",
+    "fab_attack_single_target",
+    "fab_attack_targeted",
+    "square_attack",
+    "square_attack_l1",
+    "square_attack_l2",
     "torch_noise",
+    "torch_square_draws",
 ]

@@ -8,12 +8,12 @@ robust indices are gathered, padded to the batch size, attacked on the
 device, and the flipped points scattered back into a sparse store. Every
 returned point is checked against the epsilon ball.
 
-The short mode (APGD-CE, APGD-T) is ported; FAB-T and Square wait for
-ROADMAP A8. Random starts come from `noise_fn(key, shape)`, where key is
-(attack index, batch start) for APGD-CE and (attack index, batch start,
-target index) for APGD-T: the JAX package's fold_in chain, so a test can
-inject JAX's draws. By default a torch.Generator seeded from (seed, *key)
-draws them.
+Random starts come from `noise_fn(key, shape)`, where key is (attack
+index, batch start) for APGD-CE and (attack index, batch start, target
+index) for APGD-T, and Square's draws from `square_draws(key)` with key
+(attack index, batch start): the JAX package's fold_in chain, so a test
+can inject JAX's draws. By default torch.Generators seeded from (seed,
+*key) draw them. FAB-T draws nothing.
 """
 
 from __future__ import annotations
@@ -26,6 +26,8 @@ import torch
 
 from ..attacks.apgd import apgd_attack, start_noise
 from ..ops.norms import check_imgs
+from .fab import fab_attack_targeted
+from .square import SquareDraws, TorchSquareDraws, square_attack
 
 EPS_DICT = {"imagenet": {"Linf": 4.0 / 255.0, "L2": 2.0, "L1": 75.0}}
 
@@ -33,6 +35,7 @@ STANDARD_ATTACKS = ("apgd-ce", "apgd-t", "fab-t", "square")
 SHORT_ATTACKS = ("apgd-ce", "apgd-t")
 
 NoiseFn = Callable[[tuple, tuple], torch.Tensor]
+SquareDrawsFn = Callable[[tuple], SquareDraws]
 
 
 def _unit(xb: np.ndarray) -> np.ndarray:
@@ -49,21 +52,32 @@ class AutoAttackConfig:
     attacks_to_run: Sequence[str] = STANDARD_ATTACKS
     n_iter: int = 100
     n_target_classes: int = 9
+    square_n_queries: int = 5000
     seed: int = 0
     batch_size: int = 200
     verbose: bool = True
 
 
+def seed_of(seed: int, key: tuple) -> int:
+    """A generator seed derived from seed and the integers of key."""
+    h = seed
+    for k in key:
+        h = (h * 1_000_003 + int(k) + 1) % (2 ** 63 - 1)
+    return h
+
+
 def torch_noise(seed: int, norm: str, device) -> NoiseFn:
     """Default start noise: a torch.Generator on `device` seeded from (seed, *key)."""
     def draw(key: tuple, shape: tuple) -> torch.Tensor:
-        h = seed
-        for k in key:
-            h = (h * 1_000_003 + int(k) + 1) % (2 ** 63 - 1)
         gen = torch.Generator(device=device)
-        gen.manual_seed(h)
+        gen.manual_seed(seed_of(seed, key))
         return start_noise(shape, norm, generator=gen, device=device)
     return draw
+
+
+def torch_square_draws(seed: int, device) -> SquareDrawsFn:
+    """Default Square draws: torch.Generators on `device` seeded from (seed, *key, query)."""
+    return lambda key: TorchSquareDraws(seed_of(seed, key), device)
 
 
 class AutoAttack:
@@ -74,16 +88,16 @@ class AutoAttack:
 
     def __init__(self, logits_fn: Callable[[torch.Tensor], torch.Tensor],
                  cfg: AutoAttackConfig, logger=None, noise_fn: NoiseFn | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 square_draws: SquareDrawsFn | None = None):
         for attack in cfg.attacks_to_run:
-            if attack in ("fab-t", "square"):
-                raise NotImplementedError(f"{attack}: ROADMAP A8")
-            if attack not in SHORT_ATTACKS:
+            if attack not in STANDARD_ATTACKS:
                 raise ValueError(f"unknown attack {attack!r}")
         self.cfg = cfg
         self.logits_fn = logits_fn
         self.device = torch.device(device)
         self.noise_fn = noise_fn or torch_noise(cfg.seed, cfg.norm, self.device)
+        self.square_draws = square_draws or torch_square_draws(cfg.seed, self.device)
         if logger is not None:
             self.log = logger.log
         elif cfg.verbose:
@@ -132,10 +146,11 @@ class AutoAttack:
         return out
 
     # --------------------------------------------------------- evaluation
-    def run_standard_evaluation(self, x: np.ndarray, y: np.ndarray):
-        """Returns (x_adv f32, robust mask). x is NHWC uint8 or f32 in [0, 1].
-        Only flipped points are held in f32 during the attacks; x_adv is
-        assembled batchwise at the end."""
+    def run_standard_evaluation(self, x: np.ndarray, y: np.ndarray, out_path=None):
+        """Returns (x_adv f32, robust mask). x is NHWC uint8 or f32 in [0, 1],
+        and is never written. Only flipped points are held in f32 during the
+        attacks; x_adv is assembled batchwise at the end, into a .npy memmap
+        at out_path when one is given (so the f32 set never sits in RAM)."""
         cfg = self.cfg
         x = np.asarray(x)
         y = np.asarray(y, np.int64)
@@ -180,9 +195,16 @@ class AutoAttack:
             rescored[i:i + n] = self._logits(xb).argmax(-1)[:n] == yb[:n]
         self.log(f"robust accuracy (re-scored on x_adv): {rescored.mean():.2%}")
 
-        x_adv = np.empty((len(x),) + tuple(x.shape[1:]), np.float32)
+        shape = (len(x),) + tuple(x.shape[1:])
+        if out_path is not None:
+            x_adv = np.lib.format.open_memmap(str(out_path), mode="w+", dtype=np.float32,
+                                              shape=shape)
+        else:
+            x_adv = np.empty(shape, np.float32)
         for i in range(0, len(x), bs):
             x_adv[i:i + bs] = batch_adv(i, i + bs)
+        if out_path is not None:
+            x_adv.flush()
         return x_adv, robust
 
     # ------------------------------------------------------------- attacks
@@ -194,6 +216,21 @@ class AutoAttack:
                           noise=self.noise_fn(key, tuple(xb.shape)).to(xb.device))
         return res.x_best_adv.cpu().numpy(), res.acc.cpu().numpy()
 
+    def _fab(self, xb, yb, targets):
+        """FAB-T over the targets: the best minimum-norm point, a success
+        where its distance is within eps."""
+        cfg = self.cfg
+        adv, success = fab_attack_targeted(self.logits_fn, xb, yb,
+                                           torch.from_numpy(targets).to(self.device),
+                                           norm=cfg.norm, eps=cfg.eps, n_iter=cfg.n_iter)
+        return adv.cpu().numpy(), success.cpu().numpy()
+
+    def _square(self, xb, yb, key):
+        cfg = self.cfg
+        adv, acc = square_attack(self.logits_fn, xb, yb, norm=cfg.norm, eps=cfg.eps,
+                                 n_queries=cfg.square_n_queries, draws=self.square_draws(key))
+        return adv.cpu().numpy(), acc.cpu().numpy()
+
     def _run_attack(self, attack: str, attack_idx: int, x: np.ndarray, y: np.ndarray):
         """One attack over the worklist subset. Returns (flipped f32 points in
         np.where(flipped) order, flipped mask aligned with x)."""
@@ -204,6 +241,7 @@ class AutoAttack:
         def keep(i, got, adv):
             for j in np.where(got)[0]:
                 store[i + int(j)] = adv[j]
+            flipped[i:i + len(got)] |= got
 
         for i in range(0, n, bs):
             xb, yb, nb = self._pad(x[i:i + bs], y[i:i + bs])
@@ -211,10 +249,8 @@ class AutoAttack:
             yb_t = torch.from_numpy(yb).to(self.device)
             if attack == "apgd-ce":
                 adv, acc = self._apgd(xb_t, yb_t, (attack_idx, i), "ce")
-                got = ~acc[:nb]
-                keep(i, got, adv[:nb])
-                flipped[i:i + nb] |= got
-            else:  # apgd-t
+                keep(i, ~acc[:nb], adv[:nb])
+            elif attack == "apgd-t":
                 targets = self._top_target_classes(xb)
                 still = np.ones(nb, bool)
                 for t in range(self.cfg.n_target_classes):
@@ -222,10 +258,16 @@ class AutoAttack:
                         break
                     yt = torch.from_numpy(targets[:, t].copy()).to(self.device)
                     adv, acc = self._apgd(xb_t, yb_t, (attack_idx, i, t), "dlr-targeted", yt)
-                    got = (~acc[:nb]) & still
-                    keep(i, got, adv[:nb])
-                    flipped[i:i + nb] |= got
+                    keep(i, (~acc[:nb]) & still, adv[:nb])
                     still &= acc[:nb]
+            elif attack == "fab-t":
+                adv, success = self._fab(xb_t, yb_t, self._top_target_classes(xb))
+                keep(i, success[:nb], adv[:nb])
+            elif attack == "square":
+                adv, acc = self._square(xb_t, yb_t, (attack_idx, i))
+                keep(i, ~acc[:nb], adv[:nb])
+            else:
+                raise ValueError(f"unknown attack {attack!r}")
 
         flipped_idx = np.where(flipped)[0]
         if len(flipped_idx):

@@ -94,6 +94,64 @@ def model_pair(arch="convnext_micro", *, not_original=False, use_pallas=False, i
     return jm, {"params": params}, tm.eval()
 
 
+def jax_fold_in_noise(seed):
+    """The JAX evaluator's APGD start draws: fold_in(PRNGKey(seed), *key), U(-1, 1)."""
+    def draw(key, shape):
+        k = jax.random.PRNGKey(seed)
+        for part in key:
+            k = jax.random.fold_in(k, part)
+        return torch.from_numpy(np.array(jax.random.uniform(k, shape, jnp.float32, -1.0, 1.0)))
+    return draw
+
+
+class JaxSquareDraws:
+    """SquareDraws replaying the JAX package's Square on key `rng`: its
+    split into (k_init, k_loop), the Linf stripes and per-query
+    fold_in/split/randint/bernoulli, and the L2/L1 `_init_randoms` and
+    `_iter_randoms` (revisiting_at_tpu/evals/square.py:124-146, 376-400);
+    tensors on `device`."""
+
+    def __init__(self, rng, device="cpu"):
+        self.k_init, self.k_loop = jax.random.split(rng)
+        self.device = device
+
+    def _t(self, a, dtype=np.float32):
+        return torch.from_numpy(np.array(a, dtype)).to(self.device)
+
+    def linf_init(self, b, w, c):
+        return self._t(np.where(jax.random.bernoulli(self.k_init, 0.5, (b, 1, w, c)), 1.0, -1.0))
+
+    def linf_query(self, it, b, c, h, w, s):
+        _, k_pos, k_sign = jax.random.split(jax.random.fold_in(self.k_loop, it), 3)
+        vh = jax.random.randint(k_pos, (b, 1, 1, 1), 0, h - s + 1)
+        vw = jax.random.randint(jax.random.fold_in(k_pos, 1), (b, 1, 1, 1), 0, w - s + 1)
+        signs = np.where(jax.random.bernoulli(k_sign, 0.5, (b, 1, 1, c)), 1.0, -1.0)
+        return (self._t(vh, np.int64).view(b), self._t(vw, np.int64).view(b), self._t(signs))
+
+    def grid_init(self, b, c, n_tiles):
+        from revisiting_at_tpu.evals.square import _init_randoms
+
+        coins, signs = _init_randoms(self.k_init, b, c, n_tiles)
+        return self._t(coins, bool), self._t(signs)
+
+    def lp_query(self, it, b, c):
+        from revisiting_at_tpu.evals.square import _iter_randoms
+
+        u, signs, transpose = _iter_randoms(self.k_loop, it, b, c)
+        return self._t(u), self._t(signs), self._t(transpose, bool)
+
+
+def jax_square_draws(seed):
+    """AutoAttack's square_draws(key) replaying the JAX driver's Square key,
+    fold_in(PRNGKey(seed), *key)."""
+    def draws(key):
+        k = jax.random.PRNGKey(seed)
+        for part in key:
+            k = jax.random.fold_in(k, part)
+        return JaxSquareDraws(k)
+    return draws
+
+
 def images(n=4, img=32, seed=1):
     rng = np.random.RandomState(seed)
     return rng.uniform(0, 1, size=(n, img, img, 3)).astype(np.float32)

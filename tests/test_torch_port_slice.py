@@ -24,7 +24,7 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from _torch_port_util import NCLS, images, model_pair
+from _torch_port_util import NCLS, images, jax_fold_in_noise, model_pair
 from revisiting_at_tpu.evals import AutoAttack as JaxAutoAttack
 from revisiting_at_tpu.evals import AutoAttackConfig as JaxConfig
 from revisiting_at_tpu_torch.ckpt.convert import save_torch_checkpoint
@@ -33,16 +33,6 @@ from revisiting_at_tpu_torch.evals import AutoAttack, AutoAttackConfig
 from revisiting_at_tpu_torch.models import get_model
 
 REPO = Path(__file__).resolve().parents[1]
-
-
-def jax_fold_in_noise(seed):
-    """The JAX evaluator's start draws: fold_in(PRNGKey(seed), *key), U(-1, 1)."""
-    def draw(key, shape):
-        k = jax.random.PRNGKey(seed)
-        for part in key:
-            k = jax.random.fold_in(k, part)
-        return torch.from_numpy(np.array(jax.random.uniform(k, shape, jnp.float32, -1.0, 1.0)))
-    return draw
 
 
 def test_short_autoattack_matches_jax():
@@ -63,9 +53,9 @@ def test_short_autoattack_matches_jax():
     np.testing.assert_allclose(x_adv[robust], x[robust])  # robust points untouched
 
 
-def test_unported_attacks_raise():
-    with pytest.raises(NotImplementedError, match="A8"):
-        AutoAttack(lambda t: t, AutoAttackConfig(attacks_to_run=("apgd-ce", "square")),
+def test_unknown_attack_raises():
+    with pytest.raises(ValueError, match="unknown attack"):
+        AutoAttack(lambda t: t, AutoAttackConfig(attacks_to_run=("apgd-ce", "fab")),
                    device="cpu")
 
 
@@ -103,7 +93,7 @@ def test_eval_cli_on_cpu(run_dir):
 @pytest.mark.parametrize("extra,err", [
     (["--device", "cpu", "--tp", "2"], SystemExit),
     (["--device", "cpu", "--data_dir", "/nonexistent"], FileNotFoundError),
-    (["--device", "cpu", "--full_aa", "1", "--synthetic"], NotImplementedError),
+    (["--device", "cpu", "--synthetic", "--l_norms", "Linf,L2", "--l_epss", "1"], SystemExit),
     (["--device", "cpu", "--torch_ckpt", ""], SystemExit),
 ])
 def test_eval_cli_refuses(run_dir, extra, err):
