@@ -145,11 +145,30 @@ Phases, each fatal on failure:
      with the same draws; (d) `cli.runner` with one job on the card, after
      which no process it started may be left; (e) `cli.eval.main
      --full_aa 1` on phase 9's ViT-S-CvSt, 8 images labelled by the model,
-     which must launch the attention's forward and both backward passes.
+     which must launch the attention's forward and both backward passes;
+ 18. the trainer's options and the checkpoints: (a) `cli.train.main` on
+     ConvNeXt-T-CvSt at 224 px, batch 80, 2 epochs of 4 synthetic batches,
+     with grad_accum 2, adversarial validation every epoch (2 APGD steps,
+     one val batch; run again alone, it must launch the tail's forward and
+     input backward), EMA, log_flops and profile_steps 2 (the chrome trace
+     must name the four tail kernels); then the same run dir without its
+     epoch-1 files, resumed with --model.ckpt_path: its epoch-1 full state
+     (weights, optimizer, EMA, step) must equal the first run's bit for bit,
+     or else lie within what a second uninterrupted run differs by; (c)
+     `cli.eval.main` on that run without --torch_ckpt, with --epoch 0
+     --use_ema 1 and with --best (each eval set labelled by the weights the
+     flags pick), and --use_ema 1 on a copy without EMA files, which must
+     fail; (b) phase 6's step with remat 0 and remat 1 from the same
+     weights: one step's loss and gradients within phase 6's step
+     tolerances, the tail forwards per step (69 and 120: the recomputed
+     forwards run the kernel), remat's peak memory above the resident
+     state below the other's; then both and a grad_accum 2 step in turns,
+     and profiled; (c) a ViT-S-CvSt step with remat at batch 32, which must
+     launch the attention and tail forwards 84 times a step.
 
 The launch counters are zeroed just before each path (phases 4-5, 6, 7, 9,
-10, 11, 13, 14, 16 and 17) and read just after it: every kernel the path runs must
-have launched there. The `launches` of the kernels line are phase 6's for
+10, 11, 13, 14, 16, 17 and 18) and read just after it: every kernel the
+path runs must have launched there. The `launches` of the kernels line are phase 6's for
 the block tail, phase 10's for the attention and phase 13's training step
 for the dwconv. The second-to-last line is a
 JSON object {"kernels": [...]}, the last {"ok": true, "device": {...}}.
@@ -594,7 +613,8 @@ def convnext_t_dwconv(torch, dtype, use_pallas: bool = True):
 
 def build_train_step(torch, state_dict, *, use_pallas: bool, device: str, seed: int,
                      arch: str = "convnext_tiny", dwconv: bool = False,
-                     attack: str = "apgd", randaug: bool = False, augment_draws=None):
+                     attack: str = "apgd", randaug: bool = False, augment_draws=None,
+                     remat: bool = False, grad_accum: int = 1):
     """The training step as bench.py builds it, on the port: the arch with
     ConvStem (ConvNeXt-T-CvSt, or ViT-S-CvSt for vit_s) in bf16 with f32
     params, AdamW(wd 0.05, the family's decay rule) on the cosine schedule
@@ -603,7 +623,9 @@ def build_train_step(torch, state_dict, *, use_pallas: bool, device: str, seed: 
     bench.py's RS-FGSM: alpha 1.25, 4/255), EMA 0.9999. dwconv: ConvNeXt-T-
     CvSt with use_pallas_dwconv=1 (convnext_t_dwconv). randaug: the full
     recipe's RandAugment, erasing and flip before mixup (bench.py's aug=True
-    row), with augment_draws injected when given."""
+    row), with augment_draws injected when given. remat: every block
+    recomputed in the backward (training.remat); grad_accum: the optimizer
+    updates every grad_accum steps (training.grad_accum)."""
     from revisiting_at_tpu_torch.ckpt.convert import load_state_dict
     from revisiting_at_tpu_torch.data import MixupConfig, RandAugmentConfig
     from revisiting_at_tpu_torch.models import get_model
@@ -615,13 +637,14 @@ def build_train_step(torch, state_dict, *, use_pallas: bool, device: str, seed: 
         model, family = convnext_t_dwconv(torch, torch.bfloat16, use_pallas), "convnext"
     else:
         model, meta = get_model(arch, not_original=True, dtype=torch.bfloat16,
-                                use_pallas=use_pallas)
+                                use_pallas=use_pallas, remat=remat)
         family = meta.family
     load_state_dict(model, state_dict)
     model.to(device).train()
-    sched = make_lr_schedule(LRConfig(lr=1e-3, lr_peak_epoch=20, epochs=300), 5000)
+    sched = make_lr_schedule(LRConfig(lr=1e-3, lr_peak_epoch=20, epochs=300),
+                             5000 // grad_accum)
     opt = make_optimizer(model, optimizer="adamw", weight_decay=0.05, family=family,
-                         learning_rate=sched)
+                         learning_rate=sched, grad_accum=grad_accum)
     step = make_train_step(model, adv=AdvConfig(attack=attack, norm="Linf", eps=4.0 / 255.0,
                                                 n_iter=2, alpha=1.25),
                            mixup=MixupConfig(num_classes=1000, label_smoothing=0.1),
@@ -2018,6 +2041,248 @@ def full_aa_phase(torch, np, repo, seed, label) -> None:
         + ", ".join(f"({k}) {v:.1f} s" for k, v in took.items()))
 
 
+# -------------------------------------------------------------- phase 18
+# the training step's block-tail forwards with remat: APGD's n_iter + 1
+# forwards and the training forward, then one recompute in each of APGD's
+# n_iter input backwards and in the weight backward. ConvNeXt-T fuses all 18
+# blocks in the attack and the 15 of stages 0-2 in training, ViT-S all 12.
+ATTACK_ITERS = 2
+
+
+def tail_forwards_per_step(attack_blocks: int, train_blocks: int, remat: bool) -> int:
+    fwd = (ATTACK_ITERS + 1) * attack_blocks + train_blocks
+    return fwd + (ATTACK_ITERS * attack_blocks + train_blocks if remat else 0)
+
+
+def _full_state(path: Path) -> dict:
+    import torch
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _state_diff(torch, a, b) -> float:
+    """Largest |a - b| over every tensor of two full states (inf if their
+    structure or any non-tensor field differs)."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return float("inf")
+        return max((_state_diff(torch, a[k], b[k]) for k in a), default=0.0)
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return float("inf")
+        return max((_state_diff(torch, u, v) for u, v in zip(a, b)), default=0.0)
+    if isinstance(a, torch.Tensor):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return float("inf")
+        return 0.0 if torch.equal(a, b) else (a.double() - b.double()).abs().max().item()
+    return 0.0 if a == b else float("inf")
+
+
+def trace_kernels(path: Path) -> dict:
+    """{tail kernel name: launches} among the kernel events of a chrome trace."""
+    events = json.loads(path.read_text())["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(f"(anonymous namespace)::{k}" in n for n in names) for k in TAIL_KERNEL_NAMES}
+
+
+def trainer_ckpt_phase(torch, np, repo, init, vit_init, seed, label) -> None:
+    """Phase 18: the trainer's options and the checkpoints on the card:
+    (a) cli.train with grad_accum, adversarial validation, EMA, the FLOP
+    count and the profile, then resumed from epoch 0 in its own run dir;
+    (b) the phase-6 step with remat 0 and 1 (and grad_accum 2) in turns;
+    (c) cli.eval finding run A's checkpoints, and the ViT step with remat."""
+    import shutil
+
+    from revisiting_at_tpu_torch.cli import eval as eval_cli
+    from revisiting_at_tpu_torch.cli import train as train_cli
+
+    took = {}
+    folder = repo / "build" / "smoke_trainer_ckpt"
+    shutil.rmtree(folder, ignore_errors=True)
+    argv = ["--model.arch", "convnext_tiny", "--model.not_original", "1",
+            "--model.add_normalization", "0", "--model.model_ema", "1", "--adv.attack", "apgd",
+            "--adv.n_iter", str(ATTACK_ITERS), "--data.dataset", "synthetic",
+            "--training.batch_size", str(TRAIN_BATCH), "--training.epochs", "2",
+            "--training.use_pallas", "1", "--training.grad_accum", "2",
+            "--validation.batch_size", "32", "--validation.max_batches", "1",
+            "--validation.adv_val_freq", "1", "--validation.adv_val_iter", "2",
+            "--validation.adv_val_batches", "1", "--misc.log_flops", "1",
+            "--misc.profile_steps", "2", "--training.seed", str(seed),
+            "--logging.log_every_steps", "4", "--device", "cuda", "--synthetic_batches", "4"]
+
+    # (a) run A; its adversarial validation alone, counted
+    t0 = time.time()
+    trainer = train_cli.main(argv + ["--logging.folder", str(folder / "a")])
+    run = trainer.logger.dir
+    zero_launches()
+    adv_acc = trainer.adv_val()
+    require_launches("adversarial validation (phase 18 (a))",
+                     ("block_mlp_fwd", "block_mlp_bwd_input"))
+    del trainer
+    torch.cuda.empty_cache()
+    records = [json.loads(line) for line in (run / "log").read_text().splitlines()]
+    init_rec = records[0]
+    adv = [(r["epoch"], r["adv_acc"]) for r in records if r.get("event") == "adv_val"]
+    best = [r["epoch"] for r in records if r.get("event") == "best_adv"]
+    written = [r for r in records if r.get("event") == "trace_written"]
+    log(f"phase 18 (a) run A: forward_flops {init_rec['forward_flops']:.6e} "
+        f"({init_rec['flops_convention']}), params {init_rec['params']}, adv_val {adv}, "
+        f"best_adv epochs {best}, adversarial validation again {adv_acc} "
+        f"({time.time() - t0:.1f} s)")
+    if not (init_rec["forward_flops"] > 2 * init_rec["params"] and [e for e, _ in adv] == [0, 1]
+            and best and best[0] == 0 and len(written) == 1):
+        raise AssertionError(f"phase 18 (a): bad records {records}")
+    in_trace = trace_kernels(Path(written[0]["path"]))
+    log(f"phase 18 (a) trace {written[0]['path']}: tail kernel launches {in_trace}")
+    if not all(in_trace.values()):
+        raise AssertionError(f"the profile trace does not name every tail kernel: {in_trace}")
+    a1 = _full_state(run / "ckpt" / "state_1.pt")
+    took["a"] = time.time() - t0
+
+    # run B: run A's dir without its epoch-1 files, resumed in place
+    t0 = time.time()
+    for f in (run / "ckpt").glob("*_1.pt"):
+        f.unlink()
+    zero_launches()
+    trainer = train_cli.main(argv + ["--logging.folder", str(folder / "a"),
+                                     "--model.ckpt_path", str(run)])
+    require_launches("the resumed run (phase 18 (a))", TAIL_KERNELS)
+    if trainer.start_epoch != 1:
+        raise AssertionError(f"the resumed run started at epoch {trainer.start_epoch}")
+    del trainer
+    torch.cuda.empty_cache()
+    d_ab = _state_diff(torch, a1, _full_state(run / "ckpt" / "state_1.pt"))
+    took["b"] = time.time() - t0
+    if d_ab == 0.0:
+        log("phase 18 (a) run B (resumed from epoch 0) against run A at epoch 1: weights, "
+            "optimizer, EMA and step bit for bit equal (exact)")
+    else:  # the tolerance: what a second run of A differs from A by
+        t0 = time.time()
+        trainer = train_cli.main(argv + ["--logging.folder", str(folder / "a2")])
+        d_aa = _state_diff(torch, a1, _full_state(trainer.logger.dir / "ckpt" / "state_1.pt"))
+        del trainer
+        torch.cuda.empty_cache()
+        took["a2"] = time.time() - t0
+        log(f"phase 18 (a) run B against run A at epoch 1: max |diff| {d_ab:.3e}; a second "
+            f"run of A against A: {d_aa:.3e} (the tolerance)")
+        if not d_ab <= d_aa:
+            raise AssertionError(f"the resumed run differs from run A by {d_ab}, more than "
+                                 f"two runs of A do ({d_aa})")
+    del a1
+
+    # (c) cli.eval on run A by its own checkpoints, each eval set labelled
+    # by the weights the flags pick (so that APGD has points to attack); a
+    # copy without EMA
+    t0 = time.time()
+    base = ["--run_dir", str(run), "--use_pallas", "1", "--synthetic", "--n_ex", "16",
+            "--batch_size", "16", "--n_iter", "2", "--img_size", "224", "--device", "cuda"]
+    picks = {"--epoch 0 --use_ema 1": run / "ckpt" / "weights_ema_0.pt",
+             "--best": run / "ckpt_best" / f"weights_{best[-1]}.pt"}
+    res = {}
+    for flags, weights in picks.items():
+        model = eval_model(torch, "convnext_tiny", weights)
+        x_eval, y_eval = own_labels(torch, np, eval_cli, model, base + flags.split())
+        del model
+        zero_launches()
+        res[flags] = eval_on(eval_cli, base + flags.split(), x_eval, y_eval)
+        require_launches(f"cli.eval {flags} on run A (phase 18 (c))",
+                         ("block_mlp_fwd", "block_mlp_bwd_input"))
+    no_ema = folder / "no_ema"
+    (no_ema / "ckpt").mkdir(parents=True)
+    shutil.copy(run / "params.json", no_ema / "params.json")
+    for f in (run / "ckpt").glob("weights_[0-9]*.pt"):
+        shutil.copy(f, no_ema / "ckpt" / f.name)
+    try:
+        eval_cli.main(["--run_dir", str(no_ema), "--use_ema", "1", "--synthetic",
+                       "--only_clean", "--n_ex", "16", "--device", "cuda"])
+        raise AssertionError("--use_ema 1 on a run without EMA weights did not fail")
+    except ValueError as e:
+        log(f"phase 18 (c) cli.eval {res}; --use_ema 1 on a copy without EMA: refused ({e})")
+    took["c"] = time.time() - t0
+    shutil.rmtree(folder, ignore_errors=True)
+
+    # (b) the phase-6 step: remat 0 and 1 from the same weights, one step
+    # each compared, then timed in turns with grad_accum 2, peak memory
+    t0 = time.time()
+    rng = np.random.RandomState(seed)
+    xb = torch.from_numpy(rng.uniform(0, 1, (TRAIN_BATCH, 224, 224, 3)).astype(np.float32))
+    yb = torch.from_numpy(rng.randint(0, 1000, TRAIN_BATCH))
+    xb, yb = xb.cuda(), yb.cuda()
+    variants = {"remat0": {}, "remat1": dict(remat=True), "accum2": dict(grad_accum=2)}
+    steps = {name: build_train_step(torch, init, use_pallas=True, device="cuda", seed=seed, **kw)
+             for name, kw in variants.items()}
+    out, peak, per_step = {}, {}, {}
+    for name in ("remat0", "remat1"):  # the first step of each, from the same weights
+        state, step = steps[name]
+        zero_launches()
+        metrics = step(state, xb, yb)
+        per_step[name] = require_launches(f"the {name} step (phase 18 (b))", TAIL_KERNELS)
+        out[name] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                     {n: p.grad.float() for n, p in state.model.named_parameters()})
+    for name in ("remat0", "remat1"):  # the second: every workspace already allocated
+        state, step = steps[name]
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, xb, yb)
+        torch.cuda.synchronize()
+        peak[name] = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+    (l0, n0, g0), (l1, n1, g1) = out["remat0"], out["remat1"]
+    cos = min(float((g0[k] * g1[k]).sum() / (g0[k].norm() * g1[k].norm()))
+              for k in g0 if g0[k].norm() > 0)
+    err = max((g0[k] - g1[k]).abs().max().item() for k in g0)
+    extra = {name: per_step[name]["block_mlp_fwd"] for name in per_step}
+    want = {f"remat{int(r)}": tail_forwards_per_step(18, 15, r) for r in (False, True)}
+    log(f"phase 18 (b) one step, remat 1 against remat 0: loss {l1:.6f} / {l0:.6f}, grad_norm "
+        f"{n1:.5f} / {n0:.5f}, gradients max |diff| {err:.3e}, least cosine {cos:.6f}; "
+        f"tail forwards {extra} (expected {want}); peak memory above the resident state "
+        f"{peak['remat1']:.3f} GiB with remat, {peak['remat0']:.3f} GiB without {label}")
+    if not (abs(l1 - l0) <= 2e-2 * abs(l0) and abs(n1 - n0) <= 2e-2 * abs(n0) and cos > 0.99):
+        raise AssertionError("the remat step disagrees with the step without remat")
+    if extra != want:
+        raise AssertionError(f"tail forwards per step {extra}, expected {want}: remat did not "
+                             f"run the recomputed forwards through the kernel")
+    if not peak["remat1"] < peak["remat0"]:
+        raise AssertionError(f"remat did not lower the step's peak memory: {peak}")
+    del out, g0, g1
+    step_ms, _ = steps_in_turns(torch, steps, dict.fromkeys(steps, (xb, yb)),
+                                ("remat0", "remat1", "accum2", "accum2", "remat1", "remat0"),
+                                warm=2)
+    for name, v in step_ms.items():
+        log(f"phase 18 (b) train step convnext_tiny+ConvStem bf16 B={TRAIN_BATCH} ({name}): "
+            f"{sum(v) / len(v):.2f} ms/step (runs of 5: {', '.join('%.2f' % t for t in v)}) "
+            f"{label}")
+    for name in steps:  # device time and busy share: how much of the cost is the host's
+        profile_breakdown(torch, f"phase 18 (b) train step B={TRAIN_BATCH} ({name}), per step",
+                          lambda: steps[name][1](steps[name][0], xb, yb), 2, label)
+    del steps, xb, yb
+    torch.cuda.empty_cache()
+    took["b_step"] = time.time() - t0
+
+    # (c) the ViT-S-CvSt step with remat: the attention kernels, recomputed too
+    t0 = time.time()
+    state, step = build_train_step(torch, vit_init, use_pallas=True, device="cuda", seed=seed,
+                                   arch="vit_s", remat=True)
+    rng = np.random.RandomState(seed + 2)
+    x = torch.from_numpy(rng.uniform(0, 1, (32, 224, 224, 3)).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, 1000, 32)).cuda()
+    zero_launches()
+    losses = [float(step(state, x, y)["loss"]) for _ in range(2)]
+    launches = require_launches("the ViT-S step with remat (phase 18 (c))",
+                                TAIL_KERNELS + ATT_KERNELS)
+    want = 2 * tail_forwards_per_step(12, 12, True)
+    log(f"phase 18 (c) vit_s remat step B=32: losses {losses}, attention forwards "
+        f"{launches['attention_fwd']}, tail forwards {launches['block_mlp_fwd']} "
+        f"(expected {want} each)")
+    if not (np.isfinite(losses).all() and launches["attention_fwd"] == want
+            and launches["block_mlp_fwd"] == want):
+        raise AssertionError("the ViT-S remat step: bad losses or forwards")
+    del state, step, x, y
+    torch.cuda.empty_cache()
+    took["c_vit"] = time.time() - t0
+    log(f"phase 18: {sum(took.values()):.1f} s; "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in took.items()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2585,6 +2850,9 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------------------------- 17
     full_aa_phase(torch, np, repo, args.seed, label)
+
+    # ---------------------------------------------------------------- 18
+    trainer_ckpt_phase(torch, np, repo, init, vit_init, args.seed, label)
 
     kernels = [dict(name=f"block_mlp_{k}", route="cuda", source=SOURCE[f"block_mlp_{k}"],
                     replaces=REPLACES[f"block_mlp_{k}"], launches=step_launches[f"block_mlp_{k}"],

@@ -1,3 +1,4 @@
+from .checkpoint import CheckpointManager, restore_run_weights
 from .convert import (
     core_module,
     jax_params_to_state_dict,
@@ -9,11 +10,13 @@ from .convert import (
 )
 
 __all__ = [
+    "CheckpointManager",
     "core_module",
     "jax_params_to_state_dict",
     "load_state_dict",
     "load_torch_checkpoint",
     "read_torch_checkpoint",
+    "restore_run_weights",
     "save_torch_checkpoint",
     "strip_prefixes",
 ]

@@ -1,15 +1,16 @@
 """Robustness evaluation entry point, port of revisiting_at_tpu/cli/eval.py.
 
-Rebuilds the model from a run's params.json, loads the weights from a .pt
-checkpoint in the reference format, and runs batched AutoAttack per norm
-with the reference epsilon table {Linf: 4/255, L2: 2, L1: 75}. The model
+Rebuilds the model from a run's params.json, loads the run's weights, and
+runs batched AutoAttack per norm with the reference epsilon table
+{Linf: 4/255, L2: 2, L1: 75}. The model
 computes in bf16, as the JAX evaluator's does. A ViT is built for
 --img_size, and the checkpoint's pos_embed is resized to that grid before
 the strict load (bicubic, models/pos_embed.py; unchanged if it matches).
 
 Usage:
   python -m revisiting_at_tpu_torch.cli.eval --run_dir runs/<run> \
-      --torch_ckpt weights.pt [--l_norms Linf,L2] [--l_epss 4,2] [--full_aa 1] \
+      [--epoch N] [--best] [--use_ema 1] [--torch_ckpt weights.pt] \
+      [--l_norms Linf,L2] [--l_epss 4,2] [--full_aa 1] \
       [--n_ex 5000] [--batch_size 200] [--n_iter 100] [--square_queries 5000] \
       [--save_imgs] [--use_pallas 1] [--data_dir <imagenet>/val | --synthetic] \
       [--device cuda]
@@ -31,8 +32,16 @@ the short side to img_size / 0.875 and the centre crop (a warp resize at 384
 px and above), decoded by a pool of threads. The images stay uint8 on the
 host; AutoAttack converts each batch it sends to the device. --synthetic evaluates random images.
 
-A run trained by the JAX package is exported to a .pt first with
-`python -m revisiting_at_tpu.cli.export --run_dir <run> --out weights.pt`.
+The weights: --torch_ckpt names a .pt file in the reference format.
+Without it the run's own checkpoint is read, as the JAX CLI reads it
+(ckpt/checkpoint.py restore_run_weights): --epoch (-1, the default: the
+latest), --best (the best-robust slot, <run_dir>/ckpt_best) and --use_ema 1
+(the EMA weights; a run that kept none is refused, never evaluated on its
+raw weights). A port run gives ckpt[_best]/weights[_ema]_<e>.pt; a JAX
+run's orbax snapshot ckpt[_best]/<e>/ is read through tensorstore
+(ckpt/orbax_reader.py). Where tensorstore is not installed, export the JAX
+run first with `python -m revisiting_at_tpu.cli.export --run_dir <run> --out
+weights.pt` and pass --torch_ckpt.
 """
 
 from __future__ import annotations
@@ -49,8 +58,13 @@ import torch
 def get_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--run_dir", type=str, required=True)
+    p.add_argument("--epoch", type=int, default=-1, help="-1: latest checkpoint")
+    p.add_argument("--best", action="store_true",
+                   help="read the best-adv-val checkpoint (<run_dir>/ckpt_best)")
+    p.add_argument("--use_ema", type=int, default=0,
+                   help="the run's EMA weights (refused for a run that kept none)")
     p.add_argument("--torch_ckpt", type=str, default="",
-                   help="reference-format .pt checkpoint of the run")
+                   help="reference-format .pt checkpoint to evaluate instead of the run's own")
     p.add_argument("--batch_size", type=int, default=200)
     p.add_argument("--n_ex", type=int, default=5000)
     p.add_argument("--l_norms", type=str, default="Linf", help="comma-separated")
@@ -129,12 +143,8 @@ def main(argv=None) -> dict:
     if epss is not None and len(epss) != len(norms):
         raise SystemExit(f"--l_epss has {len(epss)} values for the {len(norms)} norms of "
                          f"--l_norms: give one eps per norm")
-    if not args.torch_ckpt:
-        raise SystemExit(
-            f"no --torch_ckpt: export the run first with `python -m "
-            f"revisiting_at_tpu.cli.export --run_dir {args.run_dir} --out <weights.pt>` "
-            f"and pass --torch_ckpt <weights.pt> (reading orbax checkpoints is ROADMAP A7)")
 
+    from ..ckpt.checkpoint import restore_run_weights
     from ..ckpt.convert import load_state_dict, read_torch_checkpoint
     from ..config import load_params_json
     from ..evals import EPS_DICT, SHORT_ATTACKS, STANDARD_ATTACKS, AutoAttack, AutoAttackConfig
@@ -152,7 +162,17 @@ def main(argv=None) -> dict:
         use_pallas=bool(args.use_pallas), img_size=args.img_size,
         wide_tail=None if args.wide_tail < 0 else bool(args.wide_tail),
     )
-    sd = read_torch_checkpoint(args.torch_ckpt)
+    if args.torch_ckpt:
+        sd = read_torch_checkpoint(args.torch_ckpt)
+    else:
+        try:
+            sd, epoch = restore_run_weights(run_dir, cfg.model.arch, best=args.best,
+                                            epoch=args.epoch, use_ema=bool(args.use_ema))
+        except FileNotFoundError as e:
+            raise SystemExit(f"{e}: pass --torch_ckpt <weights.pt>, or an --epoch the run "
+                             f"saved") from e
+        print(f"weights: {'ckpt_best' if args.best else 'ckpt'} epoch {epoch}"
+              f"{' (EMA)' if args.use_ema else ''} of {run_dir}", flush=True)
     if meta.family == "vit":
         sd = resize_vit_pos_embed(sd, args.img_size, meta.patch_size)
     load_state_dict(model, sd)

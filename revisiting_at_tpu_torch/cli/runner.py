@@ -6,16 +6,16 @@ another, each on the whole card (the reference's runner_aa_eval.py forks
 one AA_eval.py per free GPU). Exits 1 if any job failed.
 
 The arguments after `--` go to every job unchanged (for example
-`--torch_ckpt`, `--device`, `--use_pallas`, `--synthetic`). `cli.eval`
-cannot yet find a run's checkpoint by itself (ROADMAP A7), so a table over
-several runs needs runs that share those arguments; there is no per-run
-templating.
+`--use_ema 1`, `--best`, `--epoch N`, `--device`, `--use_pallas`,
+`--synthetic`). Each job reads its own run's checkpoint (cli.eval without
+`--torch_ckpt`), so the runs of one table may be port runs and JAX runs
+alike, each with its own weights.
 
 Usage:
   python -m revisiting_at_tpu_torch.cli.runner \
       --runs runs/run_a runs/run_b --l_norms Linf,L2 --img_sizes 224,256 \
       [--full_aa 1] [--n_ex 5000] [--batch_size 200] [--data_dir ...] [--dry_run] \
-      [-- --torch_ckpt weights.pt --use_pallas 1 ...]
+      [-- --use_ema 1 --use_pallas 1 ...]
 """
 
 from __future__ import annotations

@@ -16,6 +16,10 @@ decoded cache with `data.in_memory`. `--data.dataset synthetic` trains on
 random images. `data.augmentations` adds RandAugment, erasing and flip on the
 device inside the step, then mixup.
 
+`--model.ckpt_path <run dir>` resumes that run in place from its latest full
+state (ckpt/state_<e>.pt) with the run's own flags: the weights, optimizer,
+EMA and step are restored and the epochs go on after the saved one.
+
 The flags are the JAX CLI's flat `--section.param value` (or `=value`), so a
 run's params.json keeps the JAX contract. Two more flags are the port's and
 are parsed first: `--device` (default cuda; without CUDA the CLI exits with
@@ -86,6 +90,8 @@ def main(argv=None):
     trainer = Trainer(cfg, device=device, synthetic_batches=args.synthetic_batches,
                       train_data=train_data, val_data=val_data,
                       train_data_factory=train_data_factory)
+    if cfg.model.ckpt_path:
+        trainer.try_resume()
     if cfg.training.eval_only:
         acc, n = trainer.single_val()
         trainer.logger.log({"eval_only_acc": acc, "points": n})

@@ -24,7 +24,14 @@ DropPath is active in train mode (`model.train()`) for blocks with a
 non-zero rate: each block draws a per-sample keep of mask / keep_p, the
 mask Bernoulli(keep_p), from the model's `drop_generator` (None: PyTorch's
 default generator), which a caller may replace to control the draws.
-The isotropic ConvNeXt waits for ROADMAP A3.
+
+With `remat` (training.remat, JAX's nn.remat per block) each block keeps
+only its input for the backward and runs its forward again there, through
+torch.utils.checkpoint, whenever gradients are recorded (the attacks'
+input gradients too, as in JAX). The keep vector is drawn before the
+checkpointed call and handed to it: checkpoint restores the default RNGs
+but not an explicit generator, so a draw inside would differ on the
+recompute. The isotropic ConvNeXt waits for ROADMAP A3.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.block_mlp import convnext_block_tail, tail_fusable
 from ..ops.dwconv import dwconv7x7
@@ -80,6 +88,14 @@ def drop_path_keep(batch: int, drop_path: float, generator: torch.Generator | No
     return (u < keep_p).float().to(device) / keep_p
 
 
+def run_block(body, remat: bool, *args):
+    """body(*args), or under torch.utils.checkpoint with remat while
+    gradients are recorded. body draws nothing: its randomness comes in args."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
+    return body(*args)
+
+
 class ConvNeXtBlock(nn.Module):
     def __init__(self, dim: int, drop_path: float = 0.0, layer_scale_init: float = 1e-6,
                  dtype: torch.dtype = torch.float32, use_pallas: bool = False,
@@ -99,11 +115,14 @@ class ConvNeXtBlock(nn.Module):
             self.register_buffer("gamma", torch.ones(dim), persistent=False)
 
     def forward(self, x: torch.Tensor, grad_mode: str = "full",
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        C, dt = self.dim, self.dtype
+                generator: torch.Generator | None = None, remat: bool = False) -> torch.Tensor:
         keep = None
         if self.drop_path > 0.0 and self.training:
             keep = drop_path_keep(x.shape[0], self.drop_path, generator, x.device)
+        return run_block(self.body, remat, x, keep, grad_mode)
+
+    def body(self, x: torch.Tensor, keep: torch.Tensor | None, grad_mode: str) -> torch.Tensor:
+        C, dt = self.dim, self.dtype
         if self.use_pallas_dwconv and C <= 384:
             # the kernel route reads the f32 weight ([C, 1, 7, 7] -> [7, 7, 1, C]) and bias
             s = dwconv7x7(x.to(dt), self.conv_dw.weight.permute(2, 3, 1, 0), self.conv_dw.bias)
@@ -128,7 +147,8 @@ class ConvNeXt(nn.Module):
     `use_pallas_dwconv` gives the blocks of width C <= 384 the dwconv
     kernel. `grad_mode` ('full' or 'input') is handed to every block; the
     attacks set 'input' through train.train_step.input_grad_view (eval) or
-    attack_grad_mode (training, scoped). `drop_generator` feeds DropPath."""
+    attack_grad_mode (training, scoped). `drop_generator` feeds DropPath;
+    `remat` recomputes each block in the backward."""
 
     def __init__(self, depths: Sequence[int] = (3, 3, 9, 3),
                  dims: Sequence[int] = (96, 192, 384, 768), num_classes: int = 1000,
@@ -136,9 +156,10 @@ class ConvNeXt(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  stem_factory: Callable[..., nn.Module] | None = None,
                  use_blurpool: bool = False, use_pallas: bool = False,
-                 wide_tail: bool = False, use_pallas_dwconv: bool = False):
+                 wide_tail: bool = False, use_pallas_dwconv: bool = False,
+                 remat: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         self.grad_mode = "full"
         self.drop_generator: torch.Generator | None = None
         if stem_factory is not None:
@@ -177,7 +198,7 @@ class ConvNeXt(nn.Module):
         for stage in self.stages:
             x = stage.downsample(x)
             for block in stage.blocks:
-                x = block(x, self.grad_mode, self.drop_generator)
+                x = block(x, self.grad_mode, self.drop_generator, self.remat)
         x = x.float().mean(dim=(1, 2))
         x = self.head.norm(x.to(self.dtype))
         return F.linear(x.float(), self.head.fc.weight, self.head.fc.bias)

@@ -8,7 +8,10 @@ ConvStem2(48) for vit_m, ConvStem(48, 16, fin_dim=None) for vit_b,
 ConvStem(4, 8) for vit_micro), `add_normalization` prepends the ImageNet
 normalizer, and `wide_tail=None` means on for convnext_large only. A ViT
 is built for one `img_size` (its pos_embed's grid); `attn_impl` picks the
-fused attention's layout ('qkv' or 'bhnd').
+fused attention's layout ('qkv' or 'bhnd'); `remat` recomputes each block
+in the backward. Unlike JAX's factory, which drops `remat` for vit_micro
+(revisiting_at_tpu/models/factory.py:154-163), every model here takes it
+(ROADMAP C8): it changes memory, not numbers.
 """
 
 from __future__ import annotations
@@ -57,13 +60,15 @@ def get_model(name: str, *, not_original: bool = False, num_classes: int = 1000,
               dtype: torch.dtype = torch.bfloat16, drop_path_rate: float = 0.0,
               use_blurpool: bool = False, add_normalization: bool = False,
               use_pallas: bool = False, wide_tail: bool | None = None,
-              attn_impl: str = "qkv", img_size: int = 224) -> tuple[nn.Module, ModelMeta]:
+              attn_impl: str = "qkv", img_size: int = 224,
+              remat: bool = False) -> tuple[nn.Module, ModelMeta]:
     """Build a model by reference name. Returns (module, meta); the module
     maps NHWC [0, 1] images to f32 logits."""
     if wide_tail is None:
         wide_tail = name == "convnext_large"
     common = dict(num_classes=num_classes, dtype=dtype, use_blurpool=use_blurpool,
-                  drop_path_rate=drop_path_rate, use_pallas=use_pallas, wide_tail=wide_tail)
+                  drop_path_rate=drop_path_rate, use_pallas=use_pallas, wide_tail=wide_tail,
+                  remat=remat)
     vit = dict(common, attn_impl=attn_impl, img_size=img_size)
     if name in ("convnext_tiny", "convnext_small", "convnext_base", "convnext_large",
                 "convnext_tiny_21k"):

@@ -23,7 +23,9 @@ that dtype, and the MLP with erf GELU.
 The image size fixes the token count, and so pos_embed's shape, at
 construction. DropPath is active in train mode for blocks with a non-zero
 rate: both branches of a block draw a per-sample keep from the model's
-`drop_generator`, as in models/convnext.py.
+`drop_generator`, as in models/convnext.py. `remat` recomputes each block
+in the backward as models/convnext.py does, the keeps drawn before the
+checkpointed call.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from torch import nn
 
 from ..ops.attention import fused_attention, fused_attention_qkv
 from ..ops.block_mlp import tail_fusable, vit_mlp_tail
-from .convnext import Mlp, drop_path_keep
+from .convnext import Mlp, drop_path_keep, run_block
 from .layers import LayerNorm, trunc_normal_
 from .stems import PatchEmbed
 
@@ -119,12 +121,16 @@ class ViTBlock(nn.Module):
             self.register_buffer("ones", torch.ones(dim), persistent=False)
 
     def forward(self, x: torch.Tensor, grad_mode: str = "full",
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        dt = self.dtype
+                generator: torch.Generator | None = None, remat: bool = False) -> torch.Tensor:
         keep1 = keep2 = None
         if self.drop_path > 0.0 and self.training:
             keep1 = drop_path_keep(x.shape[0], self.drop_path, generator, x.device)
             keep2 = drop_path_keep(x.shape[0], self.drop_path, generator, x.device)
+        return run_block(self.body, remat, x, keep1, keep2, grad_mode)
+
+    def body(self, x: torch.Tensor, keep1: torch.Tensor | None, keep2: torch.Tensor | None,
+             grad_mode: str) -> torch.Tensor:
+        dt = self.dtype
         y = self.attn(self.norm1(x))
         if self.ls1 is not None:
             y = self.ls1(y)
@@ -152,7 +158,8 @@ class VisionTransformer(nn.Module):
     reference mounts it; default a k16 s16 conv.
 
     `grad_mode` ('full' or 'input') is handed to every block, as in
-    ConvNeXt; `drop_generator` feeds DropPath."""
+    ConvNeXt; `drop_generator` feeds DropPath; `remat` recomputes each
+    block in the backward."""
 
     def __init__(self, embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
                  mlp_ratio: float = 4.0, num_classes: int = 1000, patch_size: int = 16,
@@ -161,9 +168,9 @@ class VisionTransformer(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  embed_factory: Callable[..., nn.Module] | None = None,
                  use_blurpool: bool = False, use_pallas: bool = False,
-                 attn_impl: str = "qkv", wide_tail: bool = False):
+                 attn_impl: str = "qkv", wide_tail: bool = False, remat: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         self.no_embed_class = no_embed_class
         self.grad_mode = "full"
         self.drop_generator: torch.Generator | None = None
@@ -197,7 +204,7 @@ class VisionTransformer(nn.Module):
         else:
             tokens = torch.cat([cls, tokens], dim=1) + pos
         for block in self.blocks:
-            tokens = block(tokens, self.grad_mode, self.drop_generator)
+            tokens = block(tokens, self.grad_mode, self.drop_generator, self.remat)
         cls_out = self.norm(tokens[:, 0])  # LayerNorm is per token: the class token's
         return F.linear(cls_out.float(), self.head.weight, self.head.bias)
 

@@ -6,6 +6,7 @@ from .train_step import (
     AdvConfig,
     attack_grad_mode,
     input_grad_view,
+    make_adv_eval_step,
     make_eval_step,
     make_train_step,
     to_unit_pixels,
@@ -23,6 +24,7 @@ __all__ = [
     "freeze_labels",
     "get_resolution",
     "input_grad_view",
+    "make_adv_eval_step",
     "make_eval_step",
     "make_lr_schedule",
     "make_optimizer",

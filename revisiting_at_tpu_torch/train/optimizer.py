@@ -8,7 +8,11 @@ revisiting_at_tpu/train/optimizer.py.
     excluded (LayerNorm scales and LayerScale gamma do decay); every other
     family excludes parameters with ndim <= 1;
   * the LR comes from a schedule of the optimizer's step count, read before
-    the update and incremented after it, as optax reads `count`.
+    the update and incremented after it, as optax reads `count`;
+  * grad_accum = k > 1 is optax.MultiSteps(every_k_schedule=k): the
+    gradients of k micro-steps are averaged (its Welford running mean,
+    acc += (g - acc) / (i + 1)), and the update, with the LR of the
+    optimizer's step count, is applied once every k micro-steps.
 """
 
 from __future__ import annotations
@@ -41,10 +45,17 @@ def freeze_labels(model: nn.Module, early: bool) -> dict[str, str]:
 
 class ScheduledOptimizer:
     """A torch optimizer whose LR is set from `schedule(count)` before each
-    update; `count` is the number of updates made so far."""
+    update; `count` is the number of updates made so far. With every_k > 1,
+    `update` folds each micro-step's gradients into their running mean and
+    applies it once every k micro-steps (`mini_step` counts those made
+    towards the next update)."""
 
-    def __init__(self, opt: torch.optim.Optimizer, schedule: Callable[[int], float]):
+    def __init__(self, opt: torch.optim.Optimizer, schedule: Callable[[int], float],
+                 every_k: int = 1):
         self.opt, self.schedule, self.count = opt, schedule, 0
+        self.every_k, self.mini_step = every_k, 0
+        self.params = [p for group in opt.param_groups for p in group["params"]]
+        self.acc: list[torch.Tensor] | None = None  # the running mean, between updates
 
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
@@ -57,6 +68,36 @@ class ScheduledOptimizer:
         self.count += 1
         return lr
 
+    def update(self) -> None:
+        """After a micro-step's backward: step at once (every_k = 1), else
+        fold the .grad of the optimizer's parameters into the running mean
+        and step on it at the k-th micro-step."""
+        if self.every_k == 1:
+            self.step()
+            return
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        if self.acc is None:
+            self.acc = [g.clone() for g in grads]  # acc + (g - acc) / 1 with acc = 0
+        else:
+            delta = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(delta, float(self.mini_step + 1))
+            torch._foreach_add_(self.acc, delta)
+        self.mini_step += 1
+        if self.mini_step < self.every_k:
+            return
+        for p, a in zip(self.params, self.acc):
+            p.grad = a
+        self.step()
+        self.mini_step, self.acc = 0, None
+
+    def state_dict(self) -> dict:
+        return {"opt": self.opt.state_dict(), "count": self.count,
+                "mini_step": self.mini_step, "acc": self.acc}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.opt.load_state_dict(sd["opt"])
+        self.count, self.mini_step, self.acc = sd["count"], sd["mini_step"], sd["acc"]
+
 
 def make_optimizer(model: nn.Module, *, optimizer: str = "adamw", weight_decay: float = 0.05,
                    momentum: float = 0.9, family: str = "convnext",
@@ -65,9 +106,10 @@ def make_optimizer(model: nn.Module, *, optimizer: str = "adamw", weight_decay: 
                    grad_accum: int = 1) -> ScheduledOptimizer:
     """Two parameter groups, with and without decay. Frozen parameters
     (freeze_some) are in neither: they keep their gradients but get no
-    update, as optax's set_to_zero gives them."""
-    if grad_accum > 1:
-        raise NotImplementedError("training.grad_accum > 1: ROADMAP A7")
+    update, as optax's set_to_zero gives them. grad_accum: the micro-steps
+    per update (optax.MultiSteps)."""
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum {grad_accum} < 1")
     schedule = learning_rate if callable(learning_rate) else (lambda _: learning_rate)
     mask = wd_mask(model, family)
     labels = freeze_labels(model, early) if freeze_some else {}
@@ -84,4 +126,4 @@ def make_optimizer(model: nn.Module, *, optimizer: str = "adamw", weight_decay: 
         opt = torch.optim.SGD(groups, lr=lr0, momentum=momentum)
     else:
         raise ValueError(f"unknown optimizer {optimizer!r}")
-    return ScheduledOptimizer(opt, schedule)
+    return ScheduledOptimizer(opt, schedule, grad_accum)

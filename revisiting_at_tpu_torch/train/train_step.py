@@ -5,8 +5,9 @@ One call of the step:
   uint8 -> [0, 1] -> RandAugment, erasing and flip (with data.augmentations)
   -> mixup/cutmix -> APGD or FGSM in eval mode with the block tail's
   input-only backward -> training forward in train mode -> loss -> weight
-  backward (the tail's full backward) -> AdamW with the LR schedule -> EMA
-  update.
+  backward (the tail's full backward) -> AdamW with the LR schedule (with
+  training.grad_accum = k, on the mean gradient of k micro-steps, once
+  every k steps) -> EMA update.
 
 The JAX step is one pure jitted function; here the model, the optimizer and
 the EMA tensors are updated in place, and the step returns its metrics.
@@ -145,7 +146,12 @@ def make_train_step(
     mixup, in JAX's order (train_step.py:146-151). augment_draws(step, b, h,
     w), when given, replaces the generator's augmentation draws (its noise,
     if set, the erasing fill); mixup_draws(step, h, w), the mixup draws;
-    attack_draws(step, shape), FGSM's raw U(0, 1) start draw."""
+    attack_draws(step, shape), FGSM's raw U(0, 1) start draw.
+
+    Each call is one micro-step: `state.step` counts them and keys the
+    draws; the optimizer applies its update every k-th (optimizer.py), and
+    the EMA follows the parameters after every call, as JAX's MultiSteps
+    step does (train_step.py:256-267). grad_norm is the micro-step's."""
     if adv.attack not in ("apgd", "fgsm", "none"):
         raise ValueError(f"unknown attack {adv.attack!r}")
     core = _grad_mode_owner(model) or model
@@ -211,7 +217,7 @@ def make_train_step(
         grads = [p.grad for p in m.parameters() if p.grad is not None]
         grad_norm = torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(grads))) if grads else torch.zeros(())
-        state.optimizer.step()
+        state.optimizer.update()
         if ema_decay > 0.0 and state.ema is not None:
             ema_update(state.ema, m, ema_decay)
         train_acc = (logits.detach().argmax(-1) == labels).float().mean()
@@ -220,6 +226,28 @@ def make_train_step(
                 "grad_norm": grad_norm}
 
     return step_fn
+
+
+def make_adv_eval_step(model: nn.Module, *, adv: AdvConfig):
+    """In-training adversarial validation, port of make_adv_eval_step
+    (revisiting_at_tpu/train/train_step.py:344-368): (images, labels) -> the
+    count of points still classified right after APGD-CE against the
+    training threat model, as a 0-d tensor. The attack starts at x (JAX's
+    default random_start=False), so the count has no randomness; it runs in
+    eval mode with the tail's input-only backward and frozen weights
+    (attack_grad_mode), and the robust logits are one more eval forward at
+    the last point that flipped the prediction."""
+
+    def fn(images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        x = to_unit_pixels(images)
+        labels = labels.long()
+        with attack_grad_mode(model):
+            res = apgd_attack(model, x, labels, norm=adv.norm, eps=adv.eps, n_iter=adv.n_iter,
+                              loss="ce", is_train=False)
+            with torch.no_grad():
+                return (model(res.x_best_adv).argmax(-1) == labels).sum()
+
+    return fn
 
 
 def make_eval_step(model: nn.Module, *, lr_tta: bool = False):

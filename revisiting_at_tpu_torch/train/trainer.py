@@ -13,10 +13,32 @@ revisiting_at_tpu/train/trainer.py for one device.
     records carry the seconds the host waited on the loader (`data_wait`;
     the epoch's `data_wait_first`, its first batch, includes starting the
     loader's workers);
-  * per-epoch checkpoints of the weights and the EMA weights as .pt files in
-    the reference format (ckpt/weights_<epoch>.pt, ckpt/weights_ema_<epoch>.pt),
-    which `cli/eval.py --torch_ckpt` reads; a final clean validation;
-  * JSONL records with relative timestamps, and params.json.
+  * training.grad_accum = k: the optimizer updates every k micro-batches
+    and the LR schedule counts its updates (iters_per_epoch // k per
+    epoch), as JAX's trainer builds it (trainer.py:168-172, 449, 481);
+  * training.remat: each block recomputed in the backward (models/);
+  * checkpoints at epochs e with e % save_freq == 0 and at the last
+    (ckpt/checkpoint.py): the weights and the EMA weights as .pt files in
+    the reference format (ckpt/weights_<e>.pt, ckpt/weights_ema_<e>.pt),
+    which `cli/eval.py` reads, and the full state (ckpt/state_<e>.pt);
+  * true resume: model.ckpt_path names a run dir, the run continues in it
+    from its latest full state (`try_resume`, trainer.py:296-350). The
+    step's draws are keyed on (seed, step) and the folder loader shuffles
+    from (seed, epoch), so a resumed run repeats the uninterrupted one;
+  * adversarial validation every validation.adv_val_freq epochs and at the
+    last: APGD-CE with validation.adv_val_iter steps on
+    validation.adv_val_batches val batches (`adv_val` record); an
+    improvement is saved to the best slot (ckpt_best/, `best_adv` record);
+    the best accuracy so far is kept in the full state, so that a resumed
+    run keeps its best slot (JAX's starts again from -1, ROADMAP C18);
+  * misc.profile_steps: torch.profiler over steps [1, 1 + profile_steps)
+    of the first epoch this process runs, a chrome trace in <run>/trace/
+    (`trace_written` record);
+  * misc.log_flops: the init record's `forward_flops` of one eval forward
+    at (1, res, res, 3), counted on a plain twin on the meta device
+    (utils/flops.py: matmuls and convolutions only, not XLA's count);
+  * a final clean validation; JSONL records with relative timestamps, and
+    params.json.
 
 Options of the JAX trainer that the port does not have yet raise
 NotImplementedError naming the ROADMAP item that brings them.
@@ -27,37 +49,33 @@ from __future__ import annotations
 import math
 import sys
 import time
+from pathlib import Path
 
 import torch
 
-from ..ckpt.convert import save_torch_checkpoint
+from ..ckpt.checkpoint import CheckpointManager
 from ..config import Config
 from ..data.augment import RandAugmentConfig
 from ..data.mixup import MixupConfig
 from ..data.synthetic import SyntheticData
 from ..models import get_model
+from ..utils.flops import CONVENTION, forward_flops
 from ..utils.logging import RunLogger, make_run_name
 from .ema import ema_init
 from .optimizer import make_optimizer
 from .schedule import LRConfig, get_resolution, make_lr_schedule
 from .state import TrainState
-from .train_step import AdvConfig, make_eval_step, make_train_step
+from .train_step import AdvConfig, make_adv_eval_step, make_eval_step, make_train_step
 
 
 def refuse_unported(cfg: Config) -> None:
-    """Raise NotImplementedError for every option the port does not run yet
-    (grad_accum raises where the optimizer is built)."""
-    dist, t, m = cfg.dist, cfg.training, cfg.model
+    """Raise NotImplementedError for every option the port does not run yet."""
+    dist, m = cfg.dist, cfg.model
     unported = [
         (dist.fsdp > 1 or dist.tp > 1 or dist.multihost or dist.world_size > 1,
          "dist.fsdp/tp/multihost/world_size: multi-GPU training is ROADMAP A11"),
-        (cfg.validation.adv_val_freq > 0, "validation.adv_val_freq > 0: ROADMAP A7"),
-        (bool(m.ckpt_path), "model.ckpt_path (resume): ROADMAP A7"),
         (bool(m.pretrained) or m.arch.endswith("_21k"),
          "model.pretrained / *_21k archs (timm checkpoint init): ROADMAP A12"),
-        (bool(t.remat), "training.remat (activation checkpointing): ROADMAP A7"),
-        (cfg.misc.profile_steps > 0, "misc.profile_steps: ROADMAP A7"),
-        (bool(cfg.misc.log_flops), "misc.log_flops (utils/flops.py): ROADMAP A7"),
     ]
     for hit, what in unported:
         if hit:
@@ -95,7 +113,8 @@ class Trainer:
         # backward's cotangents, and the port's full backward already runs in passes
         self.model, self.meta = get_model(
             cfg.model.arch, dtype=dtype, use_pallas=bool(t.use_pallas),
-            wide_tail=None if t.wide_tail < 0 else bool(t.wide_tail), **build)
+            wide_tail=None if t.wide_tail < 0 else bool(t.wide_tail), remat=bool(t.remat),
+            **build)
         if self.meta.family == "vit" and cfg.validation.resolution != cfg.resolution.max_res:
             raise ValueError(f"{cfg.model.arch}: validation.resolution "
                              f"{cfg.validation.resolution} != resolution.max_res "
@@ -119,12 +138,14 @@ class Trainer:
         lr_cfg = LRConfig(lr=cfg.lr.lr, schedule_type=cfg.lr.lr_schedule_type,
                           lr_peak_epoch=cfg.lr.lr_peak_epoch, step_ratio=cfg.lr.step_ratio,
                           step_length=cfg.lr.step_length, epochs=t.epochs)
-        self.lr_schedule = make_lr_schedule(lr_cfg, max(self.iters_per_epoch, 1))
+        # the schedule counts optimizer updates, one per grad_accum micro-batches
+        self.accum = t.grad_accum
+        self.lr_schedule = make_lr_schedule(lr_cfg, max(self.iters_per_epoch // self.accum, 1))
         optimizer = make_optimizer(
             self.model, optimizer=t.optimizer, weight_decay=t.weight_decay,
             momentum=t.momentum, family=self.meta.family, learning_rate=self.lr_schedule,
             freeze_some=bool(cfg.model.freeze_some), early=bool(cfg.model.early),
-            grad_accum=t.grad_accum)
+            grad_accum=self.accum)
         use_ema = cfg.model.model_ema > 0
         self.state = TrainState(self.model, optimizer, ema_init(self.model) if use_ema else None)
 
@@ -141,21 +162,51 @@ class Trainer:
             self.model, adv=adv, mixup=mixup, randaug=RandAugmentConfig() if aug else None,
             ema_decay=cfg.model.model_ema_decay if use_ema else 0.0, seed=t.seed)
         self.eval_step = make_eval_step(self.val_model, lr_tta=bool(cfg.validation.lr_tta))
+        self.adv_eval_step = None
+        self.best_adv_acc = -1.0
+        if cfg.validation.adv_val_freq > 0:
+            self.adv_eval_step = make_adv_eval_step(self.model, adv=AdvConfig(
+                attack="apgd", norm=cfg.adv.norm, eps=cfg.adv.eps,
+                n_iter=cfg.validation.adv_val_iter))
 
-        run_name = make_run_name(cfg.model.arch, cfg.adv.attack, cfg.model.not_original,
-                                 cfg.model.updated, cfg.logging.addendum)
-        self.logger = RunLogger(cfg.logging.folder, run_name)
+        # model.ckpt_path naming a run dir resumes that run in place
+        if cfg.model.ckpt_path:
+            run_path = Path(cfg.model.ckpt_path)
+            self.logger = RunLogger(str(run_path.parent), run_path.name)
+        else:
+            run_name = make_run_name(cfg.model.arch, cfg.adv.attack, cfg.model.not_original,
+                                     cfg.model.updated, cfg.logging.addendum)
+            self.logger = RunLogger(cfg.logging.folder, run_name)
         cfg.dump_params_json(self.logger.dir / "params.json")
-        self.ckpt_dir = self.logger.dir / "ckpt"
-        self.ckpt_dir.mkdir(exist_ok=True)
-        self.logger.log({
+        self.ckpt = CheckpointManager(self.logger.dir, save_freq=cfg.logging.save_freq)
+        self.start_epoch = 0
+        init_record = {
             "event": "init", "arch": cfg.model.arch,
             "params": sum(p.numel() for p in self.model.parameters()),
             "devices": 1, "device": str(self.device),
             "device_name": (torch.cuda.get_device_name(self.device)
                             if self.device.type == "cuda" else "cpu"),
             "iters_per_epoch": self.iters_per_epoch,
-        })
+        }
+        if cfg.misc.log_flops:
+            # the plain path on the meta device: FlopCounterMode cannot see
+            # inside the kernels' autograd.Functions, and meta computes nothing
+            with torch.device("meta"):
+                twin, _ = get_model(cfg.model.arch, dtype=dtype, **build)
+            init_record["forward_flops"] = forward_flops(twin, (1, self.res, self.res, 3))
+            init_record["flops_convention"] = CONVENTION
+        self.logger.log(init_record)
+
+    def try_resume(self) -> bool:
+        """Restore the run dir's latest full state; the epochs go on after it."""
+        restored = self.ckpt.restore_latest(self.state)
+        if restored is None:
+            return False
+        self.start_epoch = restored["epoch"] + 1
+        self.best_adv_acc = restored["best_adv_acc"]
+        self.logger.log({"event": "resume", "epoch": restored["epoch"],
+                         "step": self.state.step})
+        return True
 
     def _to_device(self, images, labels):
         """A batch (numpy arrays, or the loader's pinned tensors) on the device."""
@@ -177,11 +228,45 @@ class Trainer:
         self._last_top5 = correct5 / max(total, 1)
         return correct / max(total, 1), total
 
+    def adv_val(self) -> tuple[float, int]:
+        """APGD-CE robust accuracy over validation.adv_val_batches val batches."""
+        correct = total = 0
+        for i, (images, labels) in enumerate(self.val_data):
+            correct += int(self.adv_eval_step(*self._to_device(images, labels)))
+            total += labels.shape[0]
+            if i + 1 >= self.cfg.validation.adv_val_batches:
+                break
+        return correct / max(total, 1), total
+
+    def _start_trace(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_trace(self, prof) -> None:
+        """Stop the profiler after the device has run the traced steps and
+        write its chrome trace to <run>/trace/."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        trace_dir = self.logger.dir / "trace"
+        trace_dir.mkdir(exist_ok=True)
+        path = trace_dir / f"trace_step{self.state.step}.json"
+        prof.export_chrome_trace(str(path))
+        self.logger.log({"event": "trace_written", "dir": str(trace_dir), "path": str(path)})
+
     def train_loop(self, epoch: int) -> tuple[float, list[float]]:
         """One epoch: (mean loss, seconds the host waited on the loader for
-        each batch; the first wait includes starting the loader's workers)."""
+        each batch; the first wait includes starting the loader's workers).
+        In the first epoch this process runs, steps [1, 1 + profile_steps)
+        are traced (step 0 builds and warms up, as JAX's compiles)."""
         losses = []
         log_every = int(self.cfg.logging.log_every_steps)
+        profile_steps = self.cfg.misc.profile_steps if epoch == self.start_epoch else 0
+        prof = None
         window_t0 = time.time()
         waits, ix = [], -1
         batches = iter(self.train_data)
@@ -192,6 +277,11 @@ class Trainer:
                 break
             waits.append(time.time() - t0)
             ix += 1
+            if profile_steps and ix == 1:
+                prof = self._start_trace()
+            if prof is not None and ix == 1 + profile_steps:
+                self._stop_trace(prof)
+                prof = None
             images, labels = batch
             metrics = self.train_step(self.state, *self._to_device(images, labels))
             losses.append(metrics["loss"])
@@ -200,24 +290,20 @@ class Trainer:
                 self.logger.log({
                     "event": "step", "epoch": epoch, "step": self.state.step,
                     "loss": float(metrics["loss"]),
-                    "lr": self.lr_schedule(self.state.step),
+                    "lr": self.lr_schedule(self.state.step // self.accum),
                     "imgs_per_s": log_every * labels.shape[0] / max(now - window_t0, 1e-9),
                     "data_wait": sum(waits[-log_every:]),
                 })
                 window_t0 = time.time()
+        if prof is not None:  # an epoch shorter than the traced steps
+            self._stop_trace(prof)
         return float(torch.stack(losses).mean()), waits
-
-    def save_checkpoint(self, epoch: int) -> None:
-        save_torch_checkpoint(self.model, self.ckpt_dir / f"weights_{epoch}.pt")
-        if self.state.ema is not None:
-            save_torch_checkpoint(self.model, self.ckpt_dir / f"weights_ema_{epoch}.pt",
-                                  ema=self.state.ema)
 
     def train(self) -> None:
         cfg = self.cfg
         acc, n = self.single_val()
         self.logger.log({"Validation acc": acc, "top5": self._last_top5, "points": n})
-        for epoch in range(cfg.training.epochs):
+        for epoch in range(self.start_epoch, cfg.training.epochs):
             r = cfg.resolution
             res = get_resolution(epoch, r.min_res, r.max_res, r.start_ramp, r.end_ramp)
             if res != self.res and self.train_data_factory is not None:
@@ -238,13 +324,29 @@ class Trainer:
                 sys.exit(1)
             self.logger.log({
                 "epoch": epoch, "train_loss": train_loss,
-                "current_lr": self.lr_schedule(self.state.step), "epoch_time": epoch_time,
+                "current_lr": self.lr_schedule(self.state.step // self.accum),
+                "epoch_time": epoch_time,
                 "steps_per_sec": self.iters_per_epoch / max(epoch_time, 1e-9),
                 "data_wait": sum(waits), "data_wait_first": waits[0] if waits else 0.0,
                 "res": self.res,
             })
-            if epoch % cfg.logging.save_freq == 0 or epoch == cfg.training.epochs - 1:
-                self.save_checkpoint(epoch)
+            last = epoch == cfg.training.epochs - 1
+            # the adversarial validation comes before the save (JAX's after
+            # it) so that the entry holds this epoch's best accuracy; it
+            # changes no state, and the records keep JAX's order
+            freq = cfg.validation.adv_val_freq
+            improved = False
+            if self.adv_eval_step is not None and ((epoch + 1) % freq == 0 or last):
+                adv_acc, n_adv = self.adv_val()
+                self.logger.log({"event": "adv_val", "epoch": epoch, "adv_acc": adv_acc,
+                                 "points": n_adv})
+                improved = adv_acc > self.best_adv_acc
+                self.best_adv_acc = max(self.best_adv_acc, adv_acc)
+            self.ckpt.maybe_save(epoch, self.state, last=last, best_adv_acc=self.best_adv_acc)
+            if improved:
+                self.ckpt.save_best(epoch, self.state, best_adv_acc=self.best_adv_acc)
+                self.logger.log({"event": "best_adv", "epoch": epoch,
+                                 "adv_acc": self.best_adv_acc})
         acc, n = self.single_val()
         self.logger.log({"event": "final_val", "Validation acc": acc, "top5": self._last_top5,
                          "points": n})

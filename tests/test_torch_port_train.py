@@ -434,13 +434,7 @@ def test_train_cli_end_to_end_on_cpu(tmp_path):
     (["--data.dataset", "folder"], SystemExit),
     (["--dist.fsdp", "2"], NotImplementedError),
     (["--dist.multihost", "1"], NotImplementedError),
-    (["--validation.adv_val_freq", "1"], NotImplementedError),
-    (["--model.ckpt_path", "runs/x"], NotImplementedError),
     (["--model.pretrained", "1"], NotImplementedError),
-    (["--training.grad_accum", "2"], NotImplementedError),
-    (["--training.remat", "1"], NotImplementedError),
-    (["--misc.log_flops", "1"], NotImplementedError),
-    (["--misc.profile_steps", "1"], NotImplementedError),
     (["--model.arch", "convnext_iso"], NotImplementedError),
     (["--adv.attack", "pgd"], ValueError),
     (["--training.batch_size"], ValueError),
