@@ -164,10 +164,40 @@ Phases, each fatal on failure:
      forwards run the kernel), remat's peak memory above the resident
      state below the other's; then both and a grad_accum 2 step in turns,
      and profiled; (c) a ViT-S-CvSt step with remat at batch 32, which must
-     launch the attention and tail forwards 84 times a step.
+     launch the attention and tail forwards 84 times a step;
+ 19. the isotropic ConvNeXt, PGD, the wrapped model and the BN family: (a)
+     phase 6's step on ConvNeXt-iso-CvSt (convnext_iso, updated=1: C = 432,
+     18 blocks, ConvStem; the tail's WMMA kernels) at 224 px, batch 80, 2
+     warm-up steps, then in turns with use_pallas=0 (kernel, plain, plain,
+     kernel), the tail's forward, input backward, row pass, weight pass and
+     reduction launched 72, 36, 18, 36 and 90 times a step, profiled; one
+     step against the CPU at batch 2; one step with updated=0 (C = 384,
+     TMA + wgmma) launching the same kernels as often; `cli.train.main` on
+     it (1 epoch of 4 synthetic batches at batch 80), `cli.eval.main`
+     (short AutoAttack, --use_ema 1) on what it wrote and `cli.export.main`,
+     whose file must strict-load; (b) pgd_attack (Linf and L2, 10 steps)
+     and AdversarialModel (apgd, fgsm) on (a)'s weights at B = 32, bf16
+     (each must launch the tail's forward and input backward; ms per PGD
+     iteration), then on 2 images in f32 the card against the CPU from the
+     same start and draws (Linf: at most 5% of the elements apart, none by
+     more than 2 eps; L2: the deltas within 5% of each other; the wrapped
+     model's logits within 2e-3); (c) the BN family
+     on cuDNN: resnet50, densnet201 (224 px) and inception (299 px) with BN
+     scales drawn and statistics calibrated as a trained model's, eval
+     logits and one training step without attack against the CPU at batch 2
+     in f32 (the running statistics within 2e-2; Inception's pool branch
+     alone, input gradients within 1e-5, beside the library's pool over a
+     channels_last tensor, which it replaces), the APGD step timed at
+     batch 80 in bf16; `cli.train.main` on
+     resnet50 with model.pretrained=1 from a state_dict made here and saved
+     to a temporary .pt (4 steps at batch 80), `cli.eval.main --use_ema 1`
+     and `cli.export.main`, whose file must strict-load. The tail's times at
+     the iso shape (M = 196 x 80, C = 432: forward, input backward, full
+     backward) beside their bounds, plain versions and the model path go
+     into the kernels line (`iso432`).
 
 The launch counters are zeroed just before each path (phases 4-5, 6, 7, 9,
-10, 11, 13, 14, 16, 17 and 18) and read just after it: every kernel the
+10, 11, 13, 14, 16, 17, 18 and 19) and read just after it: every kernel the
 path runs must have launched there. The `launches` of the kernels line are phase 6's for
 the block tail, phase 10's for the attention and phase 13's training step
 for the dwconv. The second-to-last line is a
@@ -614,7 +644,8 @@ def convnext_t_dwconv(torch, dtype, use_pallas: bool = True):
 def build_train_step(torch, state_dict, *, use_pallas: bool, device: str, seed: int,
                      arch: str = "convnext_tiny", dwconv: bool = False,
                      attack: str = "apgd", randaug: bool = False, augment_draws=None,
-                     remat: bool = False, grad_accum: int = 1):
+                     remat: bool = False, grad_accum: int = 1, updated: bool = False,
+                     dtype=None):
     """The training step as bench.py builds it, on the port: the arch with
     ConvStem (ConvNeXt-T-CvSt, or ViT-S-CvSt for vit_s) in bf16 with f32
     params, AdamW(wd 0.05, the family's decay rule) on the cosine schedule
@@ -625,7 +656,9 @@ def build_train_step(torch, state_dict, *, use_pallas: bool, device: str, seed: 
     recipe's RandAugment, erasing and flip before mixup (bench.py's aug=True
     row), with augment_draws injected when given. remat: every block
     recomputed in the backward (training.remat); grad_accum: the optimizer
-    updates every grad_accum steps (training.grad_accum)."""
+    updates every grad_accum steps (training.grad_accum); updated: convnext_iso's
+    432-wide variant (model.updated); dtype: the compute dtype (bf16 unless
+    given)."""
     from revisiting_at_tpu_torch.ckpt.convert import load_state_dict
     from revisiting_at_tpu_torch.data import MixupConfig, RandAugmentConfig
     from revisiting_at_tpu_torch.models import get_model
@@ -636,8 +669,8 @@ def build_train_step(torch, state_dict, *, use_pallas: bool, device: str, seed: 
     if dwconv:
         model, family = convnext_t_dwconv(torch, torch.bfloat16, use_pallas), "convnext"
     else:
-        model, meta = get_model(arch, not_original=True, dtype=torch.bfloat16,
-                                use_pallas=use_pallas, remat=remat)
+        model, meta = get_model(arch, not_original=True, dtype=dtype or torch.bfloat16,
+                                use_pallas=use_pallas, remat=remat, updated=updated)
         family = meta.family
     load_state_dict(model, state_dict)
     model.to(device).train()
@@ -698,7 +731,8 @@ def check_dw_per_step(launches, n_steps, attack) -> None:
 
 def check_step_against_cpu(torch, np, state_dict, seed, arch="convnext_tiny",
                            probes=("stages.0.blocks.0.mlp.fc1.weight",), dwconv=False,
-                           augment=False):
+                           augment=False, updated=False, img=224, dtype=None,
+                           attack="apgd"):
     """One kernel step on the card against the same step on the CPU, where
     every kernel takes its plain version, at batch 2: the loss and the
     global gradient norm within 2e-2, and the gradient of each probe (a
@@ -708,23 +742,39 @@ def check_step_against_cpu(torch, np, state_dict, seed, arch="convnext_tiny",
     attack's sign steps round differently on the two devices, so this is a
     check of the path, not of the last bits. augment: the full recipe on a
     uint8 batch, both devices given the same augmentation draws and erasing
-    noise (a rotation and a shear, equalize and color, one image erased)."""
+    noise (a rotation and a shear, equalize and color, one image erased).
+    A BN model's running statistics after the step (the training forward
+    moved them once, by flax's rule) are held within 2e-2 of the largest.
+    img: the image side (Inception's 299); dtype: the compute dtype (bf16
+    unless given); attack: the step's attack ('apgd', 'fgsm' or 'none')."""
     rng = np.random.RandomState(seed + 1)
-    x = torch.from_numpy(rng.uniform(0, 1, (2, 224, 224, 3)).astype(np.float32))
+    x = torch.from_numpy(rng.uniform(0, 1, (2, img, img, 3)).astype(np.float32))
     y = torch.from_numpy(rng.randint(0, 1000, 2))
     kw = {}
     if augment:
         x = (x * 255).to(torch.uint8)
         kw = dict(randaug=True, augment_draws=lambda step, b, h, w: fixed_draws(torch, b, h, w))
-    out = {}
+    out, stats = {}, {}
     for device in ("cuda", "cpu"):
         state, step = build_train_step(torch, state_dict, use_pallas=True, device=device,
-                                       seed=seed, arch=arch, dwconv=dwconv, **kw)
+                                       seed=seed, arch=arch, dwconv=dwconv, updated=updated,
+                                       dtype=dtype, attack=attack, **kw)
         metrics = step(state, x.to(device), y.to(device))
         grads = [state.model.get_parameter(name).grad.float().cpu() for name in probes]
         out[device] = (float(metrics["loss"]), float(metrics["grad_norm"]), grads)
+        stats[device] = {k: v.float().cpu() for k, v in state.model.state_dict().items()
+                         if k.endswith(("running_mean", "running_var"))}
     (lc, nc, gc), (lp, np_, gp) = out["cuda"], out["cpu"]
     cos = [float((a * b).sum() / (a.norm() * b.norm())) for a, b in zip(gc, gp)]
+    if stats["cpu"]:
+        moved = sum(not torch.equal(v, state_dict[k].float()) for k, v in stats["cpu"].items())
+        rel = max(float((stats["cuda"][k] - v).abs().max() / v.abs().max())
+                  for k, v in stats["cpu"].items())
+        log(f"{arch} running statistics after one step, card vs CPU "
+            f"({dtype or torch.bfloat16}, batch 2): {moved} of {len(stats['cpu'])} moved on the "
+            f"CPU, largest difference {rel:.3e} of the largest value (tolerance 2e-2)")
+        if not (moved == len(stats["cpu"]) and rel <= 2e-2):
+            raise AssertionError(f"the {arch} running statistics disagree with the CPU's")
     log(f"{arch}{' (dwconv kernel)' if dwconv else ''}{' (full recipe)' if augment else ''} "
         f"train step vs CPU plain version "
         f"(batch 2): loss {lc:.5f} / {lp:.5f}, "
@@ -1770,14 +1820,14 @@ FULL_AA_BATCH = 200  # AutoAttack's batch
 FAB_ITERS, SQUARE_QUERIES = 10, 50  # phase 17 (b): one FAB target, Square's queries
 
 
-def eval_model(torch, arch, weights, use_pallas=True, img_size=224):
+def eval_model(torch, arch, weights, use_pallas=True, img_size=224, updated=False):
     """The bf16 model cli.eval builds from a run, on the card, input-only tail backward."""
     from revisiting_at_tpu_torch.ckpt.convert import load_torch_checkpoint
     from revisiting_at_tpu_torch.models import get_model
     from revisiting_at_tpu_torch.train.train_step import input_grad_view
 
     m, _ = get_model(arch, not_original=True, dtype=torch.bfloat16, use_pallas=use_pallas,
-                     img_size=img_size)
+                     img_size=img_size, updated=updated)
     load_torch_checkpoint(weights, m)
     return input_grad_view(m.cuda().eval().requires_grad_(False))
 
@@ -2281,6 +2331,483 @@ def trainer_ckpt_phase(torch, np, repo, init, vit_init, seed, label) -> None:
     took["c_vit"] = time.time() - t0
     log(f"phase 18: {sum(took.values()):.1f} s; "
         + ", ".join(f"({k}) {v:.1f} s" for k, v in took.items()))
+
+
+# -------------------------------------------------------------- phase 19
+ATTACK_BATCH = 32  # phase 19 (b): PGD and the wrapped model, as APGD-CE's batch in phase 8
+ISO_C = 432  # convnext_iso with updated=1
+# tail launches per APGD training step of convnext_iso: all 18 blocks fuse
+# in the attack and in training (432 <= 512), 5 reductions a full backward
+ISO_PER_STEP = {"block_mlp_fwd": tail_forwards_per_step(18, 18, False),
+                "block_mlp_bwd_input": ATTACK_ITERS * 18, "block_mlp_bwd_full_rows": 18,
+                "block_mlp_wgrad": 2 * 18, "block_mlp_reduce": 5 * 18}
+
+
+def iso_init(torch, seed: int, updated: bool) -> dict:
+    """ConvNeXt-iso-CvSt's random weights from the seed, an f32 state_dict."""
+    from revisiting_at_tpu_torch.models import get_model
+
+    torch.manual_seed(seed)
+    model, _ = get_model("convnext_iso", not_original=True, updated=updated, dtype=torch.float32)
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def iso_tail_timings(torch, bm, gen, label) -> dict:
+    """The block tail at convnext_iso's shape (M = 196 x 80 rows, C = 432,
+    WMMA kernels): forward and input backward beside their plain versions
+    (in turns p, k, k, p), the plain model path's tail (bf16 cuBLAS, erf
+    GELU) and bounds as phase 8 books them; the full backward (row pass,
+    weight passes and reductions) beside its plain version and the model
+    path's weight backward, bound as _bwd_kernel's work."""
+    from revisiting_at_tpu_torch.models.convnext import plain_tail
+
+    M, C = ISO_ROWS * TRAIN_BATCH, ISO_C
+    d = tail_inputs(torch, M, C, torch.bfloat16, gen)
+    s_in, r_in = d["s"].clone().requires_grad_(True), d["r"].clone().requires_grad_(True)
+    model_args = (d["ln_g"], d["ln_b"], d["w1"].t(), d["b1"], d["w2"].t(), d["b2"], d["gamma"],
+                  torch.bfloat16)
+    y_model = plain_tail(s_in, r_in, *model_args)
+    model_fn = {"fwd": lambda: plain_tail(d["s"], d["r"], *model_args),
+                "bwd_input": lambda: torch.autograd.grad(y_model, (s_in, r_in), d["dy"],
+                                                         retain_graph=True)}
+    weights = 2 * 4 * C * C * 2 + 7 * C * 4
+    out = {}
+    for which in ("fwd", "bwd_input"):
+        k_fn = lambda: run_tail(bm, d, which, kernel=True)  # noqa: E731
+        p_fn = lambda: run_tail(bm, d, which, kernel=False)  # noqa: E731
+        p1, k1, k2, p2 = (time_ms(torch, f, 10) for f in (p_fn, k_fn, k_fn, p_fn))
+        flops = (16 if which == "fwd" else 24) * M * C * C
+        bound = max(flops / PEAK_BF16, (3 * M * C * 2 + weights) / PEAK_HBM) * 1e3
+        out[which] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                          model_ms=time_ms(torch, model_fn[which], 10),
+                          device_ms=device_ms(torch, k_fn, 10), bound_ms=bound,
+                          design=tail_design(bm, C, which))
+        o = out[which]
+        log(f"time {which:9s} iso B={TRAIN_BATCH} M={M} C={C}: kernel {o['ms']:.3f} ms "
+            f"({flops / o['ms'] / 1e9:.1f} TFLOP/s; device {ms_or_na(o['device_ms'])} ms, "
+            f"{o['design']}), plain {o['plain_ms']:.3f} ms, model bf16 path "
+            f"{o['model_ms']:.3f} ms, bound {bound:.4f} ms {label}")
+    w2g16 = (d["w2"].bfloat16().float() * d["gamma"]).bfloat16()
+    a = (d["s"], None, M, d["ln_g"], d["ln_b"], d["w1"].bfloat16(), d["b1"], w2g16, d["dy"])
+    leaves = [d["s"].clone(), d["r"].clone(), d["ln_g"], d["ln_b"], d["w1"].t().contiguous(),
+              d["b1"], d["w2"].t().contiguous(), d["b2"], d["gamma"]]
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    y_full = plain_tail(*leaves, torch.bfloat16)
+    flops = 40 * M * C * C  # _bwd_kernel's work: rows (24), dW1 and A (16)
+    nbytes = (3 * M * C * 2 + 2 * 4 * C * C * 2 + 6 * C * 4) + (2 * 4 * C * C + 6 * C) * 4
+    out["bwd_full"] = dict(
+        ms=time_ms(torch, lambda: bm.bwd_full_cuda(*a), 10),
+        rows_ms=time_ms(torch, lambda: bm.bwd_full_rows_cuda(*a), 10),
+        plain_ms=time_ms(torch, lambda: bm.bwd_full_plain(*a), 5),
+        model_ms=time_ms(torch, lambda: torch.autograd.grad(y_full, leaves, d["dy"],
+                                                            retain_graph=True), 10),
+        device_ms=device_ms(torch, lambda: bm.bwd_full_cuda(*a), 10),
+        bound_ms=max(flops / PEAK_BF16, nbytes / PEAK_HBM) * 1e3,
+        design=tail_design(bm, C, "bwd_full_rows"))
+    o = out["bwd_full"]
+    log(f"time bwd_full  iso B={TRAIN_BATCH} M={M} C={C}: kernels {o['ms']:.3f} ms "
+        f"({flops / o['ms'] / 1e9:.1f} TFLOP/s; device {ms_or_na(o['device_ms'])} ms; row pass "
+        f"{o['rows_ms']:.3f} ms, {o['design']}), plain {o['plain_ms']:.3f} ms, model bf16 path "
+        f"weight backward {o['model_ms']:.3f} ms, bound {o['bound_ms']:.4f} ms {label}")
+    del d, s_in, r_in, y_model, leaves, y_full, a
+    torch.cuda.empty_cache()
+    return out
+
+
+def per_step_launches(launches: dict, n_steps: int, what: str) -> dict:
+    """The tail launches per step over n_steps kernel steps; fatal unless
+    they are ISO_PER_STEP's."""
+    got = {k: launches[k] / n_steps for k in ISO_PER_STEP}
+    log(f"tail launches per step of {what}: {got} (expected {ISO_PER_STEP})")
+    if got != ISO_PER_STEP:
+        raise AssertionError(f"{what}: tail launches per step {got}, expected {ISO_PER_STEP}")
+    return got
+
+
+def attack_agreement(torch, got, ref, x, eps, norm) -> float:
+    """How far two attack points of the card and the CPU lie apart, fatal
+    unless both lie in the eps ball and the box and, for Linf, at most 5% of
+    the elements are more than 1e-5 apart, none by more than 2 eps (a sign
+    step of a gradient component near zero goes the other way: the kernels
+    round u, g and dh to bf16 after an f32 sum in an order of their own, so
+    a rounding can flip where the CPU plain version's does not; first
+    reading 1.14% of the elements over 10 PGD steps on 2 images), or, for
+    L2, each image's |delta_card - delta_cpu| is at most 5% of |delta_cpu|
+    (L2 steps move every element by the normalised gradient). Returns the
+    share apart (Linf) or the largest relative distance (L2)."""
+    got, ref, x = got.float().cpu(), ref.float().cpu(), x.float().cpu()
+    for z in (got, ref):
+        delta = (z - x).reshape(len(z), -1)
+        size = delta.abs().max() if norm == "Linf" else delta.norm(dim=1).max()
+        if not (float(size) <= eps * (1 + 1e-4) and 0.0 <= float(z.min()) <= float(z.max()) <= 1.0):
+            raise AssertionError(f"{norm} attack point outside the eps ball or the box")
+    diff = (got - ref).abs()
+    if norm == "Linf":
+        share, worst = float((diff > 1e-5).float().mean()), float(diff.max())
+        if not (share <= 5e-2 and worst <= 2 * eps + 1e-6):
+            raise AssertionError(f"Linf attack points, card vs CPU: {share:.2%} of the elements "
+                                 f"apart, largest {worst:.3e} (allowed 5% and 2 eps)")
+        return share
+    d_ref = (ref - x).reshape(len(x), -1)
+    rel = float(((got - ref).reshape(len(x), -1).norm(dim=1) / d_ref.norm(dim=1)).max())
+    if not rel <= 5e-2:
+        raise AssertionError(f"L2 attack points, card vs CPU: |delta difference| {rel:.3e} of "
+                             f"|delta| (allowed 5e-2)")
+    return rel
+
+
+def iso_attacks_phase(torch, np, init, seed, label) -> None:
+    """Phase 19 (b): pgd_attack (Linf, L2; 10 steps) and AdversarialModel
+    (apgd, fgsm) on ConvNeXt-iso-CvSt (updated=1) at B = 32 on the card
+    with the kernels (bf16, as the step's attack runs; each must launch the
+    tail's forward and input backward, and run in attack mode: no weight
+    gradient); then on 2 of the images, the f32 build of the same weights on
+    the card against the CPU from the same start and draws (f32, so that the
+    comparison reads the attack and the kernels, not bf16 convolutions)."""
+    from revisiting_at_tpu_torch.attacks import AdversarialModel, pgd_attack
+    from revisiting_at_tpu_torch.ckpt.convert import load_state_dict
+    from revisiting_at_tpu_torch.models import get_model
+
+    def model_on(device, dtype):
+        m, _ = get_model("convnext_iso", not_original=True, updated=True, dtype=dtype,
+                         use_pallas=True)
+        load_state_dict(m, init)
+        return m.to(device).eval()
+
+    rng = np.random.RandomState(seed + 3)
+    x = torch.from_numpy(rng.uniform(0, 1, (ATTACK_BATCH, 224, 224, 3)).astype(np.float32))
+    eps = {"Linf": 4.0 / 255.0, "L2": 0.5}
+    gen = torch.Generator().manual_seed(seed)
+    starts = {"Linf": torch.rand(x.shape, generator=gen) * (2 * eps["Linf"]) - eps["Linf"],
+              "L2": torch.randn(x.shape, generator=gen)}
+    fgsm_draw = torch.rand(x.shape, generator=gen)
+    card = model_on("cuda", torch.bfloat16)
+    with torch.no_grad():
+        y = card(x.cuda()).argmax(-1)
+    xc = x.cuda()
+    for norm in ("Linf", "L2"):
+        pgd_attack(card, xc, y, norm=norm, eps=eps[norm], n_iter=2, noise=starts[norm])  # warm
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        z = pgd_attack(card, xc, y, norm=norm, eps=eps[norm], n_iter=10, noise=starts[norm])
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1000 / 10
+        launches = require_launches(f"pgd_attack {norm} (phase 19 (b))",
+                                    ("block_mlp_fwd", "block_mlp_bwd_input"))
+        with torch.no_grad():
+            broken = float((card(z).argmax(-1) != y).float().mean())
+        log(f"phase 19 (b) pgd_attack {norm} eps {eps[norm]:.5f} iso B={ATTACK_BATCH} bf16, 10 "
+            f"steps: {ms:.2f} ms/iteration, {broken:.2%} of the points broken, tail forwards "
+            f"{launches['block_mlp_fwd']}, input backwards {launches['block_mlp_bwd_input']} "
+            f"{label}")
+        if any(p.grad is not None for p in card.parameters()):
+            raise AssertionError("pgd_attack left weight gradients: not in attack mode")
+    for attack in ("apgd", "fgsm"):
+        wrapped = AdversarialModel(card, attack=attack, eps=eps["Linf"], n_iter=2, seed=seed,
+                                   attack_draws=lambda calls, shape: fgsm_draw)
+        wrapped.set_perturb(True)
+        zero_launches()
+        logits = wrapped(xc, y, train=True)
+        require_launches(f"AdversarialModel {attack} (phase 19 (b))",
+                         ("block_mlp_fwd", "block_mlp_bwd_input"))
+        if not (torch.isfinite(logits).all() and card.training):
+            raise AssertionError(f"AdversarialModel {attack}: bad logits or mode")
+        card.eval()
+    del card
+    torch.cuda.empty_cache()
+
+    # card vs CPU, f32, 2 images, same starts and draws
+    n = 2
+    models = {dev: model_on(dev, torch.float32) for dev in ("cuda", "cpu")}
+    xs, ys = x[:n], y[:n].cpu()
+    for norm in ("Linf", "L2"):
+        z = {dev: pgd_attack(m, xs.to(dev), ys.to(dev), norm=norm, eps=eps[norm], n_iter=10,
+                             noise=starts[norm][:n]) for dev, m in models.items()}
+        apart = attack_agreement(torch, z["cuda"], z["cpu"], xs, eps[norm], norm)
+        log(f"phase 19 (b) pgd_attack {norm} card vs CPU (f32, {n} images, 10 steps, same "
+            f"start): " + (f"{apart:.3%} of the elements more than 1e-5 apart" if norm == "Linf"
+                           else f"|delta difference| {apart:.3e} of |delta|"))
+    for attack in ("apgd", "fgsm"):
+        out = {}
+        for dev, m in models.items():
+            wrapped = AdversarialModel(m, attack=attack, eps=eps["Linf"], n_iter=2, seed=seed,
+                                       attack_draws=lambda calls, shape: fgsm_draw[:n])
+            z = wrapped.perturb(xs.to(dev), ys.to(dev))
+            with torch.no_grad():
+                out[dev] = (z, m.train()(z).float().cpu())
+        share = attack_agreement(torch, out["cuda"][0], out["cpu"][0], xs, eps["Linf"], "Linf")
+        e, scale = compare(out["cuda"][1], out["cpu"][1])
+        log(f"phase 19 (b) AdversarialModel {attack} card vs CPU (f32, {n} images): "
+            f"{share:.3%} of the points' elements more than 1e-5 apart; train-mode logits "
+            f"max_abs_err {e:.3e}, max|ref| {scale:.3e} (tolerance 2e-3 of it)")
+        if not e <= 2e-3 * scale:
+            raise AssertionError(f"AdversarialModel {attack}: logits disagree with the CPU's")
+    del models
+    torch.cuda.empty_cache()
+
+
+def bn_phase(torch, np, repo, seed, label) -> None:
+    """Phase 19 (c): the BN family at full width on cuDNN. resnet50 at 224
+    px, batch 80: cli.train for 4 steps with model.pretrained=1 from a
+    state_dict made here and saved to a temporary .pt (every parameter and
+    statistic must load), one step against the CPU at batch 2 (its running
+    statistics by flax's rule), cli.eval (short AutoAttack) on its EMA
+    weights and cli.export; densnet201 at 224 px and inception at 299 px:
+    one eval forward and one training step each against the CPU at batch
+    2 (f32, the step without attack: the running statistics' rule); the three
+    APGD steps at batch 80 timed (ms/step)."""
+    import shutil
+    import tempfile
+
+    from revisiting_at_tpu_torch.cli import eval as eval_cli
+    from revisiting_at_tpu_torch.cli import export as export_cli
+    from revisiting_at_tpu_torch.cli import train as train_cli
+    from revisiting_at_tpu_torch.ckpt.convert import load_state_dict
+    from revisiting_at_tpu_torch.models import BatchNorm, get_model
+
+    def init_of(arch, img):
+        """Weights as a trained model's: BN scales from U(0.5, 1.5), not the
+        init's (bn3's zero scale would leave each block's convs without a
+        gradient), and running statistics that normalise (one train-mode
+        pass over 4 random images with momentum 0: random statistics leave
+        the eval-mode network unnormalised, and an attack on it diverges
+        between two devices)."""
+        torch.manual_seed(seed + 7)  # not the trainer's seed: a load must show
+        m, _ = get_model(arch, dtype=torch.float32)
+        bns = [b for b in m.modules() if isinstance(b, BatchNorm)]
+        with torch.no_grad():
+            for b in bns:
+                b.weight.uniform_(0.5, 1.5)
+                b.momentum = 0.0
+            m.train()(torch.rand(4, img, img, 3))
+            for b in bns:
+                b.momentum = 0.9
+                b.num_batches_tracked.zero_()
+        return {k: v.detach().clone() for k, v in m.state_dict().items()}
+
+    # Inception's pool branch, input gradients card vs CPU at its three map
+    # shapes: the port's pool (on an NCHW copy) must agree; the library's
+    # padded pool over the channels_last view, which it replaces, is logged
+    import torch.nn.functional as F
+
+    from revisiting_at_tpu_torch.models.inception import _avg_pool_3x3
+    from revisiting_at_tpu_torch.models.layers import to_nchw, to_nhwc
+
+    def pool_grads(fn, x, dy):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            xs = x.to(dev).requires_grad_(True)
+            (out[dev],) = torch.autograd.grad(fn(xs), xs, dy.to(dev))
+        return float((out["cuda"].cpu() - out["cpu"]).abs().max() / out["cpu"].abs().max())
+
+    gen = torch.Generator().manual_seed(seed)
+    for side, chans in ((35, 288), (17, 768), (8, 1280)):
+        x = torch.randn(2, side, side, chans, generator=gen)
+        dy = torch.randn(2, side, side, chans, generator=gen)
+        port = pool_grads(_avg_pool_3x3, x, dy)
+        lib = pool_grads(lambda t: to_nhwc(F.avg_pool2d(to_nchw(t), 3, 1, 1)), x, dy)
+        log(f"phase 19 (c) inception's 3x3 average pool {side}x{side}x{chans}, input gradient "
+            f"card vs CPU: the port's (NCHW copy) {port:.3e}, the library's on the "
+            f"channels_last view {lib:.3e} of max |grad| (tolerance 1e-5 for the port's)")
+        if not port <= 1e-5:
+            raise AssertionError("inception's average pool: the card's gradient differs")
+
+    sizes = {"resnet50": 224, "densnet201": 224, "inception": 299}
+    probes = {"resnet50": ("layer1.0.conv1.weight", "fc.weight"),
+              "densnet201": ("features.denseblock1.denselayer1.conv1.weight", "classifier.weight"),
+              "inception": ("Mixed_5b.branch1x1.conv.weight", "fc.weight")}
+    inits = {arch: init_of(arch, img) for arch, img in sizes.items()}
+    for arch, img in sizes.items():
+        rng = np.random.RandomState(seed + 4)
+        x = torch.from_numpy(rng.uniform(0, 1, (2, img, img, 3)).astype(np.float32))
+        logits = {}
+        for dev in ("cuda", "cpu"):  # f32: bf16 logits differ by up to 6% (inception)
+            m, _ = get_model(arch, dtype=torch.float32)
+            load_state_dict(m, inits[arch])
+            with torch.no_grad():
+                logits[dev] = m.to(dev).eval()(x.to(dev)).cpu()
+        e, scale = compare(logits["cuda"], logits["cpu"])
+        log(f"phase 19 (c) {arch} {img} px eval logits card vs CPU (f32, 2 images): "
+            f"max_abs_err {e:.3e}, max|ref| {scale:.3e} (tolerance 1e-3 of it)")
+        if not (torch.isfinite(logits["cuda"]).all() and e <= 1e-3 * scale):
+            raise AssertionError(f"{arch}: eval logits disagree with the CPU's")
+        # f32 and no attack: bf16 convolutions round differently on the two
+        # devices, and APGD's sign steps and the BatchNorms carry that to 1e-1
+        # of a statistic; the batch-80 steps below run APGD
+        check_step_against_cpu(torch, np, inits[arch], seed, arch=arch, probes=probes[arch],
+                                img=img, dtype=torch.float32, attack="none")
+        state, step = build_train_step(torch, inits[arch], use_pallas=True, device="cuda",
+                                       seed=seed, arch=arch)
+        xb = torch.from_numpy(rng.uniform(0, 1, (TRAIN_BATCH, img, img, 3)).astype(np.float32))
+        yb = torch.from_numpy(rng.randint(0, 1000, TRAIN_BATCH))
+        run_steps(torch, state, step, xb.cuda(), yb.cuda(), 1)
+        ms, losses = run_steps(torch, state, step, xb.cuda(), yb.cuda(), 3)
+        log(f"phase 19 (c) train step {arch} bf16 B={TRAIN_BATCH} {img}px 2-step APGD (cuDNN, "
+            f"no hand kernel): {ms:.2f} ms/step, losses {losses} {label}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{arch}: non-finite training loss")
+        del state, step, xb, yb
+        torch.cuda.empty_cache()
+
+    folder = repo / "build" / "smoke_bn"
+    shutil.rmtree(folder, ignore_errors=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "resnet50_pretrained.pt"
+        torch.save({"state_dict": {f"module.{k}": v for k, v in inits["resnet50"].items()}}, src)
+        t0 = time.time()
+        trainer = train_cli.main([
+            "--model.arch", "resnet50", "--model.pretrained", "1", "--model.pretrained_path",
+            str(src), "--model.add_normalization", "0", "--model.model_ema", "1",
+            "--adv.attack", "apgd", "--adv.n_iter", str(ATTACK_ITERS), "--data.dataset",
+            "synthetic", "--training.batch_size", str(TRAIN_BATCH), "--training.epochs", "1",
+            "--validation.batch_size", "32", "--validation.max_batches", "1",
+            "--training.seed", str(seed), "--logging.folder", str(folder), "--device", "cuda",
+            "--synthetic_batches", "4"])
+    run, ema = trainer.logger.dir, trainer.state.ema
+    records = [json.loads(line) for line in (run / "log").read_text().splitlines()]
+    epoch = [r for r in records if "train_loss" in r]
+    # EMA 0.9999 over 4 steps: 4e-4 of the way from the loaded file to the
+    # weights and statistics the steps reach, so within 1e-3 of the file
+    far = max(float((ema[k].cpu() - v.float()).abs().max())
+              for k, v in inits["resnet50"].items() if k in ema)
+    log(f"phase 19 (c) cli.train resnet50 pretrained, 4 steps B={TRAIN_BATCH}: epoch {epoch}, "
+        f"the EMA's largest departure from the loaded file {far:.2e}, "
+        f"{time.time() - t0:.1f} s {label}")
+    if not (epoch and np.isfinite(epoch[0]["train_loss"]) and far < 1e-3
+            and int(trainer.model.bn1.num_batches_tracked) == 4):
+        raise AssertionError(f"cli.train resnet50: bad records, pretrained init or statistics "
+                             f"{records}")
+    del trainer
+    torch.cuda.empty_cache()
+    base = ["--run_dir", str(run), "--synthetic", "--n_ex", "16", "--batch_size", "16",
+            "--n_iter", "2", "--img_size", "224", "--device", "cuda"]
+    m, _ = get_model("resnet50", dtype=torch.bfloat16)
+    load_state_dict(m, torch.load(run / "ckpt" / "weights_ema_0.pt", weights_only=True))
+    x_eval, y_eval = own_labels(torch, np, eval_cli, m.cuda().eval().requires_grad_(False),
+                                base + ["--use_ema", "1"])
+    del m
+    res = eval_on(eval_cli, base + ["--use_ema", "1"], x_eval, y_eval)
+    out = export_cli.main(["--run_dir", str(run), "--out", str(folder / "resnet50_ema.pt"),
+                           "--use_ema", "1"])
+    m, _ = get_model("resnet50", dtype=torch.float32)
+    m.load_state_dict(torch.load(out, weights_only=True), strict=True)
+    log(f"phase 19 (c) cli.eval --use_ema 1 resnet50: {res}; cli.export {out} strict-loads")
+    if not 0.0 <= res["Linf"]["robust"] <= 1.0:
+        raise AssertionError(f"cli.eval resnet50: bad result {res}")
+    shutil.rmtree(folder, ignore_errors=True)
+
+
+def iso_phase(torch, np, repo, seed, label) -> dict:
+    """Phase 19: ConvNeXt-iso-CvSt (a), its attacks (b), the BN family (c);
+    returns the tail's launches per step of (a)'s kernel step."""
+    import shutil
+
+    from revisiting_at_tpu_torch.cli import eval as eval_cli
+    from revisiting_at_tpu_torch.cli import export as export_cli
+    from revisiting_at_tpu_torch.cli import train as train_cli
+    from revisiting_at_tpu_torch.models import get_model
+    from revisiting_at_tpu_torch.ops import block_mlp as bm
+
+    took = {}
+    t0 = time.time()
+    init = iso_init(torch, seed, True)
+    n_params = sum(v.numel() for k, v in init.items())
+    log(f"model: convnext_iso (updated=1, C = {ISO_C}) + ConvStem, {n_params / 1e6:.2f} M "
+        f"params, seed {seed}")
+    steps = {name: build_train_step(torch, init, use_pallas=name == "kernel", device="cuda",
+                                    seed=seed, arch="convnext_iso", updated=True)
+             for name in ("kernel", "plain")}
+    rng = np.random.RandomState(seed)
+    xb = torch.from_numpy(rng.uniform(0, 1, (TRAIN_BATCH, 224, 224, 3)).astype(np.float32))
+    yb = torch.from_numpy(rng.randint(0, 1000, TRAIN_BATCH))
+    xb, yb = xb.cuda(), yb.cuda()
+    zero_launches()
+    step_ms, losses = steps_in_turns(torch, steps, dict.fromkeys(steps, (xb, yb)),
+                                     ("kernel", "plain", "plain", "kernel"), warm=2)
+    launches = require_launches("the iso training step (phase 19 (a))", TAIL_KERNELS)
+    per_step = per_step_launches(launches, 2 + 10, "the iso training step, kernel path")
+    for name, v in step_ms.items():
+        ms = sum(v) / len(v)
+        log(f"phase 19 (a) train step convnext_iso+ConvStem (C={ISO_C}) bf16 B={TRAIN_BATCH} "
+            f"224px 2-step APGD ({name} tail): {ms:.2f} ms/step, {2000.0 / ms:.3f} "
+            f"attack-steps/s (runs of 5: {', '.join('%.2f' % t for t in v)}) {label}")
+        if not np.isfinite(losses[name]).all():
+            raise AssertionError(f"iso {name}-tail step: non-finite loss {losses[name]}")
+    for name in ("kernel", "plain"):
+        profile_breakdown(torch, f"phase 19 (a) iso train step B={TRAIN_BATCH} ({name} tail), "
+                          f"per step", lambda: steps[name][1](steps[name][0], xb, yb), 3, label)
+    del steps
+    torch.cuda.empty_cache()
+    check_step_against_cpu(torch, np, init, seed, arch="convnext_iso", updated=True,
+                           probes=("blocks.0.pwconv1.weight", "blocks.17.pwconv2.weight"))
+    # updated=0: C = 384, the TMA + wgmma kernels
+    init0 = iso_init(torch, seed, False)
+    state, step = build_train_step(torch, init0, use_pallas=True, device="cuda", seed=seed,
+                                   arch="convnext_iso", updated=False)
+    zero_launches()
+    _, loss0 = run_steps(torch, state, step, xb, yb, 1)
+    per_step_launches(require_launches("the iso step at C = 384 (phase 19 (a))", TAIL_KERNELS),
+                      1, f"the iso step at C = 384 ({tail_design(bm, 384, 'fwd')})")
+    if not np.isfinite(loss0).all():
+        raise AssertionError(f"iso step at C = 384: non-finite loss {loss0}")
+    del state, step, init0
+    torch.cuda.empty_cache()
+    took["a_step"] = time.time() - t0
+
+    t0 = time.time()
+    folder = repo / "build" / "smoke_iso"
+    shutil.rmtree(folder, ignore_errors=True)
+    zero_launches()
+    trainer = train_cli.main([
+        "--model.arch", "convnext_iso", "--model.not_original", "1", "--model.updated", "1",
+        "--model.add_normalization", "0", "--model.model_ema", "1", "--adv.attack", "apgd",
+        "--adv.n_iter", str(ATTACK_ITERS), "--data.dataset", "synthetic",
+        "--training.batch_size", str(TRAIN_BATCH), "--training.epochs", "1",
+        "--training.use_pallas", "1", "--validation.batch_size", "32",
+        "--validation.max_batches", "1", "--training.seed", str(seed),
+        "--logging.folder", str(folder), "--device", "cuda", "--synthetic_batches", "4"])
+    require_launches("the iso train CLI (phase 19 (a))", TAIL_KERNELS)
+    run = trainer.logger.dir
+    records = [json.loads(line) for line in (run / "log").read_text().splitlines()]
+    epoch = [r for r in records if "train_loss" in r]
+    if not (epoch and np.isfinite(epoch[0]["train_loss"])
+            and records[-1].get("event") == "final_val"):
+        raise AssertionError(f"cli.train convnext_iso: bad records {records}")
+    del trainer
+    torch.cuda.empty_cache()
+    base = ["--run_dir", str(run), "--use_pallas", "1", "--synthetic", "--n_ex", "16",
+            "--batch_size", "16", "--n_iter", "5", "--img_size", "224", "--device", "cuda",
+            "--use_ema", "1"]
+    model = eval_model(torch, "convnext_iso", run / "ckpt" / "weights_ema_0.pt", updated=True)
+    x_eval, y_eval = own_labels(torch, np, eval_cli, model, base)
+    del model
+    zero_launches()
+    res = eval_on(eval_cli, base, x_eval, y_eval)
+    require_launches("cli.eval --use_ema 1 on the iso run (phase 19 (a))",
+                     ("block_mlp_fwd", "block_mlp_bwd_input"))
+    out = export_cli.main(["--run_dir", str(run), "--out", str(folder / "iso_ema.pt"),
+                           "--use_ema", "1"])
+    exported, _ = get_model("convnext_iso", not_original=True, updated=True,
+                            dtype=torch.float32)
+    exported.load_state_dict(torch.load(out, weights_only=True), strict=True)
+    log(f"phase 19 (a) cli.train + cli.eval --use_ema 1 + cli.export convnext_iso: epoch "
+        f"{epoch[0]}, eval {res}, {out} strict-loads, {time.time() - t0:.1f} s")
+    if not 0.0 <= res["Linf"]["robust"] <= 1.0:
+        raise AssertionError(f"cli.eval on the iso run: bad result {res}")
+    shutil.rmtree(folder, ignore_errors=True)
+    took["a_cli"] = time.time() - t0
+
+    t0 = time.time()
+    iso_attacks_phase(torch, np, init, seed, label)
+    took["b"] = time.time() - t0
+    t0 = time.time()
+    bn_phase(torch, np, repo, seed, label)
+    took["c"] = time.time() - t0
+    log(f"phase 19: {sum(took.values()):.1f} s; "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in took.items()))
+    return per_step
+
 
 
 def main(argv=None) -> int:
@@ -2854,6 +3381,10 @@ def main(argv=None) -> int:
     # ---------------------------------------------------------------- 18
     trainer_ckpt_phase(torch, np, repo, init, vit_init, args.seed, label)
 
+    # ---------------------------------------------------------------- 19
+    iso_per_step = iso_phase(torch, np, repo, args.seed, label)
+    iso_times = iso_tail_timings(torch, bm, gen, label)
+
     kernels = [dict(name=f"block_mlp_{k}", route="cuda", source=SOURCE[f"block_mlp_{k}"],
                     replaces=REPLACES[f"block_mlp_{k}"], launches=step_launches[f"block_mlp_{k}"],
                     max_abs_err=err[k], ms=ms[k], plain_ms=plain_ms[k], bound_ms=bound_ms[k],
@@ -2867,6 +3398,13 @@ def main(argv=None) -> int:
                                                       library_device_ms=red["lib_dev"])
     for k, v in row_dev.items():
         kernels[list(bm.LAUNCHES).index(k)].update(device_ms=v)
+    # the tail at convnext_iso's shape (phase 19): times, bounds and the model
+    # path beside them; the full backward's under the row pass
+    for k, which in (("fwd", "fwd"), ("bwd_input", "bwd_input"), ("bwd_full_rows", "bwd_full")):
+        kernels[list(bm.LAUNCHES).index(k)]["iso432"] = dict(iso_times[which])
+    for k in bm.LAUNCHES:
+        kernels[list(bm.LAUNCHES).index(k)].setdefault("iso432", {})[
+            "launches_per_step"] = iso_per_step[f"block_mlp_{k}"]
     for k in ATT_KERNELS:
         k_ms, p_ms, b_ms, b_by, lib = att_times[k]
         kernels.append(dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],

@@ -6,11 +6,14 @@ Layout of a run dir (an entry is written at epochs e with
 e % save_freq == 0 and at the last, as JAX's manager writes its orbax
 snapshots):
   ckpt/weights_<e>.pt      the model in the reference format (timm names, f32)
-  ckpt/weights_ema_<e>.pt  the EMA weights in the same format (with model.model_ema)
-  ckpt/state_<e>.pt        the full state: model state_dict, optimizer (its
+  ckpt/weights_ema_<e>.pt  the EMA weights in the same format (with model.model_ema;
+                           a BN model's with the EMA of its running statistics)
+  ckpt/state_<e>.pt        the full state: model state_dict (a BN model's
+                           running statistics with it), optimizer (its
                            AdamW/SGD state, update count and any partial
-                           gradient accumulation), EMA tensors, step, epoch,
-                           and the trainer's best adversarial accuracy
+                           gradient accumulation), EMA tensors (the EMA
+                           statistics with them), step, epoch, and the
+                           trainer's best adversarial accuracy
   ckpt_best/               one entry of the same three files, replaced
                            whenever adversarial validation improves
 
@@ -28,6 +31,7 @@ from typing import TYPE_CHECKING
 import torch
 
 from . import orbax_reader
+from ..models.factory import model_family
 from .convert import jax_params_to_state_dict, read_torch_checkpoint, save_torch_checkpoint
 
 if TYPE_CHECKING:
@@ -120,8 +124,11 @@ def restore_run_weights(run_dir: str | Path, arch: str, *, best: bool = False,
     port's counterpart of JAX's restore_run_params (checkpoint.py:37-59):
     `best` reads ckpt_best, `epoch` -1 the latest entry. A port run gives
     its weights[_ema]_<e>.pt, a JAX run its orbax snapshot's params or
-    ema_params (ckpt/orbax_reader.py). With use_ema the run must hold EMA
-    weights: it never falls back to the raw ones."""
+    ema_params (ckpt/orbax_reader.py), a BN model's with its batch_stats,
+    or with use_ema its ema_batch_stats (the statistics JAX's
+    TrainState.ema_variables pairs with the EMA weights, state.py:31-36;
+    its restore_run_params gives the raw ones, ROADMAP C19). With use_ema
+    the run must hold EMA weights: it never falls back to the raw ones."""
     slot = Path(run_dir) / ("ckpt_best" if best else "ckpt")
     no_ema = ValueError("use_ema requested but the run kept no EMA params "
                         "(trained with model.model_ema=0?)")
@@ -146,4 +153,9 @@ def restore_run_weights(run_dir: str | Path, arch: str, *, best: bool = False,
         if use_ema:
             raise no_ema
         raise ValueError(f"{slot / str(e)}: the snapshot holds no params")
-    return jax_params_to_state_dict(params, arch), e
+    stats = None
+    if model_family(arch) == "resnet":
+        stats = orbax_reader.read_params(slot / str(e), "ema_batch_stats") if use_ema else None
+        if stats is None:
+            stats = orbax_reader.read_params(slot / str(e), "batch_stats")
+    return jax_params_to_state_dict(params, arch, stats), e

@@ -1,4 +1,6 @@
-"""Read the params of a JAX run's orbax snapshot without JAX or orbax.
+"""Read the params of a JAX run's orbax snapshot without JAX or orbax: a
+collection of its TrainState, 'params' or 'ema_params', and for a BN model
+'batch_stats' or 'ema_batch_stats' (the running statistics).
 
 The JAX package's CheckpointManager writes each epoch's TrainState with
 orbax's StandardSave into <slot>/<epoch>/default/: an OCDBT key-value store
@@ -38,9 +40,9 @@ def steps(slot: str | Path) -> list[int]:
 
 
 def read_params(snapshot: str | Path, collection: str = "params") -> dict | None:
-    """The `collection` ('params' or 'ema_params') of the snapshot dir
-    <slot>/<epoch> as nested dicts of numpy arrays, or None where it was
-    saved as None."""
+    """The `collection` ('params', 'ema_params', 'batch_stats' or
+    'ema_batch_stats') of the snapshot dir <slot>/<epoch> as nested dicts
+    of numpy arrays, or None where it was saved as None."""
     base = Path(snapshot).absolute() / "default"
     meta = json.loads((base / "_METADATA").read_text())
     if not meta.get("use_ocdbt", True) or meta.get("use_zarr3", False):

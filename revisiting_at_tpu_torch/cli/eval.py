@@ -42,6 +42,11 @@ run's orbax snapshot ckpt[_best]/<e>/ is read through tensorstore
 (ckpt/orbax_reader.py). Where tensorstore is not installed, export the JAX
 run first with `python -m revisiting_at_tpu.cli.export --run_dir <run> --out
 weights.pt` and pass --torch_ckpt.
+
+A BN-family model (resnet50, ..., densnet201, inception) loads its running
+statistics with its weights: --torch_ckpt's, or the run's, and with
+--use_ema the EMA statistics that weights_ema_<e>.pt carries (a JAX run's
+ema_batch_stats).
 """
 
 from __future__ import annotations
@@ -156,7 +161,7 @@ def main(argv=None) -> dict:
     cfg = load_params_json(run_dir / "params.json")
     model, meta = get_model(
         cfg.model.arch, not_original=bool(cfg.model.not_original),
-        num_classes=cfg.data.num_classes, dtype=torch.bfloat16,
+        updated=bool(cfg.model.updated), num_classes=cfg.data.num_classes, dtype=torch.bfloat16,
         use_blurpool=bool(cfg.training.use_blurpool),
         add_normalization=bool(cfg.model.add_normalization),
         use_pallas=bool(args.use_pallas), img_size=args.img_size,

@@ -1,4 +1,5 @@
-"""ConvNeXt (T/S/B/L), port of revisiting_at_tpu/models/convnext.py.
+"""ConvNeXt (T/S/B/L) and the isotropic ConvNeXt, port of
+revisiting_at_tpu/models/convnext.py.
 
 NHWC activations, f32 parameters cast to the compute dtype at use, and
 timm-0.8 module names (stem, stages.<s>.downsample / .blocks.<b>, head), so
@@ -31,7 +32,15 @@ torch.utils.checkpoint, whenever gradients are recorded (the attacks'
 input gradients too, as in JAX). The keep vector is drawn before the
 checkpointed call and handed to it: checkpoint restores the default RNGs
 but not an explicit generator, so a draw inside would differ on the
-recompute. The isotropic ConvNeXt waits for ROADMAP A3.
+recompute.
+
+ConvNeXtIsotropic (JAX `ConvNeXtIsotropic`, the reference's
+models/convnext_iso.py): a /16 patchify conv or a ConvStem, `depth` blocks
+of one width, mean pool, LayerNorm and head, under the reference's Meta
+names (stem, blocks.<i>.dwconv/norm/pwconv1/pwconv2, norm, head), so that
+the JAX package's export of a convnext_iso strict-loads. Its default
+layer_scale_init = 0 makes gamma a constant of ones, not a parameter; the
+fused tail takes it all the same. Its 7x7 conv is always the library's.
 """
 
 from __future__ import annotations
@@ -47,6 +56,13 @@ from ..ops.block_mlp import convnext_block_tail, tail_fusable
 from ..ops.dwconv import dwconv7x7
 from .layers import Conv, LayerNorm, to_nchw, to_nhwc, trunc_normal_
 from .stems import PatchifyStem
+
+
+def _linear(cin: int, cout: int) -> nn.Linear:
+    fc = nn.Linear(cin, cout)
+    trunc_normal_(fc.weight)
+    nn.init.zeros_(fc.bias)
+    return fc
 
 
 class Mlp(nn.Module):
@@ -97,18 +113,32 @@ def run_block(body, remat: bool, *args):
 
 
 class ConvNeXtBlock(nn.Module):
+    """The block under timm's names (conv_dw, norm, mlp.fc1, mlp.fc2,
+    gamma), or with `meta_names` under Meta's (dwconv, norm, pwconv1,
+    pwconv2), which the isotropic model's checkpoints use."""
+
     def __init__(self, dim: int, drop_path: float = 0.0, layer_scale_init: float = 1e-6,
                  dtype: torch.dtype = torch.float32, use_pallas: bool = False,
-                 wide_tail: bool = False, use_pallas_dwconv: bool = False):
+                 wide_tail: bool = False, use_pallas_dwconv: bool = False,
+                 meta_names: bool = False):
         super().__init__()
         self.dim, self.drop_path, self.dtype = dim, drop_path, dtype
         self.use_pallas, self.wide_tail = use_pallas, wide_tail
         self.use_pallas_dwconv = use_pallas_dwconv
-        self.conv_dw = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
-        trunc_normal_(self.conv_dw.weight)
-        nn.init.zeros_(self.conv_dw.bias)
-        self.norm = LayerNorm(dim)  # parameters only: applied inside the tail
-        self.mlp = Mlp(dim, 4 * dim)
+        conv_dw = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
+        trunc_normal_(conv_dw.weight)
+        nn.init.zeros_(conv_dw.bias)
+        if meta_names:
+            self.dwconv = conv_dw
+            self.norm = LayerNorm(dim)  # parameters only: applied inside the tail
+            mlp = Mlp(dim, 4 * dim)
+            self.pwconv1, self.pwconv2 = fc1, fc2 = mlp.fc1, mlp.fc2
+        else:
+            self.conv_dw = conv_dw
+            self.norm = LayerNorm(dim)
+            self.mlp = Mlp(dim, 4 * dim)
+            fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+        self._layers = (conv_dw, fc1, fc2)  # a tuple: not registered a second time
         if layer_scale_init > 0:
             self.gamma = nn.Parameter(torch.full((dim,), layer_scale_init))
         else:
@@ -123,14 +153,14 @@ class ConvNeXtBlock(nn.Module):
 
     def body(self, x: torch.Tensor, keep: torch.Tensor | None, grad_mode: str) -> torch.Tensor:
         C, dt = self.dim, self.dtype
+        conv_dw, fc1, fc2 = self._layers
         if self.use_pallas_dwconv and C <= 384:
             # the kernel route reads the f32 weight ([C, 1, 7, 7] -> [7, 7, 1, C]) and bias
-            s = dwconv7x7(x.to(dt), self.conv_dw.weight.permute(2, 3, 1, 0), self.conv_dw.bias)
+            s = dwconv7x7(x.to(dt), conv_dw.weight.permute(2, 3, 1, 0), conv_dw.bias)
         else:
-            s = to_nhwc(F.conv2d(to_nchw(x.to(dt)), self.conv_dw.weight.to(dt),
-                                 self.conv_dw.bias.to(dt), padding=3, groups=C))
+            s = to_nhwc(F.conv2d(to_nchw(x.to(dt)), conv_dw.weight.to(dt),
+                                 conv_dw.bias.to(dt), padding=3, groups=C))
         ln_g, ln_b = self.norm.weight, self.norm.bias
-        fc1, fc2 = self.mlp.fc1, self.mlp.fc2
         if self.use_pallas and tail_fusable(C, grad_mode, wide=self.wide_tail):
             return convnext_block_tail(
                 s, x, keep, ln_g, ln_b, fc1.weight.t(), fc1.bias, fc2.weight.t(), fc2.bias,
@@ -188,9 +218,7 @@ class ConvNeXt(nn.Module):
         self.stages = nn.ModuleList(stages)
         self.head = nn.Module()
         self.head.norm = LayerNorm(dims[-1], dtype=dtype)
-        self.head.fc = nn.Linear(dims[-1], num_classes)
-        trunc_normal_(self.head.fc.weight)
-        nn.init.zeros_(self.head.fc.bias)
+        self.head.fc = _linear(dims[-1], num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: NHWC [B, H, W, 3] in [0, 1] (after any normalizer) -> f32 logits."""
@@ -202,6 +230,45 @@ class ConvNeXt(nn.Module):
         x = x.float().mean(dim=(1, 2))
         x = self.head.norm(x.to(self.dtype))
         return F.linear(x.float(), self.head.fc.weight, self.head.fc.bias)
+
+
+class ConvNeXtIsotropic(nn.Module):
+    """Isotropic ConvNeXt: constant width and resolution, a /16 patchify
+    conv (or `stem_factory(dtype=, use_blurpool=)`, a ConvStem to `dim`
+    channels), `depth` blocks, mean pool, LayerNorm and head. DropPath rate
+    i / (depth - 1) of drop_path_rate in block i; `grad_mode`,
+    `drop_generator` and `remat` as in ConvNeXt. `wide_tail` changes
+    nothing at the iso widths (<= 432), as in JAX."""
+
+    def __init__(self, dim: int = 384, depth: int = 18, num_classes: int = 1000,
+                 drop_path_rate: float = 0.0, layer_scale_init: float = 0.0,
+                 dtype: torch.dtype = torch.float32,
+                 stem_factory: Callable[..., nn.Module] | None = None,
+                 use_blurpool: bool = False, use_pallas: bool = False,
+                 wide_tail: bool = False, remat: bool = False):
+        super().__init__()
+        self.dtype, self.remat = dtype, remat
+        self.grad_mode = "full"
+        self.drop_generator: torch.Generator | None = None
+        if stem_factory is not None:
+            self.stem = stem_factory(dtype=dtype, use_blurpool=use_blurpool)
+        else:  # JAX's plain stem takes no blurpool
+            self.stem = Conv(3, dim, 16, stride=16, dtype=dtype)
+        dp_rates = [drop_path_rate * i / max(depth - 1, 1) for i in range(depth)]
+        self.blocks = nn.ModuleList(
+            ConvNeXtBlock(dim, dp_rates[i], layer_scale_init, dtype, use_pallas, wide_tail,
+                          meta_names=True) for i in range(depth))
+        self.norm = LayerNorm(dim, dtype=dtype)
+        self.head = _linear(dim, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: NHWC [B, H, W, 3] in [0, 1] (after any normalizer) -> f32 logits."""
+        x = self.stem(x)
+        for block in self.blocks:
+            x = block(x, self.grad_mode, self.drop_generator, self.remat)
+        x = x.float().mean(dim=(1, 2))
+        x = self.norm(x.to(self.dtype))
+        return F.linear(x.float(), self.head.weight, self.head.bias)
 
 
 CONVNEXT_CFGS = {

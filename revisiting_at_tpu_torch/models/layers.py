@@ -4,6 +4,9 @@ Activations are NHWC tensors ([B, H, W, C], contiguous), as in the JAX
 package; a convolution runs on the NCHW view of that memory, which is
 PyTorch's channels_last layout, so no copy is made around it. Parameters
 are float32 and are cast to the compute dtype at use.
+
+BatchNorm computes as flax's nn.BatchNorm, which the JAX package's ResNet,
+DenseNet and Inception use, under torchvision's buffer names.
 """
 
 from __future__ import annotations
@@ -85,24 +88,35 @@ def blur_pool_2d(x: torch.Tensor) -> torch.Tensor:
     return to_nhwc(F.conv2d(to_nchw(x), w, padding=1, groups=c))
 
 
-class Conv(nn.Module):
-    """k x k convolution on NHWC x, compute dtype configurable, with an
-    optional BlurPool before a strided conv of >= 16 input channels.
-    weight is [out, in, k, k], PyTorch's layout."""
+def lecun_normal_(t: torch.Tensor, fan_in: int) -> torch.Tensor:
+    """flax's default kernel init, variance_scaling(1, fan_in, truncated_normal):
+    a normal truncated at +-2 std, scaled to variance 1 / fan_in."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std)
 
-    def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1,
-                 padding: int = 0, bias: bool = True, dtype: torch.dtype = torch.float32,
-                 use_blurpool: bool = False, init: str = "trunc_normal"):
+
+class Conv(nn.Module):
+    """k x k (or kh x kw) convolution on NHWC x, compute dtype configurable,
+    with an optional BlurPool before a strided conv of >= 16 input channels.
+    weight is [out, in, kh, kw], PyTorch's layout; padding an int or (ph, pw)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int | tuple[int, int],
+                 stride: int = 1, padding: int | tuple[int, int] = 0, bias: bool = True,
+                 dtype: torch.dtype = torch.float32, use_blurpool: bool = False,
+                 init: str = "trunc_normal"):
         super().__init__()
         self.stride, self.padding = stride, padding
         self.dtype = dtype
         self.use_blurpool = use_blurpool
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel_size, kernel_size))
+        kh, kw = (kernel_size, kernel_size) if isinstance(kernel_size, int) else kernel_size
+        self.weight = nn.Parameter(torch.empty(cout, cin, kh, kw))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+        fan_in = cin * kh * kw
         if init == "trunc_normal":
             trunc_normal_(self.weight)
+        elif init == "lecun_normal":  # flax nn.Conv's default: the BN family's convs
+            lecun_normal_(self.weight, fan_in)
         else:  # variance_scaling(1/3, fan_in, uniform): the ConvStem convs
-            fan_in = cin * kernel_size * kernel_size
             bound = (1.0 / fan_in) ** 0.5
             nn.init.uniform_(self.weight, -bound, bound)
 
@@ -113,3 +127,57 @@ class Conv(nn.Module):
         b = self.bias.to(dt) if self.bias is not None else None
         y = F.conv2d(to_nchw(x.to(dt)), self.weight.to(dt), b, self.stride, self.padding)
         return to_nhwc(y)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the channel (last) axis of NHWC x, as flax's
+    nn.BatchNorm(momentum=0.9) computes it, under torchvision's names
+    (weight, bias, running_mean, running_var, num_batches_tracked).
+
+    In train mode the batch statistics are reduced in f32 over (B, H, W),
+    the variance as E[x^2] - E[x]^2 clipped at 0, and x is normalised with
+    that biased variance; the running statistics then move once,
+    ra = 0.9 ra + 0.1 stat, with the same biased variance (torch's
+    BatchNorm2d normalises with it too, but keeps the unbiased variance in
+    running_var). In eval mode the running statistics are read and left
+    alone. Either way y = (x - mean) * (rsqrt(var + eps) * weight) + bias
+    in f32, cast to `dtype`. eps is 1e-5 (ResNet, DenseNet) or 1e-3
+    (Inception)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.9,
+                 dtype: torch.dtype = torch.float32, zero_scale: bool = False):
+        super().__init__()
+        self.eps, self.momentum, self.dtype = eps, momentum, dtype
+        self.weight = nn.Parameter(torch.zeros(dim) if zero_scale else torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            mean = xf.mean((0, 1, 2))
+            var = ((xf * xf).mean((0, 1, 2)) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(self.dtype)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # a reference checkpoint without the counter (older torch, or made
+        # from a JAX tree) strict-loads with it at 0, as torch's BatchNorm does
+        state_dict.setdefault(prefix + "num_batches_tracked", torch.tensor(0, dtype=torch.long))
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+def bn_stat_names(model: nn.Module) -> list[str]:
+    """The running_mean and running_var buffer names of the model's
+    BatchNorms: the statistics that the EMA follows and checkpoints carry."""
+    return [f"{name}.{stat}" if name else stat for name, m in model.named_modules()
+            if isinstance(m, BatchNorm) for stat in ("running_mean", "running_var")]

@@ -3,10 +3,16 @@ revisiting_at_tpu/train/optimizer.py.
 
   * AdamW(betas=(0.9, 0.95), eps=1e-8) with decoupled weight decay, or SGD
     with momentum and coupled (L2) decay, as torch's own optimizers do;
-  * the weight-decay exclusion depends on the model family, here over timm
-    parameter names: for ConvNeXt only names that end in 'bias' are
-    excluded (LayerNorm scales and LayerScale gamma do decay); every other
-    family excludes parameters with ndim <= 1;
+  * the weight-decay exclusion depends on the model family: for ConvNeXt
+    only names that end in 'bias' are excluded (LayerNorm scales and
+    LayerScale gamma do decay); for the BN family ('resnet') JAX's rule
+    runs on each parameter's JAX path (ckpt/convert.py jax_param_path):
+    excluded where a path component contains 'bn' (or ends in '_bn') and
+    every bias. So ResNet's and Inception's BatchNorms are excluded, the
+    downsample's too (JAX's downsample_bn, where a substring rule on
+    torch's 'downsample.1.weight' would decay it; ROADMAP C21), and
+    DenseNet's norm* scales decay; every other family excludes parameters
+    with ndim <= 1;
   * the LR comes from a schedule of the optimizer's step count, read before
     the update and incremented after it, as optax reads `count`;
   * grad_accum = k > 1 is optax.MultiSteps(every_k_schedule=k): the
@@ -22,11 +28,29 @@ from typing import Callable
 import torch
 from torch import nn
 
+from ..ckpt.convert import jax_param_path
+from ..models.layers import BatchNorm, NormalizedModel
+
+
+def _resnet_rule(path: str) -> bool:
+    """JAX's resnet_rule on a flax path (revisiting_at_tpu/train/optimizer.py:34-37)."""
+    names = path.split("/")
+    in_bn = any("bn" in n or n.endswith("_bn") or n == "BatchNorm" for n in names)
+    return not (in_bn or names[-1].endswith("bias"))
+
 
 def wd_mask(model: nn.Module, family: str) -> dict[str, bool]:
     """{parameter name: True where weight decay applies}."""
     if family == "resnet":
-        raise NotImplementedError("resnet family: ROADMAP A12")
+        core, prefix = (model.model, "model.") if isinstance(model, NormalizedModel) else (model,
+                                                                                          "")
+        out = {}
+        for mod_name, mod in core.named_modules():
+            for leaf, _ in mod.named_parameters(recurse=False):
+                name = f"{mod_name}.{leaf}" if mod_name else leaf
+                path = jax_param_path(name, core.layout, isinstance(mod, BatchNorm))
+                out[prefix + name] = _resnet_rule(path)
+        return out
     out = {}
     for name, p in model.named_parameters():
         out[name] = (not name.endswith("bias")) if family == "convnext" else p.ndim > 1

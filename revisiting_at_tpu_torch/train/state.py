@@ -15,5 +15,8 @@ from .optimizer import ScheduledOptimizer
 class TrainState:
     model: nn.Module
     optimizer: ScheduledOptimizer
-    ema: dict[str, torch.Tensor] | None = None  # f32 EMA of the parameters, by name
+    # f32 EMA of the parameters by name, and of a BN model's running
+    # statistics by buffer name (JAX's ema_params and ema_batch_stats); the
+    # raw statistics are the model's buffers
+    ema: dict[str, torch.Tensor] | None = None
     step: int = 0

@@ -21,7 +21,10 @@ model's `drop_generator`, seeded the same way per step.
 
 Semantics kept from the reference:
   * the model is deterministic (eval mode) while the attack runs and
-    stochastic (DropPath) for the training forward;
+    stochastic (DropPath) for the training forward; a BN model's running
+    statistics stay frozen through the attack and move once, in the
+    training forward, and the EMA follows them (train/ema.py), as JAX's
+    has_batch_stats step (train_step.py:208-217, 257-261);
   * training consumes the attack's best-loss point x_best, detached;
   * the loss is soft-target CE under mixup, else mean CE;
   * adv_acc is APGD's accuracy against the mixup targets' argmax, but

@@ -37,6 +37,12 @@ revisiting_at_tpu/train/trainer.py for one device.
   * misc.log_flops: the init record's `forward_flops` of one eval forward
     at (1, res, res, 3), counted on a plain twin on the meta device
     (utils/flops.py: matmuls and convolutions only, not XLA's count);
+  * model.pretrained (or a *_21k arch): the weights of the local timm file
+    model.pretrained_path merged in before the optimizer and the EMA are
+    made (ckpt/torch_import.py), as JAX's trainer does (trainer.py:118-143);
+    without a path, JAX's ValueError;
+  * the BN family: the attack runs with the running statistics frozen, the
+    training forward moves them once, the EMA follows them (train_step.py);
   * a final clean validation; JSONL records with relative timestamps, and
     params.json.
 
@@ -70,16 +76,31 @@ from .train_step import AdvConfig, make_adv_eval_step, make_eval_step, make_trai
 
 def refuse_unported(cfg: Config) -> None:
     """Raise NotImplementedError for every option the port does not run yet."""
-    dist, m = cfg.dist, cfg.model
-    unported = [
-        (dist.fsdp > 1 or dist.tp > 1 or dist.multihost or dist.world_size > 1,
-         "dist.fsdp/tp/multihost/world_size: multi-GPU training is ROADMAP A11"),
-        (bool(m.pretrained) or m.arch.endswith("_21k"),
-         "model.pretrained / *_21k archs (timm checkpoint init): ROADMAP A12"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(what)
+    dist = cfg.dist
+    if dist.fsdp > 1 or dist.tp > 1 or dist.multihost or dist.world_size > 1:
+        raise NotImplementedError(
+            "dist.fsdp/tp/multihost/world_size: multi-GPU training is ROADMAP A11")
+
+
+def pretrained_init(cfg: Config, model) -> None:
+    """model.pretrained=1 or a *_21k arch (21k-pretrained, fine-tuned timm
+    weights, meaningless from a random init): merge the local file
+    model.pretrained_path into the model, in place."""
+    m = cfg.model
+    if not (bool(m.pretrained) or m.arch.endswith("_21k")):
+        return
+    if not m.pretrained_path:
+        raise ValueError(
+            f"model.pretrained=1 (or a *_21k arch, {m.arch!r}) needs "
+            "model.pretrained_path pointing at a local timm checkpoint: this "
+            "environment cannot download weights (reference: timm fetches "
+            "them, utils_architecture.py:242-295)")
+    from ..ckpt.torch_import import load_timm_pretrained
+
+    report = load_timm_pretrained(m.pretrained_path, model, m.arch)
+    print(f"pretrained init from {m.pretrained_path}: {len(report['loaded'])} tensors loaded, "
+          f"{len(report['kept_random'])} kept at random init "
+          f"(e.g. {report['kept_random'][:3]})")
 
 
 class Trainer:
@@ -104,7 +125,7 @@ class Trainer:
         # a ViT is built for one image size (its pos_embed), the training
         # resolution; the validation model shares its weights, so it must match
         build = dict(not_original=bool(cfg.model.not_original),
-                     num_classes=cfg.data.num_classes,
+                     updated=bool(cfg.model.updated), num_classes=cfg.data.num_classes,
                      drop_path_rate=cfg.model.drop_path_rate,
                      use_blurpool=bool(t.use_blurpool),
                      add_normalization=bool(cfg.model.add_normalization),
@@ -115,6 +136,7 @@ class Trainer:
             cfg.model.arch, dtype=dtype, use_pallas=bool(t.use_pallas),
             wide_tail=None if t.wide_tail < 0 else bool(t.wide_tail), remat=bool(t.remat),
             **build)
+        pretrained_init(cfg, self.model)
         if self.meta.family == "vit" and cfg.validation.resolution != cfg.resolution.max_res:
             raise ValueError(f"{cfg.model.arch}: validation.resolution "
                              f"{cfg.validation.resolution} != resolution.max_res "

@@ -109,7 +109,11 @@ def test_factory_names_and_views():
     vit, vit_meta = get_model("vit_micro", dtype=torch.float32, add_normalization=True)
     assert vit_meta.family == "vit" and vit.model.grad_mode == "full"
     assert input_grad_view(vit) is vit and vit.model.grad_mode == "input"
-    with pytest.raises(NotImplementedError, match="A3"):
-        get_model("convnext_iso")
-    with pytest.raises(NotImplementedError, match="A12"):
-        get_model("resnet50")
+    with torch.device("meta"):  # the rest of the zoo builds: structure only
+        iso, iso_meta = get_model("convnext_iso", not_original=True, updated=True)
+        r50, r50_meta = get_model("resnet50", add_normalization=True)
+    assert iso_meta.family == "convnext" and iso.grad_mode == "full" and iso.stem.out_dim == 432
+    assert r50_meta.family == "resnet" and r50_meta.has_batch_stats
+    assert input_grad_view(r50) is r50  # no tail: the view changes nothing
+    with pytest.raises(ValueError, match="unknown model"):
+        get_model("resnet18")

@@ -434,8 +434,8 @@ def test_train_cli_end_to_end_on_cpu(tmp_path):
     (["--data.dataset", "folder"], SystemExit),
     (["--dist.fsdp", "2"], NotImplementedError),
     (["--dist.multihost", "1"], NotImplementedError),
-    (["--model.pretrained", "1"], NotImplementedError),
-    (["--model.arch", "convnext_iso"], NotImplementedError),
+    (["--model.pretrained", "1"], ValueError),  # JAX's: no model.pretrained_path
+    (["--dist.tp", "2"], NotImplementedError),
     (["--adv.attack", "pgd"], ValueError),
     (["--training.batch_size"], ValueError),
 ])

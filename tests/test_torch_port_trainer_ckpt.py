@@ -582,8 +582,7 @@ def test_runner_over_a_port_run_and_a_jax_run(root, jax_runs, capfd):
 
 @pytest.mark.parametrize("extra,item", [
     (["--dist.fsdp", "2"], "A11"),
-    (["--model.pretrained", "1"], "A12"),
-    (["--model.arch", "convnext_iso"], "A3"),
+    (["--dist.world_size", "2"], "A11"),
 ])
 def test_unported_options_still_name_their_item(tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
