@@ -195,9 +195,34 @@ Phases, each fatal on failure:
      the iso shape (M = 196 x 80, C = 432: forward, input backward, full
      backward) beside their bounds, plain versions and the model path go
      into the kernels line (`iso432`).
+ 20. the distributed paths (parallel/): (a) under a one-rank NCCL process
+     group, `cli.train.main` on ConvNeXt-T-CvSt (224 px, batch 80,
+     use_pallas=1, 4 synthetic batches; the tail's five kernels must
+     launch), then phase 6's step through `ParallelModel` on the one-rank
+     mesh against the non-distributed step (parameters and loss bit for
+     bit), timed in turns with it and with the plain step; (b)-(e) two
+     ranks of this script (`--phase20-worker`) on the one card over gloo
+     (NCCL refuses two ranks on one device), started by
+     `parallel.launch.run_ranks` and killed together on a failure: (b)
+     data = 2 steps of ConvNeXt-T-CvSt and ViT-S-CvSt (40 images a rank)
+     and resnet50 (8; its BatchNorm statistics averaged), each rank
+     launching the tail (and attention) kernels, each against one process
+     here that runs the two halves with their rank's draws, averages the
+     gradients and statistics and takes one AdamW step (loss and
+     grad_norm within 2e-2, the update at cosine above 0.99: phase 6's
+     tolerances); (c) fsdp = 2 where gloo takes CUDA tensors in
+     reduce_scatter_tensor (else its error is printed and the CPU tests
+     alone check FSDP at world 2), against one process and the data = 2
+     step, its checkpoint strict-loaded by the single-process cli.eval;
+     (d) model = 2 (use_pallas=0): logits within 2e-2 of the largest and
+     one step against the one-rank plain step; (e) `cli.eval --multihost 1`
+     on 16 images labelled by the model: both ranks the same global robust
+     accuracy, each rank's points a single-process AutoAttack run on its
+     round-robin shard. Each part's wall time is printed; no process may
+     be left.
 
 The launch counters are zeroed just before each path (phases 4-5, 6, 7, 9,
-10, 11, 13, 14, 16, 17, 18 and 19) and read just after it: every kernel the
+10, 11, 13, 14, 16, 17, 18, 19 and 20) and read just after it: every kernel the
 path runs must have launched there. The `launches` of the kernels line are phase 6's for
 the block tail, phase 10's for the attention and phase 13's training step
 for the dwconv. The second-to-last line is a
@@ -207,6 +232,7 @@ JSON object {"kernels": [...]}, the last {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import os
 import subprocess
@@ -2810,11 +2836,472 @@ def iso_phase(torch, np, repo, seed, label) -> dict:
 
 
 
+# -------------------------------------------------------------- phase 20
+# phase 20's parts: DDP and FSDP batches a rank, the TP and eval batches
+P20_BATCH = {"convnext_tiny": 40, "vit_s": 40, "resnet50": 8}
+P20_LR = 1e-3  # a constant LR: one AdamW step moves each weight by about LR
+P20_TP_BATCH, P20_EVAL_N = 8, 16
+
+
+def p20_step(torch, arch, state_dict, *, use_pallas=True, mesh=None):
+    """Phase 20's step: phase 6's (bf16 compute, f32 parameters, mixup with
+    label smoothing 0.1, 2-step APGD Linf 4/255, AdamW wd 0.05 with the
+    family's decay rule) at the constant LR P20_LR and without EMA, on the
+    current card. With a mesh of more than one rank, the model is split over
+    its "model" axis and synced over the others (parallel/)."""
+    from revisiting_at_tpu_torch.ckpt.convert import load_state_dict, param_layout
+    from revisiting_at_tpu_torch.data import MixupConfig
+    from revisiting_at_tpu_torch.models import get_model
+    from revisiting_at_tpu_torch.parallel.tp import apply_tensor_parallel
+    from revisiting_at_tpu_torch.parallel.zero import ParallelModel
+    from revisiting_at_tpu_torch.train import (AdvConfig, TrainState, make_optimizer,
+                                               make_train_step)
+
+    model, meta = get_model(arch, not_original=arch != "resnet50", dtype=torch.bfloat16,
+                            use_pallas=use_pallas)
+    load_state_dict(model, state_dict)
+    model.cuda().train()
+    par = None
+    if mesh is not None and mesh.size > 1:
+        par = ParallelModel(model, mesh, apply_tensor_parallel(model, mesh, param_layout(arch)))
+    opt = make_optimizer(model, optimizer="adamw", weight_decay=0.05, family=meta.family,
+                         learning_rate=P20_LR,
+                         params=par.named_master() if par is not None else None)
+    step = make_train_step(model, adv=AdvConfig(attack="apgd", norm="Linf", eps=4.0 / 255.0,
+                                                n_iter=2),
+                           mixup=MixupConfig(num_classes=1000, label_smoothing=0.1), seed=0)
+    return TrainState(model, opt, None, parallel=par), step
+
+
+class _RankStandIn:
+    """Rank r of a data = 2 mesh played by one process for phase 20's
+    reference: the step's draws of that rank, its local gradients and
+    BatchNorm statistics kept, no collective, no update."""
+
+    def __init__(self, model, rank):
+        from types import SimpleNamespace
+
+        self.model, self.mesh, self.grads = model, SimpleNamespace(batch_rank=rank), None
+
+    def average_stats(self):
+        pass
+
+    def sync_grads(self):
+        self.grads = [p.grad.detach().clone() if p.grad is not None else None
+                      for p in self.model.parameters()]
+        return self.grads[0].new_zeros(())
+
+    def after_update(self):
+        pass
+
+    def named_master(self):
+        return list(self.model.named_parameters())
+
+    def mean(self, tensors):
+        return tensors
+
+
+class _NoUpdate:
+    def __init__(self, model):
+        self.model = model
+
+    def zero_grad(self):
+        self.model.zero_grad(set_to_none=True)
+
+    def update(self):
+        return False
+
+
+def p20_reference(torch, arch, state_dict, x, y):
+    """The data = 2 step in one process: each half of (x, y) through the
+    step with that rank's draws from the same weights and statistics, the
+    two gradients averaged, the statistics averaged, one AdamW update.
+    Returns (loss, grad_norm, {name: parameter and statistic})."""
+    from revisiting_at_tpu_torch.models.layers import bn_stat_names
+
+    state, step = p20_step(torch, arch, state_dict)
+    model, opt = state.model, state.optimizer
+    stats = bn_stat_names(model)
+    buffers = dict(model.named_buffers())
+    start = {n: buffers[n].clone() for n in stats}
+    n = x.shape[0] // 2
+    grads, moved, losses = [], [], []
+    for r in range(2):
+        for k in stats:
+            buffers[k].copy_(start[k])
+        half = _RankStandIn(model, r)
+        state.parallel, state.optimizer, state.step = half, _NoUpdate(model), 0
+        losses.append(float(step(state, x[r * n:(r + 1) * n], y[r * n:(r + 1) * n])["loss"]))
+        grads.append(half.grads)
+        moved.append({k: buffers[k].clone() for k in stats})
+    with torch.no_grad():
+        for k in stats:
+            buffers[k].copy_((moved[0][k] + moved[1][k]) / 2)
+    for p, g0, g1 in zip(model.parameters(), *grads):
+        p.grad = None if g0 is None else (g0 + g1) / 2
+    norm = float(torch.linalg.vector_norm(torch.stack(
+        [p.grad.float().norm() for p in model.parameters() if p.grad is not None])))
+    opt.update()
+    return sum(losses) / 2, norm, {k: v.detach().cpu().clone()
+                                   for k, v in model.state_dict().items()}
+
+
+def p20_compare(torch, what, got, ref, start) -> str:
+    """Phase 6's tolerances for one distributed step against its reference:
+    loss and grad_norm within 2e-2, and the update (after - before) of the
+    whole model at cosine above 0.99 (AdamW's first step is about LR *
+    sign(g): an element whose gradient is within rounding of zero can step
+    the other way, so elements are counted, not bounded); the BatchNorm
+    statistics within 2e-2 of the largest. Fatal on a miss."""
+    (gl, gn, gp), (rl, rn, rp) = got, ref
+    num = den_a = den_b = 0.0
+    same = total = 0
+    stat_err = 0.0
+    for k, r in rp.items():
+        if not r.is_floating_point():  # num_batches_tracked: no JAX counterpart
+            continue
+        g, r = gp[k].float(), r.float()
+        if k.endswith(("running_mean", "running_var")):
+            stat_err = max(stat_err, float((g - r).abs().max() / r.abs().max()))
+            continue
+        a, b = (g - start[k].float()).flatten(), (r - start[k].float()).flatten()
+        num += float(a @ b)
+        den_a += float(a @ a)
+        den_b += float(b @ b)
+        same += int((g == r).sum())
+        total += r.numel()
+    cos = num / max((den_a * den_b) ** 0.5, 1e-30)
+    worst = max(float((gp[k].float() - r.float()).abs().max()) for k, r in rp.items()
+                if r.is_floating_point() and not k.endswith(("running_mean", "running_var")))
+    line = (f"{what}: loss {gl:.6f} / {rl:.6f}, grad_norm {gn:.5f} / {rn:.5f}, update cosine "
+            f"{cos:.6f}, {same / total:.4%} of the weights the same bits (largest difference "
+            f"{worst:.3e})"
+            + (f", statistics {stat_err:.3e} of the largest apart" if stat_err else ""))
+    log(line)
+    if not (abs(gl - rl) <= 2e-2 * abs(rl) and abs(gn - rn) <= 2e-2 * abs(rn) and cos > 0.99
+            and stat_err <= 2e-2):
+        raise AssertionError(f"phase 20: {line}")
+    return line
+
+
+def phase20_worker(spec_path: str, out_path: str) -> int:
+    """One of phase 20's two ranks on the one card (gloo over CUDA tensors):
+    (b) the data = 2 steps of ConvNeXt-T-CvSt, ViT-S-CvSt and resnet50, (c)
+    the fsdp = 2 step and its checkpoint, (d) the model = 2 logits and step
+    (use_pallas=0), (e) cli.eval --multihost 1 on the eval set the parent
+    wrote. Writes <out_path>.<rank>."""
+    import torch
+    import torch.distributed as dist
+
+    from revisiting_at_tpu_torch.ckpt.checkpoint import save_entry
+    from revisiting_at_tpu_torch.cli import eval as eval_cli
+    from revisiting_at_tpu_torch.config import DistSection
+    from revisiting_at_tpu_torch.ops import attention as att
+    from revisiting_at_tpu_torch.ops import block_mlp as bm
+    from revisiting_at_tpu_torch.parallel.mesh import MeshConfig, init_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bm._lib()  # the libraries phase 2 built, loaded
+    att._lib()
+    info = init_distributed(DistSection(), "cuda", backend="gloo", timeout_s=300)
+    r = info.rank
+    spec = torch.load(spec_path, weights_only=False)
+    out, took = {}, {}
+
+    def run(name, arch, mesh, x, y, use_pallas=True, prepare=None):
+        state, step = p20_step(torch, arch, spec["init"][arch], use_pallas=use_pallas, mesh=mesh)
+        if prepare is not None:
+            prepare(state)
+        zero_launches()
+        t0 = time.time()
+        metrics = step(state, x.cuda(), y.cuda())
+        torch.cuda.synchronize()
+        took[name] = time.time() - t0
+        par = state.parallel
+        res = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+               "launches": launch_counts(), "seconds": took[name],
+               "sharded": (len(par.fsdp_dims), len(par.tp_dims))}
+        sd = par.full_state_dict()  # collective: every rank
+        if r == 0:
+            res["state"] = {k: v.detach().cpu() for k, v in sd.items()}
+        out[name] = res
+        return state
+
+    # (b) data = 2, each rank its half of the batch
+    mesh = make_mesh(MeshConfig())
+    for arch, n in P20_BATCH.items():
+        x, y = spec["data"][arch]
+        run(f"ddp {arch}", arch, mesh, x[r * n:(r + 1) * n], y[r * n:(r + 1) * n])
+    mesh.release()
+    # (c) fsdp = 2: gloo must take CUDA tensors in FSDP's collectives
+    try:
+        t = torch.arange(4.0, device="cuda")
+        part = torch.empty(2, device="cuda")
+        dist.reduce_scatter_tensor(part, t)
+        out["fsdp_collectives"] = "ok"
+    except (RuntimeError, ValueError) as e:  # the backend's answer, reported by the parent
+        out["fsdp_collectives"] = f"{type(e).__name__}: {e}"
+    if out["fsdp_collectives"] == "ok":
+        mesh = make_mesh(MeshConfig(fsdp=2))
+        n = P20_BATCH["convnext_tiny"]
+        x, y = spec["data"]["convnext_tiny"]
+        state = run("fsdp convnext_tiny", "convnext_tiny", mesh, x[r * n:(r + 1) * n],
+                    y[r * n:(r + 1) * n])
+        save_entry(Path(spec["fsdp_run"]) / "ckpt", 0, state)
+        mesh.release()
+    # (d) model = 2, the plain path, the whole batch on each rank
+    mesh = make_mesh(MeshConfig(model=2))
+    x, y = spec["data"]["tp"]
+
+    def logits(state):
+        state.model.eval()
+        with torch.no_grad():
+            out["tp logits"] = state.model(x.cuda()).float().cpu()
+        state.model.train()
+
+    run("tp convnext_tiny", "convnext_tiny", mesh, x, y, use_pallas=False, prepare=logits)
+    mesh.release()
+    # (e) cli.eval --multihost 1: its draws on the parent's eval set
+    eval_cli.load_eval_set = lambda args, num_classes: spec["eval_set"]
+    zero_launches()
+    t0 = time.time()
+    out["eval"] = eval_cli.main(spec["eval_argv"])["Linf"]
+    took["eval"] = time.time() - t0
+    out["eval_launches"] = launch_counts()
+    out["took"] = took
+    torch.save(out, f"{out_path}.{r}")
+    dist.destroy_process_group()
+    return 0
+
+
+def dist_phase(torch, np, repo, init, vit_init, seed, label) -> None:
+    """Phase 20: the distributed paths on the card. (a) in this process,
+    under a one-rank NCCL process group; (b)-(e) in two ranks on the one
+    card over gloo (phase20_worker), each part against its one-process
+    reference here."""
+    import torch.distributed as dist
+
+    from revisiting_at_tpu_torch.cli import eval as eval_cli
+    from revisiting_at_tpu_torch.cli import train as train_cli
+    from revisiting_at_tpu_torch.config import Config
+    from revisiting_at_tpu_torch.evals import SHORT_ATTACKS, AutoAttack, AutoAttackConfig
+    from revisiting_at_tpu_torch.models import get_model
+    from revisiting_at_tpu_torch.parallel.launch import free_port, run_ranks
+    from revisiting_at_tpu_torch.parallel.mesh import make_mesh
+    from revisiting_at_tpu_torch.parallel.zero import ParallelModel
+    from revisiting_at_tpu_torch.train import input_grad_view
+
+    took = {}
+    folder = repo / "build" / "phase20"
+    folder.mkdir(parents=True, exist_ok=True)
+    # (a) world 1 over NCCL: cli.train, then phase 6's step on a ParallelModel
+    t0 = time.time()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        zero_launches()
+        trainer = train_cli.main([
+            "--model.arch", "convnext_tiny", "--model.not_original", "1",
+            "--model.add_normalization", "0", "--model.model_ema", "1", "--adv.attack", "apgd",
+            "--adv.n_iter", "2", "--data.dataset", "synthetic", "--training.batch_size",
+            str(TRAIN_BATCH), "--training.epochs", "1", "--training.use_pallas", "1",
+            "--validation.batch_size", "16", "--validation.max_batches", "2",
+            "--logging.folder", str(folder / "a"), "--device", "cuda",
+            "--synthetic_batches", "4"])
+        require_launches("cli.train under a one-rank NCCL group (phase 20 (a))", TAIL_KERNELS)
+        records = [json.loads(line)
+                   for line in (trainer.logger.dir / "log").read_text().splitlines()]
+        epoch = [rec for rec in records if "train_loss" in rec]
+        if not (epoch and np.isfinite(epoch[0]["train_loss"]) and records[0]["devices"] == 1
+                and trainer.mesh.size == 1 and dist.get_backend() == "nccl"):
+            raise AssertionError(f"phase 20 (a) cli.train: bad records {records[:2]}")
+        del trainer
+        ones = torch.ones(4, device="cuda")
+        dist.all_reduce(ones)  # NCCL runs on the card
+        rng = np.random.RandomState(seed)
+        xb = torch.from_numpy(rng.uniform(0, 1, (TRAIN_BATCH, 224, 224, 3)).astype(np.float32))
+        xb, yb = xb.cuda(), torch.from_numpy(rng.randint(0, 1000, TRAIN_BATCH)).cuda()
+        steps = {name: build_train_step(torch, init, use_pallas=name != "plain", device="cuda",
+                                        seed=seed)
+                 for name in ("world-1 kernels", "kernels", "plain")}
+        world1 = steps["world-1 kernels"][0]
+        world1.parallel = ParallelModel(world1.model, make_mesh())
+        got = {name: steps[name][1](steps[name][0], xb, yb) for name in ("world-1 kernels",
+                                                                         "kernels")}
+        same = all(torch.equal(p, q) for p, q in zip(world1.model.parameters(),
+                                                    steps["kernels"][0].model.parameters()))
+        ga, gb = (got[k] for k in ("world-1 kernels", "kernels"))
+        rel = abs(float(ga["grad_norm"]) - float(gb["grad_norm"])) / float(gb["grad_norm"])
+        log(f"phase 20 (a) phase 6's step through ParallelModel on the one-rank mesh against the "
+            f"non-distributed step: parameters {'bit for bit' if same else 'DIFFER'}, loss "
+            f"{float(ga['loss']):.6f} / {float(gb['loss']):.6f}, grad_norm {float(ga['grad_norm']):.6f}"
+            f" / {float(gb['grad_norm']):.6f} ({rel:.2e} apart: the sum of squares taken per "
+            f"tensor and summed, against torch's norm of norms)")
+        if not (same and torch.equal(ga["loss"], gb["loss"]) and rel <= 1e-5):
+            raise AssertionError("phase 20 (a): the one-rank distributed step differs")
+        zero_launches()
+        step_ms, _ = steps_in_turns(
+            torch, steps, dict.fromkeys(steps, (xb, yb)),
+            ("world-1 kernels", "plain", "kernels", "kernels", "plain", "world-1 kernels"),
+            warm=2, require={"world-1 kernels": ("phase 20 (a)'s step", TAIL_KERNELS)})
+        for name, v in step_ms.items():
+            log(f"phase 20 (a) train step convnext_tiny+ConvStem bf16 B={TRAIN_BATCH} under the "
+                f"one-rank NCCL group ({name}): {sum(v) / len(v):.2f} ms/step (runs of 5: "
+                f"{', '.join('%.2f' % t for t in v)}) {label}")
+        log("phase 20 (c) FSDP at world 1: nothing to shard (JAX's _fsdp_spec replicates every "
+            "leaf when the fsdp axis has one device); world-2 FSDP runs in (c) below")
+        del steps, world1, xb, yb
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    took["a"] = time.time() - t0
+
+    # the inputs of (b)-(e): weights from the seed, batches, the eval set
+    t0 = time.time()
+    rng = np.random.RandomState(seed + 20)
+    torch.manual_seed(seed + 20)
+    r50, _ = get_model("resnet50", dtype=torch.float32)
+    inits = {"convnext_tiny": init, "vit_s": vit_init, "resnet50": r50.state_dict()}
+    data = {arch: (torch.from_numpy(rng.uniform(0, 1, (2 * n, 224, 224, 3)).astype(np.float32)),
+                   torch.from_numpy(rng.randint(0, 1000, 2 * n)))
+            for arch, n in P20_BATCH.items()}
+    data["tp"] = (torch.from_numpy(rng.uniform(0, 1, (P20_TP_BATCH, 224, 224, 3))
+                                   .astype(np.float32)),
+                  torch.from_numpy(rng.randint(0, 1000, P20_TP_BATCH)))
+    eval_run = folder / "eval_run"
+    eval_run.mkdir(exist_ok=True)
+    cfg = Config()
+    cfg.model.arch, cfg.model.not_original, cfg.model.add_normalization = "convnext_tiny", 1, 0
+    cfg.dump_params_json(eval_run / "params.json")
+    fsdp_run = folder / "fsdp_run"
+    fsdp_run.mkdir(exist_ok=True)
+    cfg.dump_params_json(fsdp_run / "params.json")
+    torch.save(init, eval_run / "weights.pt")
+    m, _ = get_model("convnext_tiny", not_original=True, dtype=torch.bfloat16, use_pallas=True)
+    m.load_state_dict(init)
+    view = input_grad_view(m.cuda().eval().requires_grad_(False))
+    ex = rng.uniform(0, 1, (P20_EVAL_N, 224, 224, 3)).astype(np.float32)
+    with torch.no_grad():
+        ey = view(torch.from_numpy(ex).cuda()).argmax(-1).cpu().numpy()
+    eps = 0.25 / 255.0  # points must survive APGD-CE for APGD-T to run
+    eval_argv = ["--run_dir", str(eval_run), "--torch_ckpt", str(eval_run / "weights.pt"),
+                 "--use_pallas", "1", "--synthetic", "--n_ex", str(P20_EVAL_N), "--batch_size",
+                 "8", "--n_iter", "3", "--eps", str(eps), "--device", "cuda", "--multihost",
+                 "1"]
+    spec = {"init": inits, "data": data, "fsdp_run": str(fsdp_run), "eval_argv": eval_argv,
+            "eval_set": (ex, ey)}
+    spec_path, out_path = folder / "spec.pt", folder / "out.pt"
+    torch.save(spec, spec_path)
+    took["inputs"] = time.time() - t0
+
+    # (b)-(e): two ranks on the one card
+    t0 = time.time()
+    outs = run_ranks([sys.executable, str(repo / "chip_smoke.py"), "--phase20-worker",
+                      str(spec_path), str(out_path)], 2, 600, cwd=str(repo),
+                     local_ranks=[0, 0])
+    took["ranks"] = time.time() - t0
+    res = [torch.load(f"{out_path}.{r}", weights_only=False) for r in range(2)]
+    for r, (o, text) in enumerate(zip(res, outs)):
+        log(f"phase 20 rank {r}: parts {', '.join(f'{k} {v:.1f} s' for k, v in o['took'].items())}"
+            f"; its last lines: {' | '.join(text.strip().splitlines()[-2:])[-300:]}")
+    t0 = time.time()
+    for name, kernels in (("ddp convnext_tiny", TAIL_KERNELS), ("ddp vit_s",
+                                                                 TAIL_KERNELS + ATT_KERNELS),
+                          ("fsdp convnext_tiny", TAIL_KERNELS)):
+        if name not in res[0]:
+            continue
+        for r in range(2):
+            lc = res[r][name]["launches"]
+            log(f"phase 20 {name} rank {r}: launches {lc}")
+            missing = [k for k in kernels if lc[k] <= 0]
+            if missing:
+                raise AssertionError(f"phase 20 {name} rank {r}: {missing} not launched")
+    for arch in P20_BATCH:
+        ref = p20_reference(torch, arch, inits[arch], data[arch][0].cuda(), data[arch][1].cuda())
+        for name in (f"ddp {arch}", f"fsdp {arch}"):
+            if name in res[0]:
+                g = res[0][name]
+                if g["loss"] != res[1][name]["loss"]:
+                    raise AssertionError(f"phase 20 {name}: the ranks' losses differ")
+                p20_compare(torch, f"phase 20 {'(c)' if name[0] == 'f' else '(b)'} {name} "
+                            f"(world 2, gloo, one card; sharded leaves {g['sharded']}) against "
+                            f"one process", (g["loss"], g["grad_norm"], g["state"]), ref,
+                            inits[arch])
+        torch.cuda.empty_cache()
+    fsdp_state = res[0].get("fsdp convnext_tiny")
+    if fsdp_state is None:
+        log(f"phase 20 (c) FSDP at world 2 over gloo on CUDA tensors: {res[0]['fsdp_collectives']}")
+        log("phase 20 (c): world-2 FSDP is checked by the CPU tests alone "
+            "(tests/test_torch_port_dist.py::test_fsdp_step_matches_jax_shard_map)")
+    else:
+        ddp = res[0]["ddp convnext_tiny"]
+        p20_compare(torch, "phase 20 (c) fsdp = 2 against the data = 2 step",
+                    (fsdp_state["loss"], fsdp_state["grad_norm"], fsdp_state["state"]),
+                    (ddp["loss"], ddp["grad_norm"], ddp["state"]), init)
+        r_eval = eval_cli.main(["--run_dir", str(fsdp_run), "--use_pallas", "1", "--synthetic",
+                                "--n_ex", "8", "--batch_size", "8", "--n_iter", "2",
+                                "--device", "cuda"])
+        log(f"phase 20 (c) single-process cli.eval on the FSDP run's checkpoint (strict load): "
+            f"{r_eval['Linf']['robust']:.4f} robust over {r_eval['Linf']['n']}")
+    # (d) TP logits and step against the one-rank plain step
+    tp = res[0]["tp convnext_tiny"]
+    state, step = p20_step(torch, "convnext_tiny", init, use_pallas=False)
+    xt, yt = data["tp"]
+    state.model.eval()
+    with torch.no_grad():
+        ref_logits = state.model(xt.cuda()).float().cpu()
+    state.model.train()
+    err = float((res[0]["tp logits"] - ref_logits).abs().max() / ref_logits.abs().max())
+    agree = float((res[0]["tp logits"].argmax(-1) == ref_logits.argmax(-1)).float().mean())
+    log(f"phase 20 (d) tp = 2 logits (bf16, use_pallas=0) against one rank: {err:.3e} of the "
+        f"largest apart (tolerance 2e-2: the two halves of each block MLP are rounded to bf16 "
+        f"before their sum), argmax agreement {agree:.3f}")
+    if not (err <= 2e-2 and res[1]["tp logits"].equal(res[0]["tp logits"])):
+        raise AssertionError("phase 20 (d): the TP logits disagree")
+    m1 = step(state, xt.cuda(), yt.cuda())
+    p20_compare(torch, f"phase 20 (d) tp = 2 step (sharded leaves {tp['sharded']}) against the "
+                f"one-rank plain step", (tp["loss"], tp["grad_norm"], tp["state"]),
+                (float(m1["loss"]), float(m1["grad_norm"]),
+                 {k: v.detach().cpu() for k, v in state.model.state_dict().items()}),
+                init)
+    del state, step
+    torch.cuda.empty_cache()
+    # (e) both ranks' global accuracy = the single-process runs on the shards
+    e0, e1 = res[0]["eval"], res[1]["eval"]
+    points = []
+    for r in range(2):
+        aa = AutoAttack(view, AutoAttackConfig(norm="Linf", eps=eps, attacks_to_run=SHORT_ATTACKS,
+                                               n_iter=3, batch_size=8, verbose=False),
+                        device="cuda")
+        points.append(aa.run_standard_evaluation(ex[r::2], ey[r::2])[1])
+    single = float(np.concatenate(points).mean())
+    log(f"phase 20 (e) cli.eval --multihost 1, two ranks: global robust accuracy {e0['robust']}"
+        f" / {e1['robust']} over {e0['n']} points; single-process runs on the two round-robin "
+        f"shards: {single} (per point: rank 0 {e0['points'] == points[0].tolist()}, rank 1 "
+        f"{e1['points'] == points[1].tolist()})")
+    for r in range(2):
+        lc = res[r]["eval_launches"]
+        if lc["block_mlp_fwd"] <= 0 or lc["block_mlp_bwd_input"] <= 0:
+            raise AssertionError(f"phase 20 (e) rank {r}: the tail kernels did not launch {lc}")
+    if not (e0["robust"] == e1["robust"] == single and e0["n"] == e1["n"] == P20_EVAL_N
+            and e0["points"] == points[0].tolist() and e1["points"] == points[1].tolist()):
+        raise AssertionError("phase 20 (e): multi-host eval disagrees with the shards' runs")
+    took["checks"] = time.time() - t0
+    left = descendants()
+    if left:
+        raise AssertionError(f"phase 20: processes still running: {left}")
+    log(f"phase 20: {sum(took.values()):.1f} s; "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in took.items()) + f" {label}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 3 (build and check the kernels)")
+    ap.add_argument("--phase20-worker", nargs=2, metavar=("SPEC", "OUT"),
+                    help=argparse.SUPPRESS)  # one of phase 20's ranks, started by phase 20
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -2827,6 +3314,8 @@ def main(argv=None) -> int:
         return 2
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
+    if args.phase20_worker:
+        return phase20_worker(*args.phase20_worker)
     from revisiting_at_tpu_torch.ops import attention as att
     from revisiting_at_tpu_torch.ops import block_mlp as bm
     from revisiting_at_tpu_torch.ops import cuda_build
@@ -3384,6 +3873,9 @@ def main(argv=None) -> int:
     # ---------------------------------------------------------------- 19
     iso_per_step = iso_phase(torch, np, repo, args.seed, label)
     iso_times = iso_tail_timings(torch, bm, gen, label)
+
+    # ---------------------------------------------------------------- 20
+    dist_phase(torch, np, repo, init, vit_init, args.seed, label)
 
     kernels = [dict(name=f"block_mlp_{k}", route="cuda", source=SOURCE[f"block_mlp_{k}"],
                     replaces=REPLACES[f"block_mlp_{k}"], launches=step_launches[f"block_mlp_{k}"],

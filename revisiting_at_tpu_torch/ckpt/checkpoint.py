@@ -19,6 +19,12 @@ snapshots):
 
 A JAX run keeps orbax snapshots in ckpt/<e>/ (and ckpt_best/<e>/), which
 `restore_run_weights` reads through ckpt/orbax_reader.py.
+
+A run on a mesh (the state's `parallel`, parallel/zero.py) writes the same
+files: every rank gathers its FSDP slices and TP shards to whole tensors,
+rank 0 alone writes them, and a barrier follows, so the single-process
+`cli.eval` and `cli.export` read a distributed run unchanged. A resume
+reads the whole state on every rank and cuts it to the rank's layout.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from pathlib import Path
 from typing import TYPE_CHECKING
 
 import torch
+import torch.distributed as dist
 
 from . import orbax_reader
 from ..models.factory import model_family
@@ -56,18 +63,34 @@ def _atomic(path: Path, write) -> None:
     os.replace(tmp, path)
 
 
+def _barrier(state: TrainState) -> None:
+    if state.parallel is not None:
+        dist.barrier()
+
+
 def save_entry(slot: Path, epoch: int, state: TrainState, **extra) -> None:
     """Write the entry of `epoch` into `slot`: the weights, the EMA weights
-    (when the state keeps an EMA) and the full state with `extra`."""
+    (when the state keeps an EMA) and the full state with `extra`. On a
+    mesh every rank takes part in the gathers and rank 0 writes."""
+    model, par = state.model, state.parallel
+    if par is None:
+        sd, opt, ema = model.state_dict(), state.optimizer.state_dict(), state.ema
+    else:
+        sd = par.full_state_dict()
+        opt = par.full_optimizer_state(state.optimizer)
+        ema = None if state.ema is None else par.full_ema(state.ema)
+        if par.mesh.rank != 0:
+            dist.barrier()
+            return
     slot.mkdir(parents=True, exist_ok=True)
-    model = state.model
-    _atomic(slot / f"weights_{epoch}.pt", lambda t: save_torch_checkpoint(model, t))
-    if state.ema is not None:
+    _atomic(slot / f"weights_{epoch}.pt", lambda t: save_torch_checkpoint(model, t, sd=sd))
+    if ema is not None:
         _atomic(slot / f"weights_ema_{epoch}.pt",
-                lambda t: save_torch_checkpoint(model, t, ema=state.ema))
-    full = {"epoch": epoch, "step": state.step, "model": model.state_dict(),
-            "optimizer": state.optimizer.state_dict(), "ema": state.ema, **extra}
+                lambda t: save_torch_checkpoint(model, t, ema=ema, sd=sd))
+    full = {"epoch": epoch, "step": state.step, "model": sd, "optimizer": opt, "ema": ema,
+            **extra}
     _atomic(slot / f"state_{epoch}.pt", lambda t: torch.save(full, str(t)))
+    _barrier(state)
 
 
 def load_state(path: Path, state: TrainState) -> dict:
@@ -75,13 +98,20 @@ def load_state(path: Path, state: TrainState) -> dict:
     entry's other fields (epoch and the `extra` of save_entry)."""
     device = next(state.model.parameters()).device
     sd = torch.load(str(path), map_location=device, weights_only=True)
-    state.model.load_state_dict(sd.pop("model"))
-    state.optimizer.load_state_dict(sd.pop("optimizer"))
+    par = state.parallel
+    if par is None:
+        state.model.load_state_dict(sd.pop("model"))
+        state.optimizer.load_state_dict(sd.pop("optimizer"))
+    else:
+        par.load_full_state_dict(sd.pop("model"))
+        par.load_full_optimizer_state(state.optimizer, sd.pop("optimizer"))
     ema = sd.pop("ema")
     if (ema is None) != (state.ema is None):
         raise ValueError(f"{path}: the checkpoint {'has no' if ema is None else 'has an'} EMA "
                          f"and this run's model.model_ema differs: resume with the run's flags")
     if ema is not None:
+        if par is not None:
+            ema = par.local_ema(ema)
         for name, t in state.ema.items():
             t.copy_(ema[name])
     state.step = sd.pop("step")
@@ -91,10 +121,12 @@ def load_state(path: Path, state: TrainState) -> dict:
 class CheckpointManager:
     """Epoch cadence and the best slot of one run dir."""
 
-    def __init__(self, run_dir: str | Path, save_freq: int = 1):
+    def __init__(self, run_dir: str | Path, save_freq: int = 1, write: bool = True):
         self.dir = Path(run_dir) / "ckpt"
         self.best_dir = Path(run_dir) / "ckpt_best"
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.write = write  # rank 0 of a mesh alone writes and removes files
+        if write:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.save_freq = save_freq
 
     def maybe_save(self, epoch: int, state: TrainState, *, last: bool = False, **extra) -> None:
@@ -104,6 +136,8 @@ class CheckpointManager:
     def save_best(self, epoch: int, state: TrainState, **extra) -> None:
         """Replace the best slot's entry with this epoch's."""
         save_entry(self.best_dir, epoch, state, **extra)
+        if not self.write:
+            return
         for name in os.listdir(self.best_dir):
             m = _ENTRY.match(name)
             if m is not None and int(m[2]) != epoch:

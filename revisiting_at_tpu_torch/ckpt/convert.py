@@ -209,10 +209,45 @@ def _bn_module(path: str, layout: str, to_torch: bool) -> str:
                      f"{layout} model")
 
 
-def jax_param_path(name: str, layout: str, is_bn: bool) -> str:
-    """The JAX param path ('stage0_block0/downsample_bn/scale') of a BN-family
-    parameter of the port ('layer1.0.downsample.1.weight'); is_bn: the
-    parameter belongs to a BatchNorm (weight -> scale, else -> kernel)."""
+_VIT_BLOCK_LEAF = {"weight": "kernel", "bias": "bias"}
+# a block parameter of the port -> its JAX path, by layout ('convnext', 'iso', 'vit')
+_BLOCK_PATHS = {
+    "convnext": [(r"stages\.(\d+)\.blocks\.(\d+)\.(.+)$",
+                  lambda m: f"stage{m[1]}_block{m[2]}/{_inv({k: v[0] for k, v in _BLOCK.items()})[m[3]]}")],
+    "iso": [(r"blocks\.(\d+)\.(.+)$",
+             lambda m: f"block{m[1]}/{_inv({k: v[0] for k, v in _ISO_BLOCK.items()})[m[2]]}")],
+    "vit": [(r"blocks\.(\d+)\.(attn|mlp)\.(qkv|proj|fc1|fc2)\.(weight|bias)$",
+             lambda m: f"block{m[1]}/{m[2]}/{m[3]}/{_VIT_BLOCK_LEAF[m[4]]}"),
+            (r"blocks\.(\d+)\.(norm[12])\.(weight|bias)$",
+             lambda m: f"block{m[1]}/{m[2]}/LayerNorm_0/{_inv(_LN)[m[3]]}"),
+            (r"blocks\.(\d+)\.(ls[12])\.gamma$", lambda m: f"block{m[1]}/{m[2]}")],
+}
+
+
+def param_layout(arch: str) -> str:
+    """The layout jax_param_path reads for an arch: 'convnext', 'iso',
+    'vit', or a BN family's ('resnet', 'densenet', 'inception')."""
+    if arch == "convnext_iso":
+        return "iso"
+    family = model_family(arch)
+    return bn_layout(arch) if family == "resnet" else family
+
+
+def jax_param_path(name: str, layout: str, is_bn: bool = False) -> str | None:
+    """The JAX param path of a parameter of the port, by layout
+    (`param_layout`). A BN-family parameter ('layer1.0.downsample.1.weight')
+    -> 'stage0_block0/downsample_bn/scale'; is_bn: it belongs to a
+    BatchNorm (weight -> scale, else -> kernel). A ConvNeXt, isotropic
+    ConvNeXt or ViT block parameter ('stages.2.blocks.0.mlp.fc1.weight') ->
+    'stage2_block0/pwconv1_kernel'; None for their parameters outside the
+    blocks, which no rule of the port reads by path (the tensor-parallel
+    rules, parallel/tp.py, match block leaves only)."""
+    if layout in _BLOCK_PATHS:
+        for pattern, path in _BLOCK_PATHS[layout]:
+            m = re.match(pattern, name)
+            if m is not None:
+                return path(m)
+        return None
     module, leaf = name.rsplit(".", 1)
     jleaf = {"bias": "bias", "weight": "scale" if is_bn else "kernel"}[leaf]
     return f"{_bn_module(module, layout, to_torch=False)}/{jleaf}"
@@ -315,12 +350,17 @@ def load_torch_checkpoint(path: str | Path, model: nn.Module) -> nn.Module:
 
 
 def save_torch_checkpoint(model: nn.Module, path: str | Path,
-                          ema: Mapping[str, torch.Tensor] | None = None) -> None:
+                          ema: Mapping[str, torch.Tensor] | None = None,
+                          sd: Mapping[str, torch.Tensor] | None = None) -> None:
     """torch.save the model's reference-format state_dict (f32, raw keys).
     With `ema` ({model parameter name: tensor}, train/ema.py), the
-    parameters are taken from it: the EMA weights of the same model."""
+    parameters are taken from it: the EMA weights of the same model. sd:
+    the model's state_dict to write in place of its own (a distributed
+    run's, gathered to whole tensors: ckpt/checkpoint.py)."""
     prefix = "model." if isinstance(model, NormalizedModel) else ""
+    if sd is None:
+        sd = model.state_dict()
     ema = ema or {}
-    sd = {k: ema.get(prefix + k, v).detach().float().cpu().contiguous()
-          for k, v in core_module(model).state_dict().items()}
-    torch.save(sd, str(path))
+    out = {k[len(prefix):]: ema.get(k, v).detach().float().cpu().contiguous()
+           for k, v in sd.items() if k.startswith(prefix) and not k.startswith("normalize.")}
+    torch.save(out, str(path))

@@ -47,6 +47,24 @@ A BN-family model (resnet50, ..., densnet201, inception) loads its running
 statistics with its weights: --torch_ckpt's, or the run's, and with
 --use_ema the EMA statistics that weights_ema_<e>.pt carries (a JAX run's
 ema_batch_stats).
+
+Distribution (revisiting_at_tpu/cli/eval.py:207-241, 258-303):
+  * --multihost 1 (or torchrun, WORLD_SIZE > 1): one process per GPU or
+    host, started from torchrun's environment (parallel/mesh.py
+    init_distributed; NCCL on the card, gloo on the CPU, or the group the
+    caller started). Each process attacks its round-robin shard x[r::n] of the
+    eval set (evals.shard_for_process) exactly as a single process would
+    attack that shard, and the robust counts are summed over the processes
+    (evals.global_robust_accuracy): every rank logs the same global
+    accuracy, rank 0 alone into the log file. --save_imgs writes each
+    rank's shard to aa_adv_..._r<rank>.npy.
+  * --shard_eval 1: each dispatched batch is split over this host's GPUs,
+    the weights replicated (parallel/replicas.py); every point meets the
+    draws of the one-device run. With one GPU it runs on it and says so.
+  * --tp N (under torchrun, N processes a group): the block MLPs (and a
+    ViT's heads, where N divides them) split over the group
+    (parallel/tp.py); the groups shard the eval set as --multihost does.
+    It requires --use_pallas 0, as in JAX.
 """
 
 from __future__ import annotations
@@ -100,9 +118,14 @@ def get_args(argv=None):
     p.add_argument("--stem_s2d", type=int, default=0,
                    help="accepted for the JAX CLI's sake; no effect (the plain stem conv)")
     p.add_argument("--device", type=str, default="cuda")
-    p.add_argument("--shard_eval", type=int, default=0)
-    p.add_argument("--tp", type=int, default=0)
-    p.add_argument("--multihost", type=int, default=0)
+    p.add_argument("--shard_eval", type=int, default=0,
+                   help="split each eval batch over this host's GPUs, weights replicated")
+    p.add_argument("--tp", type=int, default=0,
+                   help="tensor-parallel group size (under torchrun): the block MLPs split "
+                        "over it (parallel/tp.py); requires --use_pallas 0")
+    p.add_argument("--multihost", type=int, default=0,
+                   help="one process per host or GPU: each attacks its round-robin shard of "
+                        "the eval set, robust counts summed over the processes")
     return p.parse_args(argv)
 
 
@@ -134,11 +157,12 @@ def load_eval_set(args, num_classes: int):
 
 
 def main(argv=None) -> dict:
-    """Run the evaluation; returns {norm: {"eps", "robust" (or "clean"), "n"}}."""
+    """Run the evaluation; returns {norm: {"eps", "robust" (or "clean"), "n",
+    "points"}}: the accuracy and count over every process's shard, and
+    this process's per-point mask."""
     args = get_args(argv)
-    if args.shard_eval or args.multihost or args.tp > 1:
-        raise SystemExit("--tp/--shard_eval/--multihost: multi-GPU evaluation is "
-                         "ROADMAP A11, not ported yet")
+    if args.tp > 1 and args.use_pallas:
+        raise SystemExit("--tp requires --use_pallas 0 (parallel/tp.py)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but CUDA is not available (pass --device cpu "
@@ -149,11 +173,36 @@ def main(argv=None) -> dict:
         raise SystemExit(f"--l_epss has {len(epss)} values for the {len(norms)} norms of "
                          f"--l_norms: give one eps per norm")
 
+    import torch.distributed as dist
+
+    from ..config import DistSection
+    from ..parallel.mesh import MeshConfig, init_distributed, make_mesh
+
+    info = init_distributed(DistSection(multihost=args.multihost), device)
+    mesh = None
+    try:
+        if info.world % max(args.tp, 1):
+            raise SystemExit(f"--tp {args.tp} needs a multiple of {args.tp} processes (torchrun "
+                             f"--nproc_per_node {args.tp}); this run has {info.world}")
+        mesh = make_mesh(MeshConfig(model=max(args.tp, 1)))
+        return _evaluate(args, norms, epss, info.device, mesh)
+    finally:
+        if mesh is not None:
+            mesh.release()
+        if info.started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _evaluate(args, norms, epss, device, mesh) -> dict:
+    import torch.distributed as dist
+
     from ..ckpt.checkpoint import restore_run_weights
-    from ..ckpt.convert import load_state_dict, read_torch_checkpoint
+    from ..ckpt.convert import load_state_dict, param_layout, read_torch_checkpoint
     from ..config import load_params_json
-    from ..evals import EPS_DICT, SHORT_ATTACKS, STANDARD_ATTACKS, AutoAttack, AutoAttackConfig
+    from ..evals import (EPS_DICT, SHORT_ATTACKS, STANDARD_ATTACKS, AutoAttack, AutoAttackConfig,
+                         global_robust_accuracy, shard_for_process)
     from ..models import get_model, resize_vit_pos_embed
+    from ..parallel.tp import apply_tensor_parallel, tp_sharded_leaf_count
     from ..train.train_step import input_grad_view
     from ..utils.logging import EvalLogger
 
@@ -181,12 +230,39 @@ def main(argv=None) -> dict:
     if meta.family == "vit":
         sd = resize_vit_pos_embed(sd, args.img_size, meta.patch_size)
     load_state_dict(model, sd)
+    if args.tp > 1:
+        n_tp = tp_sharded_leaf_count(apply_tensor_parallel(model, mesh,
+                                                           param_layout(cfg.model.arch)))
+        if n_tp == 0:
+            raise AssertionError(f"--tp {args.tp}: no param matched the TP rules for this arch")
     model = model.to(device).eval().requires_grad_(False)
     # every eval attack differentiates w.r.t. the input only
     attack_view = input_grad_view(model)
+    logits_fn = attack_view
+    if args.shard_eval:
+        from ..parallel.replicas import SplitBatch
+
+        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+        if n_dev == 1:
+            print(f"--shard_eval 1: this host has one {device.type} device; the batches run "
+                  f"on it whole", flush=True)
+        else:
+            logits_fn = SplitBatch(attack_view, [torch.device("cuda", i) for i in range(n_dev)])
+            print(f"--shard_eval 1: each batch split over {n_dev} GPUs", flush=True)
 
     x, y = load_eval_set(args, cfg.data.num_classes)
-    logger = EvalLogger(str(run_dir / f"evaluated_logs_{args.l_norms}_{args.full_aa}.txt"))
+    shards = mesh.batch_count
+    x, y = shard_for_process(x, y, mesh.batch_rank, shards)
+    # one log writer: rank 0; under TP one writer of the images a group
+    main_rank = mesh.rank == 0
+    logger = EvalLogger(str(run_dir / f"evaluated_logs_{args.l_norms}_{args.full_aa}.txt")
+                        if main_rank else None)
+    count_device = device if dist.is_initialized() and dist.get_backend() == "nccl" else "cpu"
+
+    def global_acc(mask):
+        if shards == 1:
+            return float(mask.mean()), len(mask)
+        return global_robust_accuracy(mask, mesh.groups["batch"], count_device)
 
     results = {}
     for norm_idx, norm in enumerate(norms):
@@ -197,20 +273,25 @@ def main(argv=None) -> dict:
         if eps > 1 and norm == "Linf":
             eps /= 255.0
         attacks = STANDARD_ATTACKS if args.full_aa else SHORT_ATTACKS
-        aa = AutoAttack(attack_view, AutoAttackConfig(
+        aa = AutoAttack(logits_fn, AutoAttackConfig(
             norm=norm, eps=eps, attacks_to_run=attacks, n_iter=args.n_iter,
             square_n_queries=args.square_queries, batch_size=args.batch_size),
             logger=logger, device=device)
         logger.log(f"norm={norm} eps={eps:.5f} attacks={attacks}")
         if args.only_clean:
-            acc = float(aa.clean_accuracy(x, y).mean())
-            logger.log(f"clean accuracy: {acc:.2%} ({len(x)} pts)")
-            results[norm] = dict(eps=eps, clean=acc, n=len(x))
+            points = aa.clean_accuracy(x, y)
+            acc, n = global_acc(points)
+            logger.log(f"clean accuracy: {acc:.2%} ({n} pts)")
+            results[norm] = dict(eps=eps, clean=acc, n=n, points=points.tolist())
             continue
-        out_path = run_dir / f"aa_adv_{args.n_ex}_{norm}_{eps:.5f}.npy" if args.save_imgs else None
+        out_path = None
+        if args.save_imgs and mesh.coords["model"] == 0:
+            rank = f"_r{mesh.batch_rank}" if shards > 1 else ""
+            out_path = run_dir / f"aa_adv_{args.n_ex}_{norm}_{eps:.5f}{rank}.npy"
         _, robust = aa.run_standard_evaluation(x, y, out_path=out_path)
-        logger.log(f"robust accuracy ({norm}): {robust.mean():.2%} ({len(x)} pts)")
-        results[norm] = dict(eps=eps, robust=float(robust.mean()), n=len(x))
+        acc, n = global_acc(robust)
+        logger.log(f"robust accuracy ({norm}): {acc:.2%} ({n} pts)")
+        results[norm] = dict(eps=eps, robust=acc, n=n, points=robust.tolist())
         if out_path is not None:
             results[norm]["adv_path"] = str(out_path)
     return results

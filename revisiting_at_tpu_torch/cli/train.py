@@ -20,11 +20,25 @@ device inside the step, then mixup.
 state (ckpt/state_<e>.pt) with the run's own flags: the weights, optimizer,
 EMA and step are restored and the epochs go on after the saved one.
 
+Distributed training, one process per GPU:
+
+  torchrun --nproc_per_node N -m revisiting_at_tpu_torch.cli.train \
+      [--dist.fsdp F] [--dist.tp T --training.use_pallas 0] ...
+
+(or torchrun on each host with --nnodes, or --dist.multihost 1 with RANK,
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT set by hand). Each
+process reads torchrun's environment (parallel/mesh.py init_distributed),
+takes the GPU of its LOCAL_RANK and feeds its own batch shard:
+`training.batch_size` is per process, as JAX's per-process batch under
+multi-host (trainer.py:354-365), and the folder loader reads the shard
+files[shard::shards] of the train and val roots. Rank 0 writes the run.
+
 The flags are the JAX CLI's flat `--section.param value` (or `=value`), so a
 run's params.json keeps the JAX contract. Two more flags are the port's and
 are parsed first: `--device` (default cuda; without CUDA the CLI exits with
-an error, and `--device cpu` runs on the CPU) and `--synthetic_batches`
-(batches per synthetic epoch, default 64 as in the JAX package).
+an error, and `--device cpu` runs on the CPU; distributed, NCCL on the card
+and gloo on the CPU) and `--synthetic_batches` (batches per synthetic
+epoch, default 64 as in the JAX package).
 """
 
 from __future__ import annotations
@@ -33,10 +47,11 @@ import argparse
 import sys
 
 
-def folder_loaders(cfg, pin_memory: bool):
+def folder_loaders(cfg, pin_memory: bool, shard: int = 0, shards: int = 1):
     """(train_data_factory(res), val loader or None) from the data section,
-    as revisiting_at_tpu/cli/train.py:55-114 builds them. The factory gives
-    one train loader, its workers kept, at each resolution of the ramp."""
+    as revisiting_at_tpu/cli/train.py:55-114 builds them, over this
+    process's shard of each root. The factory gives one train loader, its
+    workers kept, at each resolution of the ramp."""
     from ..data.folder import FolderConfig, FolderLoader
 
     d = cfg.data
@@ -48,7 +63,7 @@ def folder_loaders(cfg, pin_memory: bool):
                 root=d.train_dataset, resolution=res, batch_size=cfg.training.batch_size,
                 is_train=True, seed=d.seed, num_parallel=d.num_workers,
                 subset_size=d.subset_size, cache_decoded=bool(d.in_memory),
-                pin_memory=pin_memory)))
+                pin_memory=pin_memory), shard, shards))
         return train[0].set_resolution(res)
 
     val_data = None
@@ -57,7 +72,7 @@ def folder_loaders(cfg, pin_memory: bool):
             root=d.val_dataset, resolution=cfg.validation.resolution,
             batch_size=cfg.validation.batch_size, is_train=False, drop_remainder=True,
             num_parallel=d.num_workers, cache_decoded=bool(d.in_memory),
-            pin_memory=pin_memory))
+            pin_memory=pin_memory), shard, shards)
     return train_data_factory, val_data
 
 
@@ -70,8 +85,11 @@ def main(argv=None):
     args, rest = ap.parse_known_args(argv)
 
     import torch
+    import torch.distributed as dist
 
     from ..config import config_from_args
+    from ..parallel.mesh import batch_shard, init_distributed
+    from ..parallel.tp import TP_REQUIRES_PLAIN
     from ..train.trainer import Trainer
 
     cfg = config_from_args(rest)
@@ -79,24 +97,36 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but CUDA is not available (pass --device cpu "
                          "to train on the CPU)")
-    train_data = val_data = train_data_factory = None
-    if cfg.data.dataset == "folder":
-        if not cfg.data.train_dataset:
-            raise SystemExit("data.dataset=folder needs data.train_dataset (an ImageFolder "
-                             "root); pass --data.dataset synthetic to train on random images")
-        train_data_factory, val_data = folder_loaders(cfg, pin_memory=device.type == "cuda")
-        r = cfg.resolution
-        train_data = train_data_factory(r.min_res if r.min_res < r.max_res else r.max_res)
-    trainer = Trainer(cfg, device=device, synthetic_batches=args.synthetic_batches,
-                      train_data=train_data, val_data=val_data,
-                      train_data_factory=train_data_factory)
-    if cfg.model.ckpt_path:
-        trainer.try_resume()
-    if cfg.training.eval_only:
-        acc, n = trainer.single_val()
-        trainer.logger.log({"eval_only_acc": acc, "points": n})
-        return trainer
-    trainer.train()
+    if cfg.dist.tp > 1 and cfg.training.use_pallas:
+        raise ValueError(TP_REQUIRES_PLAIN)
+    if cfg.data.dataset == "folder" and not cfg.data.train_dataset:
+        raise SystemExit("data.dataset=folder needs data.train_dataset (an ImageFolder "
+                         "root); pass --data.dataset synthetic to train on random images")
+    info = init_distributed(cfg.dist, device)
+    trainer = None
+    try:
+        train_data = val_data = train_data_factory = None
+        if cfg.data.dataset == "folder":
+            shard, shards = batch_shard(info.rank, info.world, cfg.dist.tp)
+            train_data_factory, val_data = folder_loaders(
+                cfg, pin_memory=device.type == "cuda", shard=shard, shards=shards)
+            r = cfg.resolution
+            train_data = train_data_factory(r.min_res if r.min_res < r.max_res else r.max_res)
+        trainer = Trainer(cfg, device=info.device, synthetic_batches=args.synthetic_batches,
+                          train_data=train_data, val_data=val_data,
+                          train_data_factory=train_data_factory)
+        if cfg.model.ckpt_path:
+            trainer.try_resume()
+        if cfg.training.eval_only:
+            acc, n = trainer.single_val()
+            trainer.logger.log({"eval_only_acc": acc, "points": n})
+        else:
+            trainer.train()
+    finally:
+        if trainer is not None:
+            trainer.release()
+        if info.started and dist.is_initialized():
+            dist.destroy_process_group()
     return trainer
 
 

@@ -372,6 +372,12 @@ class FolderLoader:
                 total += im.size[0] * im.size[1] * 3
         return total
 
+    def set_epoch(self, epoch: int) -> "FolderLoader":
+        """The next pass is epoch `epoch` (its shuffle and crops): a resumed
+        run goes on with the epoch it resumes at, not with the first."""
+        self.batches.epoch = epoch
+        return self
+
     def set_resolution(self, res: int) -> "FolderLoader":
         """Train images at res x res from the next epoch on (the ramp)."""
         if not self.cfg.is_train:

@@ -4,6 +4,8 @@ from .autoattack import (
     STANDARD_ATTACKS,
     AutoAttack,
     AutoAttackConfig,
+    global_robust_accuracy,
+    shard_for_process,
     torch_noise,
     torch_square_draws,
 )
@@ -26,6 +28,8 @@ __all__ = [
     "TorchSquareDraws",
     "fab_attack_single_target",
     "fab_attack_targeted",
+    "global_robust_accuracy",
+    "shard_for_process",
     "square_attack",
     "square_attack_l1",
     "square_attack_l2",

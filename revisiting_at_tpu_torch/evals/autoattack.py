@@ -38,6 +38,34 @@ NoiseFn = Callable[[tuple, tuple], torch.Tensor]
 SquareDrawsFn = Callable[[tuple], SquareDraws]
 
 
+def shard_for_process(x: np.ndarray, y: np.ndarray, rank: int, world: int):
+    """The round-robin shard x[rank::world], y[rank::world] of the eval set
+    for one process (multi-host eval, JAX's shard_for_process,
+    revisiting_at_tpu/evals/autoattack.py:55-65): each attacks its own
+    points; no-op for one process."""
+    if world == 1:
+        return x, y
+    return x[rank::world], y[rank::world]
+
+
+def global_robust_accuracy(robust_local: np.ndarray, group=None,
+                           device: str | torch.device = "cpu") -> tuple[float, int]:
+    """(robust accuracy, point count) over every process's shard: the
+    per-process counts summed over `group` (the default group when a
+    process group exists; this process alone otherwise), so every rank gets
+    the same numbers (JAX's global_robust_accuracy, autoattack.py:68-78).
+    device: where the counts cross (the card under NCCL)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size(group) == 1:
+        return float(robust_local.mean()), int(len(robust_local))
+    counts = torch.tensor([int(robust_local.sum()), int(len(robust_local))],
+                          dtype=torch.int64, device=device)
+    dist.all_reduce(counts, group=group)
+    correct, total = counts.tolist()
+    return correct / max(total, 1), total
+
+
 def _unit(xb: np.ndarray) -> np.ndarray:
     """A new f32 [0, 1] array from a uint8 or unit-float batch (never a view)."""
     if xb.dtype == np.uint8:

@@ -54,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.block_mlp import convnext_block_tail, tail_fusable
 from ..ops.dwconv import dwconv7x7
+from ..parallel.collectives import copy_to_model, reduce_from_model
 from .layers import Conv, LayerNorm, to_nchw, to_nhwc, trunc_normal_
 from .stems import PatchifyStem
 
@@ -82,14 +83,21 @@ def _layer_norm_f32(s, g, b, eps=1e-6):
     return (sf - mu) * torch.rsqrt(var + eps) * g + b
 
 
-def plain_tail(s, x, ln_g, ln_b, w1, b1, w2, b2, gamma, dtype, keep=None):
+def plain_tail(s, x, ln_g, ln_b, w1, b1, w2, b2, gamma, dtype, keep=None, tp_group=None):
     """The block tail of the plain model path: f32 LayerNorm, then Dense(4C),
     erf GELU and Dense(C) in `dtype`, LayerScale, the per-sample DropPath
     scale `keep` ([B] or None) and the residual. w1 and w2 are nn.Linear
-    weights ([4C, C] and [C, 4C])."""
+    weights ([4C, C] and [C, 4C]). With `tp_group` they are this rank's
+    column and row shards (parallel/tp.py): the partial Dense(C) outputs
+    are summed over the group before the bias."""
     u = _layer_norm_f32(s, ln_g, ln_b).to(dtype)
+    if tp_group is not None:
+        u = copy_to_model(u, tp_group)
     h = F.linear(u, w1.to(dtype), b1.to(dtype))
-    o = F.linear(F.gelu(h), w2.to(dtype), b2.to(dtype))
+    if tp_group is None:
+        o = F.linear(F.gelu(h), w2.to(dtype), b2.to(dtype))
+    else:
+        o = reduce_from_model(F.linear(F.gelu(h), w2.to(dtype)), tp_group) + b2.to(dtype)
     o = o * gamma.to(o.dtype)
     if keep is not None:
         o = o * keep.to(o.dtype).reshape(-1, 1, 1, 1)
@@ -139,6 +147,7 @@ class ConvNeXtBlock(nn.Module):
             self.mlp = Mlp(dim, 4 * dim)
             fc1, fc2 = self.mlp.fc1, self.mlp.fc2
         self._layers = (conv_dw, fc1, fc2)  # a tuple: not registered a second time
+        self.tp_group = None  # the "model" group when its MLP is split (parallel/tp.py)
         if layer_scale_init > 0:
             self.gamma = nn.Parameter(torch.full((dim,), layer_scale_init))
         else:
@@ -166,7 +175,7 @@ class ConvNeXtBlock(nn.Module):
                 s, x, keep, ln_g, ln_b, fc1.weight.t(), fc1.bias, fc2.weight.t(), fc2.bias,
                 self.gamma, grad_mode=grad_mode)
         return plain_tail(s, x, ln_g, ln_b, fc1.weight, fc1.bias, fc2.weight, fc2.bias,
-                          self.gamma, dt, keep)
+                          self.gamma, dt, keep, self.tp_group)
 
 
 class ConvNeXt(nn.Module):

@@ -38,6 +38,8 @@ from torch import nn
 
 from ..ops.attention import fused_attention, fused_attention_qkv
 from ..ops.block_mlp import tail_fusable, vit_mlp_tail
+from ..parallel.collectives import (copy_to_model, gather_from_model, reduce_from_model,
+                                    slice_to_model)
 from .convnext import Mlp, drop_path_keep, run_block
 from .layers import LayerNorm, trunc_normal_
 from .stems import PatchEmbed
@@ -76,6 +78,9 @@ class Attention(nn.Module):
         self.use_pallas, self.attn_impl = use_pallas, attn_impl
         self.qkv = _linear(dim, 3 * dim)
         self.proj = _linear(dim, dim)
+        # the "model" group when the heads are split over it (parallel/tp.py):
+        # each rank attends over H / tp heads of the replicated qkv
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, D = x.shape
@@ -86,6 +91,12 @@ class Attention(nn.Module):
         if self.use_pallas:
             q, k, v = qkv.reshape(B, N, 3, H, D // H).unbind(2)  # [B, N, H, hd]
             out = fused_attention(q, k, v).reshape(B, N, D)
+        elif self.tp_group is not None:
+            heads = slice_to_model(qkv.reshape(B, N, 3, H, D // H), 3, self.tp_group)
+            h = heads.shape[3]
+            out = plain_attention(heads.reshape(B, N, 3 * h * (D // H)), h, x.dtype)
+            out = gather_from_model(out.reshape(B, N, h, D // H), 2, self.tp_group)
+            out = out.reshape(B, N, D)
         else:
             out = plain_attention(qkv, H, x.dtype)
         return _dense(out, self.proj, dt)
@@ -119,6 +130,7 @@ class ViTBlock(nn.Module):
             self.ls1 = self.ls2 = None
             # the fused tail's gamma when there is no LayerScale
             self.register_buffer("ones", torch.ones(dim), persistent=False)
+        self.tp_group = None  # the "model" group when its MLP is split (parallel/tp.py)
 
     def forward(self, x: torch.Tensor, grad_mode: str = "full",
                 generator: torch.Generator | None = None, remat: bool = False) -> torch.Tensor:
@@ -143,7 +155,12 @@ class ViTBlock(nn.Module):
             return vit_mlp_tail(x, keep2, self.norm2.weight, self.norm2.bias, fc1.weight.t(),
                                 fc1.bias, fc2.weight.t(), fc2.bias, gamma,
                                 grad_mode=grad_mode).to(dt)
-        y = _dense(F.gelu(_dense(self.norm2(x), fc1, dt)), fc2, dt)  # erf GELU
+        if self.tp_group is None:
+            y = _dense(F.gelu(_dense(self.norm2(x), fc1, dt)), fc2, dt)  # erf GELU
+        else:  # this rank's column and row shards, summed over the group before the bias
+            h = F.gelu(_dense(copy_to_model(self.norm2(x), self.tp_group), fc1, dt))
+            y = reduce_from_model(F.linear(h.to(dt), fc2.weight.to(dt)), self.tp_group)
+            y = y + fc2.bias.to(dt)
         if self.ls2 is not None:
             y = self.ls2(y)
         if keep2 is not None:

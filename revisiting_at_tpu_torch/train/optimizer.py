@@ -75,10 +75,11 @@ class ScheduledOptimizer:
     towards the next update)."""
 
     def __init__(self, opt: torch.optim.Optimizer, schedule: Callable[[int], float],
-                 every_k: int = 1):
+                 every_k: int = 1, names: list[str] | None = None):
         self.opt, self.schedule, self.count = opt, schedule, 0
         self.every_k, self.mini_step = every_k, 0
         self.params = [p for group in opt.param_groups for p in group["params"]]
+        self.names = names  # the parameters' names, in the order of `params`
         self.acc: list[torch.Tensor] | None = None  # the running mean, between updates
 
     def zero_grad(self) -> None:
@@ -92,13 +93,13 @@ class ScheduledOptimizer:
         self.count += 1
         return lr
 
-    def update(self) -> None:
+    def update(self) -> bool:
         """After a micro-step's backward: step at once (every_k = 1), else
         fold the .grad of the optimizer's parameters into the running mean
-        and step on it at the k-th micro-step."""
+        and step on it at the k-th micro-step. Returns whether it stepped."""
         if self.every_k == 1:
             self.step()
-            return
+            return True
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         if self.acc is None:
             self.acc = [g.clone() for g in grads]  # acc + (g - acc) / 1 with acc = 0
@@ -108,11 +109,12 @@ class ScheduledOptimizer:
             torch._foreach_add_(self.acc, delta)
         self.mini_step += 1
         if self.mini_step < self.every_k:
-            return
+            return False
         for p, a in zip(self.params, self.acc):
             p.grad = a
         self.step()
         self.mini_step, self.acc = 0, None
+        return True
 
     def state_dict(self) -> dict:
         return {"opt": self.opt.state_dict(), "count": self.count,
@@ -127,22 +129,25 @@ def make_optimizer(model: nn.Module, *, optimizer: str = "adamw", weight_decay: 
                    momentum: float = 0.9, family: str = "convnext",
                    learning_rate: Callable[[int], float] | float,
                    freeze_some: bool = False, early: bool = True,
-                   grad_accum: int = 1) -> ScheduledOptimizer:
+                   grad_accum: int = 1, params=None) -> ScheduledOptimizer:
     """Two parameter groups, with and without decay. Frozen parameters
     (freeze_some) are in neither: they keep their gradients but get no
     update, as optax's set_to_zero gives them. grad_accum: the micro-steps
-    per update (optax.MultiSteps)."""
+    per update (optax.MultiSteps). params: the named tensors to update in
+    place of the model's parameters (under FSDP, a sharded parameter's
+    slice: parallel/zero.py ParallelModel.named_master); the rules read
+    the model's names."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum {grad_accum} < 1")
     schedule = learning_rate if callable(learning_rate) else (lambda _: learning_rate)
     mask = wd_mask(model, family)
     labels = freeze_labels(model, early) if freeze_some else {}
     decay, no_decay = [], []
-    for name, p in model.named_parameters():
+    for name, p in (model.named_parameters() if params is None else params):
         if labels.get(name, "train") == "train":
-            (decay if mask[name] else no_decay).append(p)
-    groups = [{"params": decay, "weight_decay": weight_decay},
-              {"params": no_decay, "weight_decay": 0.0}]
+            (decay if mask[name] else no_decay).append((name, p))
+    groups = [{"params": [p for _, p in decay], "weight_decay": weight_decay},
+              {"params": [p for _, p in no_decay], "weight_decay": 0.0}]
     lr0 = schedule(0)
     if optimizer == "adamw":
         opt = torch.optim.AdamW(groups, lr=lr0, betas=(0.9, 0.95), eps=1e-8)
@@ -150,4 +155,4 @@ def make_optimizer(model: nn.Module, *, optimizer: str = "adamw", weight_decay: 
         opt = torch.optim.SGD(groups, lr=lr0, momentum=momentum)
     else:
         raise ValueError(f"unknown optimizer {optimizer!r}")
-    return ScheduledOptimizer(opt, schedule, grad_accum)
+    return ScheduledOptimizer(opt, schedule, grad_accum, [n for n, _ in decay + no_decay])

@@ -1,5 +1,8 @@
 """TrainState, port of revisiting_at_tpu/train/state.py: the training state
-as one plain dataclass. The model and the optimizer are updated in place."""
+as one plain dataclass. The model and the optimizer are updated in place.
+On a mesh of more than one rank, `parallel` holds the rank's gradient sync,
+FSDP slices and full-checkpoint layout (parallel/zero.py); the optimizer
+and the EMA then hold the tensors of its master layout."""
 
 from __future__ import annotations
 
@@ -8,6 +11,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from ..parallel.zero import ParallelModel
 from .optimizer import ScheduledOptimizer
 
 
@@ -20,3 +24,4 @@ class TrainState:
     # raw statistics are the model's buffers
     ema: dict[str, torch.Tensor] | None = None
     step: int = 0
+    parallel: ParallelModel | None = None

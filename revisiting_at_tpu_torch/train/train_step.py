@@ -1,5 +1,5 @@
 """The adversarial train step, port of revisiting_at_tpu/train/train_step.py
-(its mesh=None path).
+(its mesh=None step on one process, its shard_map step on a mesh).
 
 One call of the step:
   uint8 -> [0, 1] -> RandAugment, erasing and flip (with data.augmentations)
@@ -18,6 +18,20 @@ noise from a generator on the batch's device seeded the same way; FGSM's
 random start from a generator on the batch's device seeded the same way,
 or from an injected `attack_draws(step, shape)`; DropPath draws from the
 model's `drop_generator`, seeded the same way per step.
+
+On a mesh of more than one rank (`state.parallel`, parallel/zero.py) the
+step is JAX's shard_map step (train_step.py:110-141, 231-321), with
+use_pallas 0 and 1 alike: each rank augments, attacks and trains on its
+batch shard; the mixup draws are shared by every rank (one lambda and box,
+the partner within the shard), while the augmentation, erasing, DropPath
+and FGSM streams fold in the rank's batch shard (JAX's fold_in of
+axis_index), so an injected draw function is this rank's; the BatchNorm
+statistics are averaged over the shards after the training forward, the
+gradient after the backward (grad_norm is the averaged gradient's), and
+loss, train_acc and adv_acc before they are returned. Under JAX's trainer
+a use_pallas=0 mesh takes the auto-partitioned global-batch step instead
+(BatchNorm statistics and the mixup partner over the whole batch); the
+port keeps the shard-local one (ROADMAP C25).
 
 Semantics kept from the reference:
   * the model is deterministic (eval mode) while the attack runs and
@@ -123,10 +137,11 @@ class AdvConfig:
     loss: str = "ce"
 
 
-def step_seed(seed: int, step: int, stream: int) -> int:
+def step_seed(seed: int, step: int, stream: int, rank: int = 0) -> int:
     """Seed of one random stream (1: mixup, 2: DropPath, 3: FGSM's start,
-    4: the augmentation draws, 5: the erasing noise) at one step."""
-    return (seed * 1_000_003 + step * 8 + stream) % (2 ** 63 - 1)
+    4: the augmentation draws, 5: the erasing noise) at one step, for the
+    batch shard `rank` (0: the single process's streams)."""
+    return (seed * 1_000_003 + step * 8 + stream + rank * 0x9E3779B97F4A7C15) % (2 ** 63 - 1)
 
 
 def make_train_step(
@@ -160,7 +175,8 @@ def make_train_step(
     core = _grad_mode_owner(model) or model
 
     def step_fn(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
-        m = state.model
+        m, par = state.model, state.parallel
+        rank = par.mesh.batch_rank if par is not None else 0  # the per-shard streams' rank
         images = to_unit_pixels(images)
         labels = labels.long()
         targets = labels
@@ -169,10 +185,10 @@ def make_train_step(
             if augment_draws is not None:
                 draws = augment_draws(state.step, b, h, w)
             else:
-                gen = torch.Generator().manual_seed(step_seed(seed, state.step, 4))
+                gen = torch.Generator().manual_seed(step_seed(seed, state.step, 4, rank))
                 draws = draw_augment(gen, b, h, w, randaug)
             noise_gen = torch.Generator(device=images.device).manual_seed(
-                step_seed(seed, state.step, 5))
+                step_seed(seed, state.step, 5, rank))
             with torch.profiler.record_function("augment"):  # a profiler span, free when off
                 images = augment_batch(images, draws, randaug, generator=noise_gen)
         if mixup is not None:
@@ -197,7 +213,7 @@ def make_train_step(
             gen = None
             if noise is None:
                 gen = torch.Generator(device=images.device).manual_seed(
-                    step_seed(seed, state.step, 3))
+                    step_seed(seed, state.step, 3, rank))
             with attack_grad_mode(m):
                 x_use = fgsm_train(m, images, targets, eps=adv.eps, noise=noise, generator=gen,
                                    loss=adv.loss, alpha=adv.alpha, use_rs=True,
@@ -209,23 +225,33 @@ def make_train_step(
         m.train()
         if hasattr(core, "drop_generator"):
             core.drop_generator = torch.Generator(device=images.device).manual_seed(
-                step_seed(seed, state.step, 2))
+                step_seed(seed, state.step, 2, rank))
         logits = m(x_use)
+        if par is not None:
+            par.average_stats()  # before the EMA takes them
         if mixup is not None:
             loss = soft_target_ce(logits, targets)
         else:
             loss = ce_indiv(logits, targets).mean()
         state.optimizer.zero_grad()
         loss.backward()
-        grads = [p.grad for p in m.parameters() if p.grad is not None]
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads))) if grads else torch.zeros(())
-        state.optimizer.update()
+        if par is not None:
+            grad_norm = par.sync_grads()
+        else:
+            grads = [p.grad for p in m.parameters() if p.grad is not None]
+            grad_norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads))) if grads else torch.zeros(())
+        if state.optimizer.update() and par is not None:
+            par.after_update()
         if ema_decay > 0.0 and state.ema is not None:
-            ema_update(state.ema, m, ema_decay)
+            ema_update(state.ema, m, ema_decay,
+                       params=par.named_master() if par is not None else None)
         train_acc = (logits.detach().argmax(-1) == labels).float().mean()
+        loss = loss.detach()
+        if par is not None:
+            loss, train_acc, adv_acc = par.mean([loss, train_acc, adv_acc])
         state.step += 1
-        return {"loss": loss.detach(), "train_acc": train_acc, "adv_acc": adv_acc,
+        return {"loss": loss, "train_acc": train_acc, "adv_acc": adv_acc,
                 "grad_norm": grad_norm}
 
     return step_fn

@@ -1,5 +1,5 @@
 """Trainer: epochs, validation, checkpoints and metric logging, port of
-revisiting_at_tpu/train/trainer.py for one device.
+revisiting_at_tpu/train/trainer.py, on one device or one rank of a mesh.
 
   * the data the caller hands in (the train CLI's image-folder loaders) or
     synthetic data; with data.augmentations, RandAugment, erasing and flip
@@ -44,27 +44,46 @@ revisiting_at_tpu/train/trainer.py for one device.
   * the BN family: the attack runs with the running statistics frozen, the
     training forward moves them once, the EMA follows them (train_step.py);
   * a final clean validation; JSONL records with relative timestamps, and
-    params.json.
-
-Options of the JAX trainer that the port does not have yet raise
-NotImplementedError naming the ROADMAP item that brings them.
+    params.json;
+  * distribution (parallel/): under torchrun (WORLD_SIZE > 1) or with
+    dist.multihost, one process per device. The trainer starts the process
+    group unless its caller did (parallel/mesh.py init_distributed), lays
+    the ranks out as JAX's ("data", "fsdp", "model") mesh from dist.fsdp
+    and dist.tp, splits the block MLPs over "model" (parallel/tp.py; with
+    use_pallas=1 refused as JAX refuses it), and runs JAX's shard_map step
+    (train_step.py; gradients, metrics and BatchNorm statistics averaged
+    over the batch shards, FSDP slices of the optimizer state and EMA:
+    parallel/zero.py). Each process feeds its own batch shard (synthetic
+    data drawn per shard; the CLI's folder loader reads its shard of the
+    files); validation counts are summed over the shards. Rank 0 alone
+    writes params.json, the log and the checkpoints, in the single-process
+    format; the other ranks print their records. `release` destroys the
+    mesh's groups, and the process group where the trainer started it; a
+    failed construction releases them itself.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import sys
 import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from ..ckpt.checkpoint import CheckpointManager
+from ..ckpt.convert import param_layout
 from ..config import Config
 from ..data.augment import RandAugmentConfig
 from ..data.mixup import MixupConfig
 from ..data.synthetic import SyntheticData
 from ..models import get_model
+from ..parallel.mesh import MeshConfig, init_distributed, make_mesh
+from ..parallel.tp import (TP_REQUIRES_PLAIN, apply_tensor_parallel, tp_dims,
+                           tp_sharded_leaf_count)
+from ..parallel.zero import ParallelModel
 from ..utils.flops import CONVENTION, forward_flops
 from ..utils.logging import RunLogger, make_run_name
 from .ema import ema_init
@@ -72,14 +91,6 @@ from .optimizer import make_optimizer
 from .schedule import LRConfig, get_resolution, make_lr_schedule
 from .state import TrainState
 from .train_step import AdvConfig, make_adv_eval_step, make_eval_step, make_train_step
-
-
-def refuse_unported(cfg: Config) -> None:
-    """Raise NotImplementedError for every option the port does not run yet."""
-    dist = cfg.dist
-    if dist.fsdp > 1 or dist.tp > 1 or dist.multihost or dist.world_size > 1:
-        raise NotImplementedError(
-            "dist.fsdp/tp/multihost/world_size: multi-GPU training is ROADMAP A11")
 
 
 def pretrained_init(cfg: Config, model) -> None:
@@ -114,10 +125,36 @@ class Trainer:
     def __init__(self, cfg: Config, device: str | torch.device = "cuda",
                  synthetic_batches: int = 64, train_data=None, val_data=None,
                  train_data_factory=None):
-        refuse_unported(cfg)
         self.cfg = cfg
         self.train_data_factory = train_data_factory
-        self.device = torch.device(device)
+        tp = max(int(cfg.dist.tp), 1)
+        if tp > 1 and cfg.training.use_pallas:
+            raise ValueError(TP_REQUIRES_PLAIN)
+        self.mesh = None
+        self.dist_info = init_distributed(cfg.dist, device)
+        try:
+            self.mesh = make_mesh(MeshConfig(fsdp=cfg.dist.fsdp, model=tp))
+            self._init_rest(cfg, tp, synthetic_batches, train_data, val_data)
+        except BaseException:
+            # a half-built Trainer is unreachable: nobody could release it
+            self.release()
+            raise
+
+    def release(self) -> None:
+        """Destroy the mesh's process groups, and the process group where the
+        trainer started it (idempotent). The train CLI calls it at the end;
+        in-process users (tests, notebooks) call it before building another
+        distributed trainer."""
+        if self.mesh is not None:
+            self.mesh.release()
+        if self.dist_info.started and dist.is_initialized():
+            dist.destroy_process_group()
+        self.dist_info = dataclasses.replace(self.dist_info, started=False)
+
+    def _init_rest(self, cfg: Config, tp: int, synthetic_batches: int, train_data, val_data):
+        self.device = self.dist_info.device
+        mesh = self.mesh
+        self.is_main = mesh.rank == 0
         t = cfg.training
         torch.autograd.set_detect_anomaly(bool(cfg.misc.debug_nans))
         dtype = torch.bfloat16 if t.precision == "bf16" else torch.float32
@@ -141,20 +178,34 @@ class Trainer:
             raise ValueError(f"{cfg.model.arch}: validation.resolution "
                              f"{cfg.validation.resolution} != resolution.max_res "
                              f"{cfg.resolution.max_res}: a ViT's pos_embed fixes its image size")
+        layout = param_layout(cfg.model.arch)
+        if tp > 1 and tp_sharded_leaf_count(tp_dims(self.model, layout, tp)) == 0:
+            raise AssertionError(f"dist.tp={tp} but no param matched the TP rules for arch "
+                                 f"{cfg.model.arch!r} (parallel/tp.py TP_RULES)")
         self.model.to(self.device)
+        if mesh.size > 1:  # every rank starts from rank 0's weights and statistics
+            with torch.no_grad():
+                for tensor in list(self.model.parameters()) + list(self.model.buffers()):
+                    dist.broadcast(tensor.data, src=0)
+        tp_leaves = apply_tensor_parallel(self.model, mesh, layout)
         # the f32 validation twin (validation.precision=fp32) shares the weights
         self.val_model = self.model
         if cfg.validation.precision == "fp32" and t.precision != "fp32":
             self.val_model, _ = get_model(cfg.model.arch, dtype=torch.float32, **build)
+            apply_tensor_parallel(self.val_model, mesh, layout)
             self.val_model.to(self.device)
+        self.parallel = ParallelModel(self.model, mesh, tp_leaves) if mesh.size > 1 else None
 
+        # each batch shard draws its own synthetic data (shard 0 the
+        # single process's); under TP the ranks of a "model" group share it
         self.res = cfg.resolution.max_res
+        shard_seed = 7919 * mesh.batch_rank
         self.train_data = train_data if train_data is not None else SyntheticData(
-            t.batch_size, self.res, cfg.data.num_classes, seed=cfg.data.seed,
+            t.batch_size, self.res, cfg.data.num_classes, seed=cfg.data.seed + shard_seed,
             n_batches=synthetic_batches)
         self.val_data = val_data if val_data is not None else SyntheticData(
             cfg.validation.batch_size, cfg.validation.resolution, cfg.data.num_classes,
-            seed=cfg.data.seed + 1, n_batches=8)
+            seed=cfg.data.seed + 1 + shard_seed, n_batches=8)
         self.iters_per_epoch = len(self.train_data)
 
         lr_cfg = LRConfig(lr=cfg.lr.lr, schedule_type=cfg.lr.lr_schedule_type,
@@ -163,13 +214,16 @@ class Trainer:
         # the schedule counts optimizer updates, one per grad_accum micro-batches
         self.accum = t.grad_accum
         self.lr_schedule = make_lr_schedule(lr_cfg, max(self.iters_per_epoch // self.accum, 1))
+        master = self.parallel.named_master() if self.parallel is not None else None
         optimizer = make_optimizer(
             self.model, optimizer=t.optimizer, weight_decay=t.weight_decay,
             momentum=t.momentum, family=self.meta.family, learning_rate=self.lr_schedule,
             freeze_some=bool(cfg.model.freeze_some), early=bool(cfg.model.early),
-            grad_accum=self.accum)
+            grad_accum=self.accum, params=master)
         use_ema = cfg.model.model_ema > 0
-        self.state = TrainState(self.model, optimizer, ema_init(self.model) if use_ema else None)
+        self.state = TrainState(self.model, optimizer,
+                                ema_init(self.model, master) if use_ema else None,
+                                parallel=self.parallel)
 
         # alpha is the config's for FGSM only, as in the JAX trainer
         adv = AdvConfig(attack=cfg.adv.attack, norm=cfg.adv.norm, eps=cfg.adv.eps,
@@ -191,21 +245,33 @@ class Trainer:
                 attack="apgd", norm=cfg.adv.norm, eps=cfg.adv.eps,
                 n_iter=cfg.validation.adv_val_iter))
 
-        # model.ckpt_path naming a run dir resumes that run in place
+        # model.ckpt_path naming a run dir resumes that run in place; rank 0
+        # names a new run and alone writes in it
         if cfg.model.ckpt_path:
             run_path = Path(cfg.model.ckpt_path)
-            self.logger = RunLogger(str(run_path.parent), run_path.name)
+            folder, run_name = str(run_path.parent), run_path.name
         else:
-            run_name = make_run_name(cfg.model.arch, cfg.adv.attack, cfg.model.not_original,
-                                     cfg.model.updated, cfg.logging.addendum)
-            self.logger = RunLogger(cfg.logging.folder, run_name)
-        cfg.dump_params_json(self.logger.dir / "params.json")
-        self.ckpt = CheckpointManager(self.logger.dir, save_freq=cfg.logging.save_freq)
+            folder = cfg.logging.folder
+            run_name = [make_run_name(cfg.model.arch, cfg.adv.attack, cfg.model.not_original,
+                                      cfg.model.updated, cfg.logging.addendum)]
+            if mesh.size > 1:
+                dist.broadcast_object_list(run_name, src=0)
+            run_name = run_name[0]
+        self.logger = RunLogger(folder, run_name, write=self.is_main)
+        if self.is_main:
+            cfg.dump_params_json(self.logger.dir / "params.json")
+        self.ckpt = CheckpointManager(self.logger.dir, save_freq=cfg.logging.save_freq,
+                                      write=self.is_main)
         self.start_epoch = 0
+        par = self.parallel
         init_record = {
             "event": "init", "arch": cfg.model.arch,
-            "params": sum(p.numel() for p in self.model.parameters()),
-            "devices": 1, "device": str(self.device),
+            "params": sum(p.numel() * (tp if n in tp_leaves else 1)
+                          for n, p in self.model.named_parameters()),
+            "devices": mesh.size, "mesh": dict(mesh.shape), "rank": mesh.rank,
+            "tp_sharded_leaves": len(tp_leaves),
+            "fsdp_sharded_leaves": len(par.fsdp_dims) if par is not None else 0,
+            "device": str(self.device),
             "device_name": (torch.cuda.get_device_name(self.device)
                             if self.device.type == "cuda" else "cpu"),
             "iters_per_epoch": self.iters_per_epoch,
@@ -230,34 +296,43 @@ class Trainer:
                          "step": self.state.step})
         return True
 
-    def _to_device(self, images, labels):
-        """A batch (numpy arrays, or the loader's pinned tensors) on the device."""
+    def _put_batch(self, images, labels):
+        """This process's batch (numpy arrays, or the loader's pinned tensors)
+        on its device: each rank feeds its own shard (JAX's _put_batch)."""
         return (torch.as_tensor(images).to(self.device, non_blocking=True),
                 torch.as_tensor(labels).to(self.device, non_blocking=True))
 
+    def _global(self, counts: list[int]) -> list[int]:
+        """Counts summed over the batch shards (JAX sums over the global batch)."""
+        return self.parallel.sum(counts) if self.parallel is not None else counts
+
     def single_val(self) -> tuple[float, int]:
-        """Clean top-1 accuracy over at most validation.max_batches batches."""
+        """Clean top-1 accuracy over at most validation.max_batches batches
+        (of every shard: `correct` and `total` are global)."""
         if self.val_model is not self.model:
             self.val_model.load_state_dict(self.model.state_dict())
         correct = correct5 = total = 0
         for i, (images, labels) in enumerate(self.val_data):
-            top1, top5 = self.eval_step(*self._to_device(images, labels))
+            top1, top5 = self.eval_step(*self._put_batch(images, labels))
             correct += int(top1)
             correct5 += int(top5)
             total += labels.shape[0]
             if i + 1 >= self.cfg.validation.max_batches:
                 break
+        correct, correct5, total = self._global([correct, correct5, total])
         self._last_top5 = correct5 / max(total, 1)
         return correct / max(total, 1), total
 
     def adv_val(self) -> tuple[float, int]:
-        """APGD-CE robust accuracy over validation.adv_val_batches val batches."""
+        """APGD-CE robust accuracy over validation.adv_val_batches val batches
+        (of every shard)."""
         correct = total = 0
         for i, (images, labels) in enumerate(self.val_data):
-            correct += int(self.adv_eval_step(*self._to_device(images, labels)))
+            correct += int(self.adv_eval_step(*self._put_batch(images, labels)))
             total += labels.shape[0]
             if i + 1 >= self.cfg.validation.adv_val_batches:
                 break
+        correct, total = self._global([correct, total])
         return correct / max(total, 1), total
 
     def _start_trace(self):
@@ -287,7 +362,9 @@ class Trainer:
         are traced (step 0 builds and warms up, as JAX's compiles)."""
         losses = []
         log_every = int(self.cfg.logging.log_every_steps)
-        profile_steps = self.cfg.misc.profile_steps if epoch == self.start_epoch else 0
+        # rank 0 traces
+        profile_steps = (self.cfg.misc.profile_steps
+                         if epoch == self.start_epoch and self.is_main else 0)
         prof = None
         window_t0 = time.time()
         waits, ix = [], -1
@@ -305,7 +382,7 @@ class Trainer:
                 self._stop_trace(prof)
                 prof = None
             images, labels = batch
-            metrics = self.train_step(self.state, *self._to_device(images, labels))
+            metrics = self.train_step(self.state, *self._put_batch(images, labels))
             losses.append(metrics["loss"])
             if log_every and (ix + 1) % log_every == 0:
                 now = time.time()
@@ -313,7 +390,8 @@ class Trainer:
                     "event": "step", "epoch": epoch, "step": self.state.step,
                     "loss": float(metrics["loss"]),
                     "lr": self.lr_schedule(self.state.step // self.accum),
-                    "imgs_per_s": log_every * labels.shape[0] / max(now - window_t0, 1e-9),
+                    "imgs_per_s": (log_every * labels.shape[0] * self.mesh.batch_count
+                                   / max(now - window_t0, 1e-9)),
                     "data_wait": sum(waits[-log_every:]),
                 })
                 window_t0 = time.time()
@@ -336,6 +414,8 @@ class Trainer:
                 self.logger.log({"event": "resolution_change", "res": res})
                 self.train_data = self.train_data_factory(res)
                 self.res = res
+            if hasattr(self.train_data, "set_epoch"):  # the folder loader's shuffle
+                self.train_data.set_epoch(epoch)
             t0 = time.time()
             train_loss, waits = self.train_loop(epoch)
             if self.device.type == "cuda":

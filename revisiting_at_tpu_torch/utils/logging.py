@@ -11,11 +11,14 @@ from pathlib import Path
 
 
 class RunLogger:
-    """Appends JSON records to <folder>/<run_name>/log and prints them."""
+    """Appends JSON records to <folder>/<run_name>/log and prints them; with
+    write=False (a rank other than 0 of a distributed run) it only prints."""
 
-    def __init__(self, folder: str, run_name: str):
+    def __init__(self, folder: str, run_name: str, write: bool = True):
         self.dir = Path(folder) / run_name
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.write = write
+        if write:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.log_path = self.dir / "log"
         self.start_time = time.time()
 
@@ -23,8 +26,9 @@ class RunLogger:
         cur_time = time.time()
         entry = {"timestamp": cur_time, "relative_time": cur_time - self.start_time, **content}
         line = json.dumps(entry, default=str)
-        with open(self.log_path, "a") as f:
-            f.write(line + "\n")
+        if self.write:
+            with open(self.log_path, "a") as f:
+                f.write(line + "\n")
         print(line, flush=True)
 
 

@@ -213,17 +213,21 @@ def jax_mixup_key(seed, step):
     return jax_step_key(seed, step, 0)
 
 
+def jax_mixup_draws_of_key(key, cfg, h, w):
+    """The MixupDraws of JAX's mixup_cutmix(key, ...) on h x w images."""
+    k_apply, k_switch, k_lam_m, k_lam_c, k_box = jax.random.split(key, 5)
+    ky, kx = jax.random.split(k_box)
+    return MixupDraws(
+        float(jax.random.uniform(k_apply)), float(jax.random.uniform(k_switch)),
+        float(jax.random.beta(k_lam_m, cfg.mixup_alpha, cfg.mixup_alpha)),
+        float(jax.random.beta(k_lam_c, cfg.cutmix_alpha, cfg.cutmix_alpha)),
+        int(jax.random.randint(ky, (), 0, h)), int(jax.random.randint(kx, (), 0, w)))
+
+
 def jax_mixup_draws(seed, cfg):
     """mixup_draws(step, h, w) replaying the JAX step's draws."""
     def draws(step, h, w):
-        k_apply, k_switch, k_lam_m, k_lam_c, k_box = jax.random.split(jax_mixup_key(seed, step),
-                                                                      5)
-        ky, kx = jax.random.split(k_box)
-        return MixupDraws(
-            float(jax.random.uniform(k_apply)), float(jax.random.uniform(k_switch)),
-            float(jax.random.beta(k_lam_m, cfg.mixup_alpha, cfg.mixup_alpha)),
-            float(jax.random.beta(k_lam_c, cfg.cutmix_alpha, cfg.cutmix_alpha)),
-            int(jax.random.randint(ky, (), 0, h)), int(jax.random.randint(kx, (), 0, w)))
+        return jax_mixup_draws_of_key(jax_mixup_key(seed, step), cfg, h, w)
     return draws
 
 

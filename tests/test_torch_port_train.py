@@ -432,10 +432,11 @@ def test_train_cli_end_to_end_on_cpu(tmp_path):
     (["--data.augmentations", "1", "--data.dataset", "folder", "--data.train_dataset",
       "/nonexistent"], FileNotFoundError),
     (["--data.dataset", "folder"], SystemExit),
-    (["--dist.fsdp", "2"], NotImplementedError),
-    (["--dist.multihost", "1"], NotImplementedError),
+    # one process: JAX's mesh check (data * fsdp * model = the world) fails
+    (["--dist.fsdp", "2"], AssertionError),
+    (["--dist.tp", "2", "--training.use_pallas", "0"], AssertionError),
     (["--model.pretrained", "1"], ValueError),  # JAX's: no model.pretrained_path
-    (["--dist.tp", "2"], NotImplementedError),
+    (["--dist.tp", "2"], ValueError),  # JAX's: tensor parallelism with use_pallas=1
     (["--adv.attack", "pgd"], ValueError),
     (["--training.batch_size"], ValueError),
 ])

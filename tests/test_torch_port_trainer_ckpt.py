@@ -578,12 +578,3 @@ def test_runner_over_a_port_run_and_a_jax_run(root, jax_runs, capfd):
     out = capfd.readouterr().out
     assert out.count("-> exit 0") == 2
     assert out.count("weights: ckpt epoch 1 (EMA)") == 2
-
-
-@pytest.mark.parametrize("extra,item", [
-    (["--dist.fsdp", "2"], "A11"),
-    (["--dist.world_size", "2"], "A11"),
-])
-def test_unported_options_still_name_their_item(tmp_path, extra, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train_cli.main(_argv(extra) + ["--logging.folder", str(tmp_path)])
