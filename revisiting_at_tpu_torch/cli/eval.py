@@ -202,7 +202,7 @@ def _evaluate(args, norms, epss, device, mesh) -> dict:
     from ..evals import (EPS_DICT, SHORT_ATTACKS, STANDARD_ATTACKS, AutoAttack, AutoAttackConfig,
                          global_robust_accuracy, shard_for_process)
     from ..models import get_model, resize_vit_pos_embed
-    from ..parallel.tp import apply_tensor_parallel, tp_sharded_leaf_count
+    from ..parallel.tp import apply_tensor_parallel
     from ..train.train_step import input_grad_view
     from ..utils.logging import EvalLogger
 
@@ -231,9 +231,7 @@ def _evaluate(args, norms, epss, device, mesh) -> dict:
         sd = resize_vit_pos_embed(sd, args.img_size, meta.patch_size)
     load_state_dict(model, sd)
     if args.tp > 1:
-        n_tp = tp_sharded_leaf_count(apply_tensor_parallel(model, mesh,
-                                                           param_layout(cfg.model.arch)))
-        if n_tp == 0:
+        if not apply_tensor_parallel(model, mesh, param_layout(cfg.model.arch)):
             raise AssertionError(f"--tp {args.tp}: no param matched the TP rules for this arch")
     model = model.to(device).eval().requires_grad_(False)
     # every eval attack differentiates w.r.t. the input only

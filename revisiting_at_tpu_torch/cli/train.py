@@ -89,7 +89,6 @@ def main(argv=None):
 
     from ..config import config_from_args
     from ..parallel.mesh import batch_shard, init_distributed
-    from ..parallel.tp import TP_REQUIRES_PLAIN
     from ..train.trainer import Trainer
 
     cfg = config_from_args(rest)
@@ -97,8 +96,6 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but CUDA is not available (pass --device cpu "
                          "to train on the CPU)")
-    if cfg.dist.tp > 1 and cfg.training.use_pallas:
-        raise ValueError(TP_REQUIRES_PLAIN)
     if cfg.data.dataset == "folder" and not cfg.data.train_dataset:
         raise SystemExit("data.dataset=folder needs data.train_dataset (an ImageFolder "
                          "root); pass --data.dataset synthetic to train on random images")

@@ -268,14 +268,17 @@ class _Source(torch.utils.data.Dataset):
 
 class _EpochBatches:
     """Batches of (epoch, index, resolution) keys; each pass is the next
-    epoch, shuffled from (seed, epoch) on train."""
+    epoch, shuffled from (seed, epoch) on train. With drop_remainder a pass
+    is `full` batches: every process of a sharded folder takes the same
+    count, the JAX one, len(all files) // (batch_size * process_count), so
+    their steps and LR schedules agree where the shards' sizes differ."""
 
-    def __init__(self, n: int, cfg: FolderConfig):
-        self.n, self.cfg, self.epoch, self.resolution = n, cfg, 0, cfg.resolution
+    def __init__(self, n: int, cfg: FolderConfig, full: int):
+        self.n, self.cfg, self.full = n, cfg, full
+        self.epoch, self.resolution = 0, cfg.resolution
 
     def __len__(self):
-        b = self.cfg.batch_size
-        return self.n // b if self.cfg.drop_remainder else -(-self.n // b)
+        return self.full if self.cfg.drop_remainder else -(-self.n // self.cfg.batch_size)
 
     def __iter__(self):
         epoch, b = self.epoch, self.cfg.batch_size
@@ -334,6 +337,7 @@ class FolderLoader:
             files, labels = [files[i] for i in order], [labels[i] for i in order]
         if cfg.subset_size > 0:
             files, labels = files[: cfg.subset_size], labels[: cfg.subset_size]
+        full = len(files) // (cfg.batch_size * process_count)
         files = files[process_index::process_count]
         labels = labels[process_index::process_count]
         if not files:
@@ -348,7 +352,7 @@ class FolderLoader:
                     lambda f: eval_transform(decode(f), cfg.resolution, cfg.crop_pct))
             with ThreadPoolExecutor(max(cfg.num_parallel, 1)) as ex:
                 cache = list(ex.map(fill, files))
-        self.batches = _EpochBatches(len(files), cfg)
+        self.batches = _EpochBatches(len(files), cfg, full)
         workers = 0 if self.cached else cfg.num_parallel
         self.num_workers = workers
         self._loader = torch.utils.data.DataLoader(

@@ -86,12 +86,6 @@ def tp_dims(model: nn.Module, layout: str, tp: int) -> dict[str, int]:
     return out
 
 
-def tp_sharded_leaf_count(dims: dict[str, int]) -> int:
-    """Leaves actually sharded over "model": callers require > 0, so that a
-    rule or path drift cannot silently degrade TP to replication."""
-    return len(dims)
-
-
 def _mlp_layers(block: nn.Module):
     """The (fc1, fc2) Linears of a block MLP (timm's mlp.fc1/fc2, or Meta's
     pwconv1/pwconv2), or None."""

@@ -102,8 +102,7 @@ class ParallelModel:
 
     def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """A whole tensor of parameter `name` cut to this rank's master layout."""
-        if name in self.tp_dims:
-            t = t.chunk(self.mesh.shape["model"], self.tp_dims[name])[self.mesh.coords["model"]]
+        t = self.model_local(name, t)
         if name in self.fsdp_dims:
             t = t.chunk(self.mesh.shape["fsdp"], self.fsdp_dims[name])[self.mesh.coords["fsdp"]]
         return t.contiguous()

@@ -24,8 +24,8 @@ step is JAX's shard_map step (train_step.py:110-141, 231-321), with
 use_pallas 0 and 1 alike: each rank augments, attacks and trains on its
 batch shard; the mixup draws are shared by every rank (one lambda and box,
 the partner within the shard), while the augmentation, erasing, DropPath
-and FGSM streams fold in the rank's batch shard (JAX's fold_in of
-axis_index), so an injected draw function is this rank's; the BatchNorm
+and FGSM streams are those of shard_seed(seed, batch shard) (JAX's fold_in
+of axis_index), and an injected draw function is this rank's; the BatchNorm
 statistics are averaged over the shards after the training forward, the
 gradient after the backward (grad_norm is the averaged gradient's), and
 loss, train_acc and adv_acc before they are returned. Under JAX's trainer
@@ -137,11 +137,18 @@ class AdvConfig:
     loss: str = "ce"
 
 
-def step_seed(seed: int, step: int, stream: int, rank: int = 0) -> int:
+def step_seed(seed: int, step: int, stream: int) -> int:
     """Seed of one random stream (1: mixup, 2: DropPath, 3: FGSM's start,
-    4: the augmentation draws, 5: the erasing noise) at one step, for the
-    batch shard `rank` (0: the single process's streams)."""
-    return (seed * 1_000_003 + step * 8 + stream + rank * 0x9E3779B97F4A7C15) % (2 ** 63 - 1)
+    4: the augmentation draws, 5: the erasing noise) at one step."""
+    return (seed * 1_000_003 + step * 8 + stream) % (2 ** 63 - 1)
+
+
+def shard_seed(seed: int, rank: int) -> int:
+    """The seed of batch shard `rank`'s own streams (DropPath, FGSM's start,
+    the augmentation draws, the erasing noise), JAX's fold_in of axis_index:
+    a single process seeded with it draws what rank `rank` draws. Rank 0
+    keeps `seed`."""
+    return (seed + rank * 0x9E3779B97F4A7C15) % (2 ** 63 - 1)
 
 
 def make_train_step(
@@ -176,7 +183,7 @@ def make_train_step(
 
     def step_fn(state: TrainState, images: torch.Tensor, labels: torch.Tensor):
         m, par = state.model, state.parallel
-        rank = par.mesh.batch_rank if par is not None else 0  # the per-shard streams' rank
+        own = shard_seed(seed, par.mesh.batch_rank) if par is not None else seed
         images = to_unit_pixels(images)
         labels = labels.long()
         targets = labels
@@ -185,10 +192,10 @@ def make_train_step(
             if augment_draws is not None:
                 draws = augment_draws(state.step, b, h, w)
             else:
-                gen = torch.Generator().manual_seed(step_seed(seed, state.step, 4, rank))
+                gen = torch.Generator().manual_seed(step_seed(own, state.step, 4))
                 draws = draw_augment(gen, b, h, w, randaug)
             noise_gen = torch.Generator(device=images.device).manual_seed(
-                step_seed(seed, state.step, 5, rank))
+                step_seed(own, state.step, 5))
             with torch.profiler.record_function("augment"):  # a profiler span, free when off
                 images = augment_batch(images, draws, randaug, generator=noise_gen)
         if mixup is not None:
@@ -213,7 +220,7 @@ def make_train_step(
             gen = None
             if noise is None:
                 gen = torch.Generator(device=images.device).manual_seed(
-                    step_seed(seed, state.step, 3, rank))
+                    step_seed(own, state.step, 3))
             with attack_grad_mode(m):
                 x_use = fgsm_train(m, images, targets, eps=adv.eps, noise=noise, generator=gen,
                                    loss=adv.loss, alpha=adv.alpha, use_rs=True,
@@ -225,7 +232,7 @@ def make_train_step(
         m.train()
         if hasattr(core, "drop_generator"):
             core.drop_generator = torch.Generator(device=images.device).manual_seed(
-                step_seed(seed, state.step, 2, rank))
+                step_seed(own, state.step, 2))
         logits = m(x_use)
         if par is not None:
             par.average_stats()  # before the EMA takes them

@@ -81,8 +81,7 @@ from ..data.mixup import MixupConfig
 from ..data.synthetic import SyntheticData
 from ..models import get_model
 from ..parallel.mesh import MeshConfig, init_distributed, make_mesh
-from ..parallel.tp import (TP_REQUIRES_PLAIN, apply_tensor_parallel, tp_dims,
-                           tp_sharded_leaf_count)
+from ..parallel.tp import TP_REQUIRES_PLAIN, apply_tensor_parallel
 from ..parallel.zero import ParallelModel
 from ..utils.flops import CONVENTION, forward_flops
 from ..utils.logging import RunLogger, make_run_name
@@ -179,15 +178,15 @@ class Trainer:
                              f"{cfg.validation.resolution} != resolution.max_res "
                              f"{cfg.resolution.max_res}: a ViT's pos_embed fixes its image size")
         layout = param_layout(cfg.model.arch)
-        if tp > 1 and tp_sharded_leaf_count(tp_dims(self.model, layout, tp)) == 0:
-            raise AssertionError(f"dist.tp={tp} but no param matched the TP rules for arch "
-                                 f"{cfg.model.arch!r} (parallel/tp.py TP_RULES)")
         self.model.to(self.device)
         if mesh.size > 1:  # every rank starts from rank 0's weights and statistics
             with torch.no_grad():
                 for tensor in list(self.model.parameters()) + list(self.model.buffers()):
                     dist.broadcast(tensor.data, src=0)
         tp_leaves = apply_tensor_parallel(self.model, mesh, layout)
+        if tp > 1 and not tp_leaves:  # a rule or path drift must not degrade TP to replication
+            raise AssertionError(f"dist.tp={tp} but no param matched the TP rules for arch "
+                                 f"{cfg.model.arch!r} (parallel/tp.py TP_RULES)")
         # the f32 validation twin (validation.precision=fp32) shares the weights
         self.val_model = self.model
         if cfg.validation.precision == "fp32" and t.precision != "fp32":

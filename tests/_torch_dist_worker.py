@@ -12,7 +12,9 @@ Usage: python tests/_torch_dist_worker.py <case> <spec.pt> <out.pt>
   step      a mesh, the model sharded over it, `steps` train steps on this
             rank's batch shard; rank 0 writes the metrics, the whole
             parameters, statistics and EMA (and eval logits before the
-            first step, with `logits`)
+            first step, with `logits`); DropPath with `drop_path`, the
+            augmentations with `augment`, mixup from the step's own
+            stream with `mixup` (JAX's draws with `mixup_draws`)
   cli_train cli.train.main(spec["argv"]); each rank writes out.pt.<rank>
   cli_eval  cli.eval.main(spec["argv"]); each rank writes out.pt.<rank>
 """
@@ -36,7 +38,8 @@ def _model(spec):
     else:
         model, meta = get_model(spec["arch"], not_original=spec["not_original"],
                                 num_classes=spec["num_classes"], dtype=torch.float32,
-                                use_pallas=spec["use_pallas"], img_size=32)
+                                use_pallas=spec["use_pallas"], img_size=32,
+                                drop_path_rate=spec.get("drop_path", 0.0))
         family, layout = meta.family, param_layout(spec["arch"])
     load_state_dict(model, spec["sd"])
     return model, family, layout
@@ -44,7 +47,7 @@ def _model(spec):
 
 def step(spec):
     from revisiting_at_tpu_torch.config import DistSection
-    from revisiting_at_tpu_torch.data import MixupConfig
+    from revisiting_at_tpu_torch.data import MixupConfig, RandAugmentConfig
     from revisiting_at_tpu_torch.parallel.mesh import MeshConfig, init_distributed, make_mesh
     from revisiting_at_tpu_torch.parallel.tp import apply_tensor_parallel
     from revisiting_at_tpu_torch.parallel.zero import ParallelModel
@@ -65,9 +68,11 @@ def step(spec):
                          grad_accum=spec.get("grad_accum", 1), params=master)
     state = TrainState(model, opt, ema_init(model, master), parallel=par)
     draws = spec.get("mixup_draws")
-    mixup = MixupConfig(num_classes=spec["num_classes"]) if draws is not None else None
+    mixup = (MixupConfig(num_classes=spec["num_classes"])
+             if draws is not None or spec.get("mixup") else None)
     train_step = make_train_step(model, adv=AdvConfig(attack=spec.get("attack", "apgd"),
                                                       n_iter=2), mixup=mixup,
+                                 randaug=RandAugmentConfig() if spec.get("augment") else None,
                                  ema_decay=spec["ema"], seed=0,
                                  mixup_draws=(lambda s, h, w: draws[s]) if draws else None)
     images, labels = torch.from_numpy(spec["images"]), torch.from_numpy(spec["labels"])
@@ -127,6 +132,8 @@ def cli(spec, which):
     if which == "cli_train":
         out = {"dir": str(res.logger.dir), "write": res.logger.write,
                "mesh": dict(res.mesh.shape), "step": res.state.step,
+               "iters": res.iters_per_epoch, "lr": [res.lr_schedule(s) for s in range(4)],
+               "weights": torch.cat([p.detach().reshape(-1) for p in res.model.parameters()]),
                "files": [list(map(str, getattr(res.train_data, "_loader").dataset.files))]
                if hasattr(res.train_data, "_loader") else None}
     else:

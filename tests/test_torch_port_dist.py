@@ -14,6 +14,9 @@ stream shared by the shards: fold_in(fold_in(PRNGKey(seed), step), 1)).
     equals JAX's make_train_step(..., mesh=<2 devices>) and not the
     global-batch step JAX's trainer would auto-partition (its mixup partner
     crosses the shards);
+  * the per-shard streams that no JAX draw replaces (augmentation,
+    erasing, FGSM's start, DropPath): rank r's are a single process's
+    seeded with shard_seed(0, r), mixup's seed 0's on every rank;
   * the BatchNorm statistics average: tests/test_torch_port_bn.py's small
     ResNet, one SGD step with the statistics and their EMA, JAX in f64 (see
     that file for why);
@@ -40,13 +43,14 @@ programs compile in half the time; the attack on gathered or split weights
 runs on the card, chip_smoke.py phase 20, against one process); the DDP
 and C25 steps run 2-step APGD.
 
-CPU time: about 170 s in one process here, most of it JAX compiling six
-programs (15-40 s each; interpret mode for the kernel path); each case
-also starts two ranks (about 2-4 s each).
+CPU time: about 100 s in one process here (8 cores, JAX's compile cache
+warm), most of it JAX compiling six programs (interpret mode for the
+kernel path); each case's two ranks run while JAX builds its reference.
 """
 
 import os
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -87,6 +91,7 @@ from test_torch_port_bn import bn_variables
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "_torch_dist_worker.py")
+_RANKS = ThreadPoolExecutor(1)
 LR = dict(lr=2e-3, schedule_type="cosine", lr_peak_epoch=1, epochs=3)  # 2e-7, 1e-3, 2e-3
 WD, EMA = 0.5, 0.5
 # AdamW's update is about LR * sign(m / sqrt(v)): an averaged-gradient
@@ -110,6 +115,12 @@ def run_workers(tmp_path, case, spec, timeout=240):
     return [torch.load(f"{out}.{r}", weights_only=False) for r in range(2)]
 
 
+def start_workers(tmp_path, case, spec, timeout=240):
+    """run_workers in a thread: the two ranks run while this process builds
+    the reference; .result() waits for them (and raises their failure)."""
+    return _RANKS.submit(run_workers, tmp_path, case, spec, timeout)
+
+
 def _batch(n=8, img=32):
     return images(n=n, img=img, seed=3), np.random.RandomState(4).randint(0, NCLS, n).astype(
         np.int32)
@@ -128,15 +139,14 @@ def _shard_mixup_draws(steps, h=32, w=32):
         for s in range(steps)]
 
 
-def _jax_convnext_run(mesh, *, use_pallas, steps, accum=1, arch="convnext_micro",
+def _jax_convnext_run(mesh, params, *, use_pallas, steps, accum=1, arch="convnext_micro",
                       state_specs=False, tp=False, attack="apgd"):
-    """JAX's step on `mesh` (shard_map unless tp: then auto-partitioned over
-    tp_tree_shardings, as its trainer runs dist.tp): per step the metrics,
-    then the params and EMA as port state_dicts."""
+    """JAX's step on `mesh` from `params` (shard_map unless tp: then
+    auto-partitioned over tp_tree_shardings, as its trainer runs dist.tp):
+    per step the metrics, then the params and EMA as port state_dicts."""
     jm, _ = jax_get_model(arch, not_original=True, num_classes=NCLS, dtype=jnp.float32,
                           use_pallas=use_pallas, pallas_interpret=use_pallas,
                           tp_attn=2 if tp else 0)
-    params = jax_params(arch, True, 32, 0)
     family = "vit" if arch.startswith("vit") else "convnext"
     tx = jopt.make_optimizer(optimizer="adamw", weight_decay=WD, family=family,
                              learning_rate=jsched.make_lr_schedule(jsched.LRConfig(**LR), 2),
@@ -161,7 +171,7 @@ def _jax_convnext_run(mesh, *, use_pallas, steps, accum=1, arch="convnext_micro"
     for _ in range(steps):
         state, metrics = step(state, jnp.asarray(x), jnp.asarray(y))
         out.append({k: float(v) for k, v in metrics.items()})
-    return (out, _sd(state.params, arch), _sd(state.ema_params, arch), params,
+    return (out, _sd(state.params, arch), _sd(state.ema_params, arch),
             specs.params if specs is not None else None)
 
 
@@ -199,9 +209,11 @@ def _step_spec(params, *, use_pallas, steps, draws, arch="convnext_micro", **kw)
 def test_ddp_step_matches_jax_shard_map(tmp_path):
     """data = 2 on the kernel path (use_pallas=1; JAX interpreted), 2 steps."""
     mesh = jax_make_mesh(JaxMeshConfig(data=2), devices=jax.devices()[:2])
-    metrics, ref_p, ref_e, params, _ = _jax_convnext_run(mesh, use_pallas=True, steps=2)
-    got = run_workers(tmp_path, "step", _step_spec(params, use_pallas=True, steps=2,
-                                                   draws=_shard_mixup_draws(2)))
+    params = jax_params("convnext_micro", True, 32, 0)
+    ranks = start_workers(tmp_path, "step", _step_spec(params, use_pallas=True, steps=2,
+                                                       draws=_shard_mixup_draws(2)))
+    metrics, ref_p, ref_e, _ = _jax_convnext_run(mesh, params, use_pallas=True, steps=2)
+    got = ranks.result()
     assert got["fsdp_leaves"] == 0 and got["tp_leaves"] == 0
     assert _mismatches(got, metrics, ref_p, ref_e, flips=ADAM_FLIPS,
                        flip_tol=ADAM_FLIP_TOL) == []
@@ -219,11 +231,13 @@ def test_c25_use_pallas0_step_is_shard_local_with_grad_accum(tmp_path):
     (the port's single-process step, which tests/test_torch_port_train.py
     holds to JAX's mesh=None step) gives another loss."""
     mesh = jax_make_mesh(JaxMeshConfig(data=2), devices=jax.devices()[:2])
-    metrics, ref_p, ref_e, params, _ = _jax_convnext_run(mesh, use_pallas=False, steps=2,
-                                                         accum=2)
+    params = jax_params("convnext_micro", True, 32, 0)
     draws = _shard_mixup_draws(2)
-    got = run_workers(tmp_path, "step", _step_spec(params, use_pallas=False, steps=2,
-                                                   draws=draws, grad_accum=2))
+    ranks = start_workers(tmp_path, "step", _step_spec(params, use_pallas=False, steps=2,
+                                                       draws=draws, grad_accum=2))
+    metrics, ref_p, ref_e, _ = _jax_convnext_run(mesh, params, use_pallas=False, steps=2,
+                                                 accum=2)
+    got = ranks.result()
     assert _mismatches(got, metrics, ref_p, ref_e, flips=ADAM_FLIPS,
                        flip_tol=ADAM_FLIP_TOL) == []
     model, _ = get_model("convnext_micro", not_original=True, num_classes=NCLS,
@@ -238,6 +252,68 @@ def test_c25_use_pallas0_step_is_shard_local_with_grad_accum(tmp_path):
     whole = step(TrainState(model, opt, ema_init(model)), torch.from_numpy(x),
                  torch.from_numpy(y))
     assert abs(float(whole["loss"]) - got["metrics"][0]["loss"]) > 1e-3
+
+
+# ------------------------------------------------- per-shard streams
+
+def test_shard_streams_are_single_process_streams_of_the_shard_seed(tmp_path):
+    """The streams of a world-2 step that no JAX draw replaces: RandAugment
+    and erasing, FGSM's random start and DropPath (rate 0.3), drawn by each
+    rank from shard_seed(seed, rank), and mixup from the seed's own stream,
+    shared. Rank r's shard goes through what a single process seeded with
+    shard_seed(0, r) does on it (its mixup draws seed 0's): one SGD step
+    (no weight decay, first step: p - LR g) gives the mean of the two
+    single-process losses and accuracies and the mean of their parameters,
+    within f32 rounding (1e-6). Shard 1 under seed 0's streams, what a rank
+    that drew the single process's streams would do, gives another loss."""
+    from revisiting_at_tpu_torch.data import RandAugmentConfig, draw_mixup
+    from revisiting_at_tpu_torch.ckpt.convert import load_state_dict as load_sd
+    from revisiting_at_tpu_torch.train.train_step import shard_seed, step_seed
+
+    def build():
+        torch.manual_seed(0)
+        model, _ = get_model("convnext_micro", not_original=True, num_classes=NCLS,
+                             dtype=torch.float32, use_pallas=True, img_size=32,
+                             drop_path_rate=0.3)
+        for blk in (b for st in model.stages for b in st.blocks):
+            torch.nn.init.uniform_(blk.gamma, 0.1, 1.0)  # the block MLPs' gradients not ~0
+        return model
+
+    sd = {k: v.clone() for k, v in build().state_dict().items()}
+    x, y = _batch()
+    spec = dict(arch="convnext_micro", not_original=True, num_classes=NCLS, use_pallas=True,
+                sd=sd, optimizer="sgd", wd=0.0, lr=0.1, ema=0.0, steps=1, images=x, labels=y,
+                mixup_draws=None, mixup=True, attack="fgsm", drop_path=0.3, augment=True)
+    ranks = start_workers(tmp_path, "step", spec)
+    cfg = MixupConfig(num_classes=NCLS)
+
+    def single(r, seed):
+        model = build()
+        load_sd(model, sd)
+        opt = make_optimizer(model, optimizer="sgd", weight_decay=0.0, momentum=0.9,
+                             learning_rate=0.1)
+        step = make_train_step(
+            model, adv=AdvConfig(attack="fgsm", n_iter=2), mixup=cfg,
+            randaug=RandAugmentConfig(), seed=seed,
+            mixup_draws=lambda s, h, w: draw_mixup(
+                torch.Generator().manual_seed(step_seed(0, s, 1)), h, w, cfg))
+        m = step(TrainState(model, opt, None), torch.from_numpy(x[r * 4:(r + 1) * 4]),
+                 torch.from_numpy(y[r * 4:(r + 1) * 4]))
+        return {k: float(v) for k, v in m.items()}, model.state_dict()
+
+    runs = [single(r, shard_seed(0, r)) for r in range(2)]
+    shared, _ = single(1, 0)
+    got = ranks.result()
+    assert shard_seed(0, 0) == 0 and shard_seed(0, 1) != 0
+    for k in ("loss", "train_acc", "adv_acc"):
+        mean = (runs[0][0][k] + runs[1][0][k]) / 2
+        assert abs(got["metrics"][0][k] - mean) <= 1e-6 * max(abs(mean), 1.0), k
+    for k, v in got["params"].items():
+        ref = (runs[0][1][k] + runs[1][1][k]) / 2
+        assert float((v - ref).abs().max()) <= 1e-6, k
+    w = "stages.2.blocks.0.mlp.fc1.weight"  # the weights moved
+    assert float((got["params"][w] - sd[w]).abs().max()) > 1e-4
+    assert abs(shared["loss"] - runs[1][0]["loss"]) > 1e-3
 
 
 # ------------------------------------------------------ BatchNorm stats
@@ -255,6 +331,10 @@ def test_bn_statistics_average_matches_jax(tmp_path):
     params, stats = bn_variables("resnet", seed=1)
     x, y = _batch(8, 64)
     y = np.array([2, 2, 2, 4, 1, 2, 3, 4], np.int32)
+    ranks = start_workers(tmp_path, "step", dict(
+        arch="resnet_small", num_classes=NCLS, sd=_sd(params, "resnet50", stats),
+        optimizer="sgd", wd=0.5, lr=0.1, ema=0.5, steps=1, images=x, labels=y,
+        mixup_draws=None, attack="none"))
     with jax.enable_x64(True):
         jm = JaxResNet(stage_sizes=(1, 1, 1, 1), num_classes=NCLS, dtype=jnp.float64)
         p64, s64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), (params, stats))
@@ -271,10 +351,7 @@ def test_bn_statistics_average_matches_jax(tmp_path):
         ref = ([{k: float(v) for k, v in metrics.items()}],
                _sd(state.params, "resnet50", state.batch_stats),
                _sd(state.ema_params, "resnet50", state.ema_batch_stats))
-    spec = dict(arch="resnet_small", num_classes=NCLS, sd=_sd(params, "resnet50", stats),
-                optimizer="sgd", wd=0.5, lr=0.1, ema=0.5, steps=1, images=x, labels=y,
-                mixup_draws=None, attack="none")
-    got = run_workers(tmp_path, "step", spec)
+    got = ranks.result()
     ref_p = {k: v for k, v in ref[1].items() if not k.endswith("num_batches_tracked")}
     ref_e = {k: v for k, v in ref[2].items() if not k.endswith("num_batches_tracked")}
     assert _mismatches(got, ref[0], ref_p, ref_e) == []
@@ -290,13 +367,15 @@ def test_fsdp_step_matches_jax_shard_map(tmp_path):
     _fsdp_spec rule, params all-gathered inside the loss, psum_scatter'd
     gradients, sharded AdamW moments and EMA) against the port's slices."""
     mesh = jax_make_mesh(JaxMeshConfig(data=1, fsdp=2), devices=jax.devices()[:2])
-    metrics, ref_p, ref_e, params, specs = _jax_convnext_run(mesh, use_pallas=False, steps=2,
-                                                             state_specs=True, attack="none")
+    params = jax_params("convnext_micro", True, 32, 0)
+    ranks = start_workers(tmp_path, "step", _step_spec(params, use_pallas=False, steps=2,
+                                                       draws=_shard_mixup_draws(2), fsdp=2,
+                                                       attack="none"))
+    metrics, ref_p, ref_e, specs = _jax_convnext_run(mesh, params, use_pallas=False, steps=2,
+                                                     state_specs=True, attack="none")
     n_jax = sum(s != jax.sharding.PartitionSpec() for s in jax.tree.leaves(
         specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec)))
-    got = run_workers(tmp_path, "step", _step_spec(params, use_pallas=False, steps=2,
-                                                   draws=_shard_mixup_draws(2), fsdp=2,
-                                                   attack="none"))
+    got = ranks.result()
     assert got["fsdp_leaves"] == n_jax > 0
     assert _mismatches(got, metrics, ref_p, ref_e, flips=ADAM_FLIPS,
                        flip_tol=ADAM_FLIP_TOL) == []
@@ -331,17 +410,18 @@ def test_tp_logits_and_step_match_jax(tmp_path, arch):
     jm, _ = jax_get_model(arch, not_original=True, num_classes=NCLS, dtype=jnp.float32,
                           tp_attn=2)
     x, _ = _batch(4)
+    ranks = start_workers(tmp_path, "step", _step_spec(
+        params, use_pallas=False, steps=1, arch=arch,
+        draws=[jax_mixup_draws(0, MixupConfig(num_classes=NCLS))(0, 32, 32)], tp=2,
+        logits=True, refuse_no_rule=arch == "convnext_micro", folder=str(tmp_path / "runs"),
+        attack="none"))
     with jax.set_mesh(mesh):
         sharded = jax.device_put(params, tp_tree_shardings(mesh, params))
         logits = np.asarray(jm.apply({"params": sharded}, jnp.asarray(x), train=False))
-        metrics, ref_p, ref_e, _, _ = _jax_convnext_run(mesh, use_pallas=False, steps=1,
-                                                        arch=arch, tp=True, attack="none")
+        metrics, ref_p, ref_e, _ = _jax_convnext_run(mesh, params, use_pallas=False, steps=1,
+                                                     arch=arch, tp=True, attack="none")
     n_jax = jax_tp_count(tp_tree_shardings(mesh, params))
-    spec = _step_spec(params, use_pallas=False, steps=1, arch=arch,
-                      draws=[jax_mixup_draws(0, MixupConfig(num_classes=NCLS))(0, 32, 32)],
-                      tp=2, logits=True, refuse_no_rule=arch == "convnext_micro",
-                      folder=str(tmp_path / "runs"), attack="none")
-    got = run_workers(tmp_path, "step", spec)
+    got = ranks.result()
     assert got["tp_leaves"] == n_jax == (12 if arch == "convnext_micro" else 6)
     assert np.abs(got["logits"] - logits).max() <= 1e-5 * np.abs(logits).max()
     assert _mismatches(got, metrics, ref_p, ref_e, flips=ADAM_FLIPS,

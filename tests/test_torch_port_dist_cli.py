@@ -7,6 +7,8 @@ single-process runs, which the other test files hold to JAX:
     partition the files; rank 0 alone writes the run (one run dir, one
     log, the checkpoints); a world-2 resume from epoch 0 gives epoch 1's
     full state bit for bit; the single-process `cli.eval` reads the run;
+    on 15 files at batch 4 (shards of 8 and 7) both ranks take JAX's one
+    step an epoch, the same LR schedule and the same weights;
   * `cli.eval --multihost 1` at world 2: both ranks log the same global
     robust accuracy over all points, each rank's per-point result is a
     single-process AutoAttack run on its round-robin shard, and
@@ -17,7 +19,7 @@ Equality, not a tolerance: the same process layout on the same inputs
 runs the same float operations (a resume restores the exact state; a
 rank's shard is attacked as a single process attacks it).
 
-CPU time: about 30 s in one process here (five two-rank runs, 2-4 s of
+CPU time: about 30 s in one process here (six two-rank runs, 2-4 s of
 start-up a rank, and the single-process comparisons).
 """
 
@@ -124,6 +126,26 @@ def test_train_cli_world2_fsdp_writes_once_and_resumes_bit_for_bit(tmp_path):
                          "2", "--batch_size", "2", "--img_size", "32", "--n_iter", "1",
                          "--use_ema", "1", "--use_pallas", "1"])
     assert res["Linf"]["n"] == 2
+
+
+def test_train_cli_world2_uneven_shards_take_the_same_steps(tmp_path):
+    """15 train files over two ranks at batch 4: rank 0's shard holds 8
+    files (two batches), rank 1's 7 (one). Both take JAX's count, 15 // (4
+    * 2) = 1 step an epoch (revisiting_at_tpu/data/folder.py:190), build the
+    same LR schedule and end with the same weights; a rank that took a
+    step more would run a collective the other never joins."""
+    train = make_tree(tmp_path / "train", 8, 0)
+    (train / "n01" / "img_1_7.png").unlink()
+    argv = TRAIN[:TRAIN.index("--dist.fsdp")] + ["--device", "cpu"]  # data = 2
+    argv[argv.index("--training.batch_size") + 1] = "4"
+    argv[argv.index("--training.epochs") + 1] = "1"
+    argv += ["--data.train_dataset", str(train), "--logging.folder", str(tmp_path / "runs")]
+    outs, _ = run_workers(tmp_path, "cli_train", argv, "uneven")
+    assert [len(o["files"][0]) for o in outs] == [8, 7]
+    assert [o["iters"] for o in outs] == [1, 1] and [o["step"] for o in outs] == [1, 1]
+    assert outs[0]["lr"] == outs[1]["lr"]
+    assert torch.equal(outs[0]["weights"], outs[1]["weights"])
+    assert not any(o["pg_left"] for o in outs)
 
 
 @pytest.fixture()
