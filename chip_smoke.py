@@ -11,13 +11,15 @@ Phases, each fatal on failure:
   3. each kernel against its plain PyTorch version, in bf16: the block
      tail's forward and input backward at the four ConvNeXt-T stage shapes
      at batch 32 (stage 3, C = 768, also at batch 80, ragged, in f32 and
-     with a per-sample keep; the first launch of each of its cluster
-     kernels under a watchdog); its full backward (row pass, weight pass,
+     with a per-sample keep); its full backward (row pass, weight pass,
      reductions, and the host recovery of dW2, db2, dgamma) on all nine
      cotangents at stages 0-2 at batch 80 (and C = 768 at batch 80 and
      ragged with a keep); both also at a ragged M, in f32 once, with a
-     per-sample keep once, at the other widths built (ConvNeXt-B/L), at convnext_iso's
-     C = 432 and at the micro models' C = 16, 32, 64; the weight pass with
+     per-sample keep once, at the other widths built (ConvNeXt-B/L), at
+     convnext_iso's C = 432 and ConvNeXt-B's stage-2 C = 512 (196 rows an
+     image: batch 32, the full backward at batch 80, ragged with a keep, f32)
+     and at the micro models' C = 16, 32, 64; the first launch of each
+     cluster kernel (C = 432, 512, 768) under a watchdog; the weight pass with
      its reduction alone, both products, at WGRAD_CASES (the stage shapes, a
      ragged M, ViT-S, C = 432, every other width); the attention forward and
      backward (dq, dk, dv) at ATT_CASES (ViT-S, M and B at batch 80 and 197
@@ -34,9 +36,10 @@ Phases, each fatal on failure:
      a watchdog); each output within its own tolerance (TOL). Two
      launches must give the same bits (every kernel), the full backward's
      row pass must give the input backward's ds bit for bit (stages 0-2
-     at batch 80, C = 768, ragged M with a keep), and six
-     planted faults (one block's partial h left out of the C = 768
-     cluster's exchange, a slice of M left out of dW1, a row group left
+     at batch 80, C = 432, 512 and 768, ragged M with a keep), and seven
+     planted faults (one block's partial h left out of the C = 768 and
+     C = 512 clusters' exchange, the C = 432 forward's LayerNorm statistics taken
+     over its padded 512 columns, a slice of M left out of dW1, a row group left
      out of db1, one zero key past N left unmasked in the attention, a
      dwconv band's top halo row read as zero, one block's partial left out
      of the dwconv's dw) must fail the check;
@@ -167,7 +170,8 @@ Phases, each fatal on failure:
      launch the attention and tail forwards 84 times a step;
  19. the isotropic ConvNeXt, PGD, the wrapped model and the BN family: (a)
      phase 6's step on ConvNeXt-iso-CvSt (convnext_iso, updated=1: C = 432,
-     18 blocks, ConvStem; the tail's WMMA kernels) at 224 px, batch 80, 2
+     18 blocks, ConvStem; the tail's TMA + wgmma kernels in clusters of two
+     blocks on 512's tiling) at 224 px, batch 80, 2
      warm-up steps, then in turns with use_pallas=0 (kernel, plain, plain,
      kernel), the tail's forward, input backward, row pass, weight pass and
      reduction launched 72, 36, 18, 36 and 90 times a step, profiled; one
@@ -191,10 +195,17 @@ Phases, each fatal on failure:
      batch 80 in bf16; `cli.train.main` on
      resnet50 with model.pretrained=1 from a state_dict made here and saved
      to a temporary .pt (4 steps at batch 80), `cli.eval.main --use_ema 1`
-     and `cli.export.main`, whose file must strict-load. The tail's times at
-     the iso shape (M = 196 x 80, C = 432: forward, input backward, full
-     backward) beside their bounds, plain versions and the model path go
-     into the kernels line (`iso432`).
+     and `cli.export.main`, whose file must strict-load; (d) phase 6's step on
+     ConvNeXt-B-CvSt (convnext_base, ConvStem, 88.75 M parameters: stage 2
+     is 27 blocks at C = 512) at 224 px, batch 80, 2 warm-up steps, then in
+     turns with use_pallas=0, the tail's kernels launched 141, 72, 33, 66
+     and 165 times a step, the kernel step profiled; one step against the
+     CPU at batch 2.
+     The tail's times at the iso shape (M = 196 x 80, C = 432) and at
+     ConvNeXt-B's stage 2 (M = 196 x 80, C = 512): forward, input backward,
+     full backward, beside their bounds, plain versions and the model path,
+     go into the kernels line (`iso432`, `c512`), each kernel with its
+     `design` there.
  20. the distributed paths (parallel/): (a) under a one-rank NCCL process
      group, `cli.train.main` on ConvNeXt-T-CvSt (224 px, batch 80,
      use_pallas=1, 4 synthetic batches; the tail's five kernels must
@@ -518,6 +529,28 @@ def planted_fault(what, got, ref, tol) -> None:
         f"tolerance {tol:.1e}): rejected")
 
 
+def padded_ln_forward(torch, bm, d, width):
+    """The forward at d's width C with its LayerNorm statistics taken over
+    `width` columns: the kernel built for `width` on d's inputs padded with
+    zero channels (zero in s, r and the LN and output vectors, zero rows of
+    W1 and columns of W2, and zero hidden units, whose GELU is 0), cut back
+    to C columns. A planted fault of the padded tiling (statistics over the
+    pad)."""
+    import torch.nn.functional as F
+
+    C, pad = d["s"].shape[1], width - d["s"].shape[1]
+    w1 = d["w1"].new_zeros(width, 4 * width)
+    w1[:C, :4 * C] = d["w1"]
+    w2 = d["w2"].new_zeros(4 * width, width)
+    w2[:4 * C, :C] = d["w2"]
+    v = lambda t: F.pad(t, (0, pad))  # noqa: E731
+    y = bm.fwd_cuda(v(d["s"]), v(d["r"]), d["keep"], d["rows"], v(d["ln_g"]), v(d["ln_b"]),
+                    w1.bfloat16(), F.pad(d["b1"], (0, 4 * pad)), w2.bfloat16(), v(d["b2"]),
+                    v(d["gamma"]))
+    torch.cuda.synchronize()
+    return y[:, :C]
+
+
 def counter_modules():
     from revisiting_at_tpu_torch.ops import attention, block_mlp, dwconv
     return {"block_mlp": block_mlp, "attention": attention, "dwconv": dwconv}
@@ -672,6 +705,25 @@ def convnext_t_dwconv(torch, dtype, use_pallas: bool = True):
                     dtype=dtype, use_pallas=use_pallas, use_pallas_dwconv=True)
 
 
+_MODELS: dict = {}  # model_copy's models, one per configuration
+
+
+def model_copy(key, build):
+    """A copy of what build() makes (a model, or a model and its meta), built
+    once per key, on the card: build_train_step loads a state_dict into its
+    model and moves it to its device, so a copy of any model of the
+    configuration serves, and a new one would pay the random init again
+    (on the host, seconds a model: ConvNeXt-B has 88.75 M parameters)."""
+    import copy
+
+    import torch
+
+    if key not in _MODELS:
+        with torch.device("cuda"):
+            _MODELS[key] = build()
+    return copy.deepcopy(_MODELS[key])
+
+
 def build_train_step(torch, state_dict, *, use_pallas: bool, device: str, seed: int,
                      arch: str = "convnext_tiny", dwconv: bool = False,
                      attack: str = "apgd", randaug: bool = False, augment_draws=None,
@@ -698,10 +750,12 @@ def build_train_step(torch, state_dict, *, use_pallas: bool, device: str, seed: 
                                                make_train_step)
 
     if dwconv:
-        model, family = convnext_t_dwconv(torch, torch.bfloat16, use_pallas), "convnext"
+        model, family = model_copy(("dwconv", use_pallas), lambda: convnext_t_dwconv(
+            torch, torch.bfloat16, use_pallas)), "convnext"
     else:
-        model, meta = get_model(arch, not_original=True, dtype=dtype or torch.bfloat16,
-                                use_pallas=use_pallas, remat=remat, updated=updated)
+        model, meta = model_copy((arch, use_pallas, remat, updated, dtype), lambda: get_model(
+            arch, not_original=True, dtype=dtype or torch.bfloat16, use_pallas=use_pallas,
+            remat=remat, updated=updated))
         family = meta.family
     load_state_dict(model, state_dict)
     model.to(device).train()
@@ -2374,6 +2428,69 @@ ISO_PER_STEP = {"block_mlp_fwd": tail_forwards_per_step(18, 18, False),
                 "block_mlp_wgrad": 2 * 18, "block_mlp_reduce": 5 * 18}
 
 
+# ConvNeXt-B-CvSt (phase 19 (d)): depths 3, 3, 27, 3 at C = 128, 256, 512,
+# 1024. All 36 blocks fuse in the attack (input mode through 1024), the 33 of
+# stages 0-2 in training (full mode through 512): stage 2's 27 blocks are the
+# C = 512 cluster kernels
+B_PER_STEP = {"block_mlp_fwd": tail_forwards_per_step(36, 33, False),
+              "block_mlp_bwd_input": ATTACK_ITERS * 36, "block_mlp_bwd_full_rows": 33,
+              "block_mlp_wgrad": 2 * 33, "block_mlp_reduce": 5 * 33}
+
+
+def convnext_b_phase(torch, np, seed, label) -> dict:
+    """Phase 19 (d): phase 6's step on ConvNeXt-B-CvSt (convnext_base,
+    not_original=1, random weights from the seed, LayerScale from U(0.1, 1))
+    at 224 px, batch 80: 2 warm-up steps, then in turns with use_pallas=0,
+    B_PER_STEP's tail launches a step, the kernel step profiled; one step
+    against the CPU at batch 2. Returns the tail's launches per step of the
+    kernel step."""
+    from revisiting_at_tpu_torch.models import get_model
+
+    t0 = time.time()
+    torch.manual_seed(seed)
+    with torch.device("cuda"):  # the random init on the card: seconds on the host
+        model, _ = get_model("convnext_base", not_original=True, dtype=torch.float32)
+    with torch.no_grad():
+        for blk in (b for st in model.stages for b in st.blocks):
+            blk.gamma.uniform_(0.1, 1.0)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    log(f"model: convnext_base + ConvStem, {n_params / 1e6:.2f} M params, seed {seed}")
+    steps = {name: build_train_step(torch, init, use_pallas=name == "kernel", device="cuda",
+                                    seed=seed, arch="convnext_base")
+             for name in ("kernel", "plain")}
+    rng = np.random.RandomState(seed)
+    xb = torch.from_numpy(rng.uniform(0, 1, (TRAIN_BATCH, 224, 224, 3)).astype(np.float32))
+    yb = torch.from_numpy(rng.randint(0, 1000, TRAIN_BATCH))
+    xb, yb = xb.cuda(), yb.cuda()
+    zero_launches()
+    step_ms, losses = steps_in_turns(torch, steps, dict.fromkeys(steps, (xb, yb)),
+                                     ("kernel", "plain", "plain", "kernel"), warm=2)
+    launches = require_launches("the ConvNeXt-B training step (phase 19 (d))", TAIL_KERNELS)
+    per_step = per_step_launches(launches, 2 + 10, "the ConvNeXt-B training step, kernel path",
+                                 B_PER_STEP)
+    for name, v in step_ms.items():
+        ms = sum(v) / len(v)
+        log(f"phase 19 (d) train step convnext_base+ConvStem bf16 B={TRAIN_BATCH} 224px 2-step "
+            f"APGD ({name} tail): {ms:.2f} ms/step, {2000.0 / ms:.3f} attack-steps/s (runs of "
+            f"5: {', '.join('%.2f' % t for t in v)}) {label}")
+        if not np.isfinite(losses[name]).all():
+            raise AssertionError(f"ConvNeXt-B {name}-tail step: non-finite loss {losses[name]}")
+    profile_breakdown(torch, f"phase 19 (d) ConvNeXt-B train step B={TRAIN_BATCH} (kernel tail), "
+                      f"per step", lambda: steps["kernel"][1](steps["kernel"][0], xb, yb), 3,
+                      label)
+    del steps, xb, yb
+    torch.cuda.empty_cache()
+    t1 = time.time()
+    check_step_against_cpu(torch, np, init, seed, arch="convnext_base",
+                           probes=("stages.2.blocks.0.mlp.fc1.weight",
+                                   "stages.2.blocks.26.mlp.fc2.weight"))
+    log(f"phase 19 (d): {time.time() - t0:.1f} s, the step against the CPU "
+        f"{time.time() - t1:.1f} s of it")
+    return per_step
+
+
 def iso_init(torch, seed: int, updated: bool) -> dict:
     """ConvNeXt-iso-CvSt's random weights from the seed, an f32 state_dict."""
     from revisiting_at_tpu_torch.models import get_model
@@ -2383,16 +2500,18 @@ def iso_init(torch, seed: int, updated: bool) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def iso_tail_timings(torch, bm, gen, label) -> dict:
-    """The block tail at convnext_iso's shape (M = 196 x 80 rows, C = 432,
-    WMMA kernels): forward and input backward beside their plain versions
+def wide_tail_timings(torch, bm, gen, label, C) -> dict:
+    """The block tail at 196 x 80 rows of width C: convnext_iso's shape (C =
+    432) or ConvNeXt-B's stage 2 (C = 512), both on the cluster-of-two TMA +
+    wgmma kernels: forward and input backward beside their plain versions
     (in turns p, k, k, p), the plain model path's tail (bf16 cuBLAS, erf
     GELU) and bounds as phase 8 books them; the full backward (row pass,
     weight passes and reductions) beside its plain version and the model
     path's weight backward, bound as _bwd_kernel's work."""
     from revisiting_at_tpu_torch.models.convnext import plain_tail
 
-    M, C = ISO_ROWS * TRAIN_BATCH, ISO_C
+    M = ISO_ROWS * TRAIN_BATCH
+    tag = "iso" if C == ISO_C else f"C={C}"
     d = tail_inputs(torch, M, C, torch.bfloat16, gen)
     s_in, r_in = d["s"].clone().requires_grad_(True), d["r"].clone().requires_grad_(True)
     model_args = (d["ln_g"], d["ln_b"], d["w1"].t(), d["b1"], d["w2"].t(), d["b2"], d["gamma"],
@@ -2414,7 +2533,7 @@ def iso_tail_timings(torch, bm, gen, label) -> dict:
                           device_ms=device_ms(torch, k_fn, 10), bound_ms=bound,
                           design=tail_design(bm, C, which))
         o = out[which]
-        log(f"time {which:9s} iso B={TRAIN_BATCH} M={M} C={C}: kernel {o['ms']:.3f} ms "
+        log(f"time {which:9s} {tag} B={TRAIN_BATCH} M={M} C={C}: kernel {o['ms']:.3f} ms "
             f"({flops / o['ms'] / 1e9:.1f} TFLOP/s; device {ms_or_na(o['device_ms'])} ms, "
             f"{o['design']}), plain {o['plain_ms']:.3f} ms, model bf16 path "
             f"{o['model_ms']:.3f} ms, bound {bound:.4f} ms {label}")
@@ -2436,7 +2555,7 @@ def iso_tail_timings(torch, bm, gen, label) -> dict:
         bound_ms=max(flops / PEAK_BF16, nbytes / PEAK_HBM) * 1e3,
         design=tail_design(bm, C, "bwd_full_rows"))
     o = out["bwd_full"]
-    log(f"time bwd_full  iso B={TRAIN_BATCH} M={M} C={C}: kernels {o['ms']:.3f} ms "
+    log(f"time bwd_full  {tag} B={TRAIN_BATCH} M={M} C={C}: kernels {o['ms']:.3f} ms "
         f"({flops / o['ms'] / 1e9:.1f} TFLOP/s; device {ms_or_na(o['device_ms'])} ms; row pass "
         f"{o['rows_ms']:.3f} ms, {o['design']}), plain {o['plain_ms']:.3f} ms, model bf16 path "
         f"weight backward {o['model_ms']:.3f} ms, bound {o['bound_ms']:.4f} ms {label}")
@@ -2445,13 +2564,13 @@ def iso_tail_timings(torch, bm, gen, label) -> dict:
     return out
 
 
-def per_step_launches(launches: dict, n_steps: int, what: str) -> dict:
+def per_step_launches(launches: dict, n_steps: int, what: str, expected: dict) -> dict:
     """The tail launches per step over n_steps kernel steps; fatal unless
-    they are ISO_PER_STEP's."""
-    got = {k: launches[k] / n_steps for k in ISO_PER_STEP}
-    log(f"tail launches per step of {what}: {got} (expected {ISO_PER_STEP})")
-    if got != ISO_PER_STEP:
-        raise AssertionError(f"{what}: tail launches per step {got}, expected {ISO_PER_STEP}")
+    they are `expected`."""
+    got = {k: launches[k] / n_steps for k in expected}
+    log(f"tail launches per step of {what}: {got} (expected {expected})")
+    if got != expected:
+        raise AssertionError(f"{what}: tail launches per step {got}, expected {expected}")
     return got
 
 
@@ -2757,7 +2876,8 @@ def iso_phase(torch, np, repo, seed, label) -> dict:
     step_ms, losses = steps_in_turns(torch, steps, dict.fromkeys(steps, (xb, yb)),
                                      ("kernel", "plain", "plain", "kernel"), warm=2)
     launches = require_launches("the iso training step (phase 19 (a))", TAIL_KERNELS)
-    per_step = per_step_launches(launches, 2 + 10, "the iso training step, kernel path")
+    per_step = per_step_launches(launches, 2 + 10, "the iso training step, kernel path",
+                                 ISO_PER_STEP)
     for name, v in step_ms.items():
         ms = sum(v) / len(v)
         log(f"phase 19 (a) train step convnext_iso+ConvStem (C={ISO_C}) bf16 B={TRAIN_BATCH} "
@@ -2779,7 +2899,8 @@ def iso_phase(torch, np, repo, seed, label) -> dict:
     zero_launches()
     _, loss0 = run_steps(torch, state, step, xb, yb, 1)
     per_step_launches(require_launches("the iso step at C = 384 (phase 19 (a))", TAIL_KERNELS),
-                      1, f"the iso step at C = 384 ({tail_design(bm, 384, 'fwd')})")
+                      1, f"the iso step at C = 384 ({tail_design(bm, 384, 'fwd')})",
+                      ISO_PER_STEP)
     if not np.isfinite(loss0).all():
         raise AssertionError(f"iso step at C = 384: non-finite loss {loss0}")
     del state, step, init0
@@ -3397,11 +3518,14 @@ def main(argv=None) -> int:
               (49 * 4, 768, torch.float32, 0), (49 * 5, 768, torch.bfloat16, 49)]
     # the other widths built for ConvNeXt-B/L, at a few ragged tiles each
     cases += [(3136 + 40, 128, torch.bfloat16, 0), (784 + 40, 256, torch.bfloat16, 0),
-              (196 * 2 + 8, 512, torch.bfloat16, 0), (49 * 2 + 5, 1024, torch.bfloat16, 0)]
-    # convnext_iso's C = 432 (14x14 tokens): batch 32, ragged with a keep, f32
-    cases += [(ISO_ROWS * 32, 432, torch.bfloat16, 0),
-              (ISO_ROWS * 3, 432, torch.bfloat16, ISO_ROWS),
-              (ISO_ROWS * 2 + 5, 432, torch.float32, 0)]
+              (49 * 2 + 5, 1024, torch.bfloat16, 0)]
+    # convnext_iso's C = 432 (14x14 tokens) and ConvNeXt-B's stage 2 (C =
+    # 512, 196 rows an image), both clusters of two blocks on 512's tiling:
+    # batch 32, ragged with a keep, f32
+    for C in (ISO_C, 512):
+        cases += [(ISO_ROWS * 32, C, torch.bfloat16, 0),
+                  (ISO_ROWS * 3, C, torch.bfloat16, ISO_ROWS),
+                  (ISO_ROWS * 2 + 5, C, torch.float32, 0)]
     # the micro models' widths: convnext_micro's stages 0-2 at 224 px, batch
     # 32 (3136, 784, 196 rows an image), vit_micro's 32 (197 tokens), ragged
     # and f32 once
@@ -3409,17 +3533,19 @@ def main(argv=None) -> int:
               (196 * 32, 64, torch.bfloat16, 0), (197 * 32, 32, torch.bfloat16, 197),
               (3136 + 40, 16, torch.float32, 0), (196 * 2 + 5, 64, torch.bfloat16, 0)]
     # the first launch of each cluster kernel under a watchdog: a block
-    # whose peer never arrives (or a setmaxnreg raise past the pool) waits
-    # forever, and the process ends with a message instead
-    d = tail_inputs(torch, 49 * 3, 768, torch.bfloat16, gen, 49)
-    for which in ("fwd", "bwd_input"):
-        first_launch(torch, f"{which} C=768 (cluster of {bm.tail_plan(768, which).cluster})",
-                     lambda: run_tail(bm, d, which, kernel=True))
-    w2g16 = (d["w2"].bfloat16().float() * d["gamma"]).bfloat16()
-    first_launch(torch, "bwd_full_rows C=768", lambda: bm.bwd_full_rows_cuda(
-        d["s"], d["keep"], d["rows"], d["ln_g"], d["ln_b"], d["w1"].bfloat16(), d["b1"], w2g16,
-        d["dy"]))
-    del d, w2g16
+    # whose peer never arrives, a ring stage whose bytes never land (or a
+    # setmaxnreg raise past the pool) waits forever, and the process ends
+    # with a message instead
+    for C, rows in ((768, 49), (ISO_C, ISO_ROWS), (512, ISO_ROWS)):
+        d = tail_inputs(torch, rows * 3, C, torch.bfloat16, gen, rows)
+        for which in ("fwd", "bwd_input"):
+            first_launch(torch, f"{which} C={C} (cluster of {bm.tail_plan(C, which).cluster})",
+                         lambda: run_tail(bm, d, which, kernel=True))
+        w2g16 = (d["w2"].bfloat16().float() * d["gamma"]).bfloat16()
+        first_launch(torch, f"bwd_full_rows C={C}", lambda: bm.bwd_full_rows_cuda(
+            d["s"], d["keep"], d["rows"], d["ln_g"], d["ln_b"], d["w1"].bfloat16(), d["b1"],
+            w2g16, d["dy"]))
+        del d, w2g16
     for i, (M, C, dtype, keep_rows) in enumerate(cases):
         d = tail_inputs(torch, M, C, dtype, gen, keep_rows)
         for which in ("fwd", "bwd_input"):
@@ -3428,19 +3554,23 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             what = f"{which} M={M} C={C} {dtype} keep={bool(keep_rows)}"
             err[which] = max(err[which], check(torch, what, got, ref, TOL[which]))
-            if (i == 0 or C in (432, 16, 768)) and not torch.equal(
+            if (i == 0 or C in (432, 512, 16, 768)) and not torch.equal(
                     got, run_tail(bm, d, which, kernel=True)):
                 raise AssertionError(f"{what}: two launches differ")
-        if i == 0 or C in (432, 16, 768):
+        if i == 0 or C in (432, 512, 16, 768):
             log(f"fwd, bwd_input M={M} C={C}: bitwise equal over two launches")
-        if (M, C) == (49 * 32, 768):
+        if (M, C) == (ISO_ROWS * 32, ISO_C):
+            planted_fault(f"fwd with the LayerNorm statistics over the padded 512 columns, "
+                          f"M={M} C={C}", padded_ln_forward(torch, bm, d, 512),
+                          run_tail(bm, d, "fwd", kernel=False), TOL["fwd"])
+        if (M, C) in ((49 * 32, 768), (ISO_ROWS * 32, 512)):
             # planted fault: one block's partial h left out of the exchange.
             # Rank 0 of each cluster finalises the 16 columns of each 32 of
             # 4C that start at a multiple of 32; W1 zero in rank 1's half of C
-            # (rows 384..767) for those columns is exactly that block's
-            # partial missing from their h
+            # (rows 384..767 at 768, 256..511 at 512) for those columns is
+            # exactly that block's partial missing from their h
             w1_bad = d["w1"].clone()
-            w1_bad[384:, torch.arange(4 * C, device="cuda") % 32 < 16] = 0
+            w1_bad[C // 2:, torch.arange(4 * C, device="cuda") % 32 < 16] = 0
             bad = bm.fwd_cuda(d["s"], d["r"], d["keep"], d["rows"], d["ln_g"], d["ln_b"],
                               w1_bad.bfloat16(), d["b1"], d["w2"].bfloat16(), d["b2"], d["gamma"])
             torch.cuda.synchronize()
@@ -3454,15 +3584,15 @@ def main(argv=None) -> int:
     full_cases += [(3136 * 2 + 40, 96, torch.bfloat16, 0), (196 * 3 + 5, 384, torch.bfloat16, 0),
                    (784 * 2, 192, torch.float32, 0), (196 * 4, 384, torch.bfloat16, 196),
                    (3136 + 40, 128, torch.bfloat16, 0), (784 + 40, 256, torch.bfloat16, 0),
-                   (196 * 2 + 8, 512, torch.bfloat16, 0), (49 * 2 + 5, 768, torch.bfloat16, 0),
-                   (49 * 2 + 5, 1024, torch.bfloat16, 0)]
+                   (49 * 2 + 5, 768, torch.bfloat16, 0), (49 * 2 + 5, 1024, torch.bfloat16, 0)]
     # C = 768 (wide_tail's row pass, clusters of two blocks) at the training
     # batch, and ragged (147 rows) with a keep
     full_cases += [(49 * TRAIN_BATCH, 768, torch.bfloat16, 0), (49 * 3, 768, torch.bfloat16, 49)]
-    # convnext_iso's C = 432 at the training batch (full mode admits C <= 512),
-    # and ragged with a keep
-    full_cases += [(ISO_ROWS * TRAIN_BATCH, 432, torch.bfloat16, 0),
-                   (ISO_ROWS * 3, 432, torch.bfloat16, ISO_ROWS)]
+    # convnext_iso's C = 432 and ConvNeXt-B's stage 2 (C = 512) at the
+    # training batch (full mode admits C <= 512), and ragged with a keep
+    for C in (ISO_C, 512):
+        full_cases += [(ISO_ROWS * TRAIN_BATCH, C, torch.bfloat16, 0),
+                       (ISO_ROWS * 3, C, torch.bfloat16, ISO_ROWS)]
     # ViT-S's tokens, ragged (591 rows: no whole 64-row tile at the end) with a keep
     full_cases += [(197 * 3, 384, torch.bfloat16, 197)]
     # the micro models' widths at the training batch (convnext_micro's stages
@@ -3480,14 +3610,15 @@ def main(argv=None) -> int:
         for name, g, r in zip(FULL_COTANGENTS, got, ref):
             e = check(torch, f"bwd_full {name:6s} {what}", g, r, TOL[name])
             err[FULL_ERR_KEY[name]] = max(err[FULL_ERR_KEY[name]], e)
-        if i < 3 or C == 768 or (keep_rows and M % 64 and C in bm.WGMMA_WIDTHS):
-            # the stage shapes at the training batch, C = 768 and a ragged M
-            # with a keep: the row pass's ds is the input backward's, bit for bit
+        if i < 3 or C in (432, 512, 768) or (keep_rows and M % 64 and C in bm.WGMMA_WIDTHS):
+            # the stage shapes at the training batch, the cluster widths and a
+            # ragged M with a keep: the row pass's ds is the input
+            # backward's, bit for bit
             if not torch.equal(got[0], run_tail(bm, d, "bwd_input", kernel=True)):
                 raise AssertionError(f"bwd_full {what}: the row pass's ds differs from the "
                                      "input backward's")
             log(f"bwd_full {what}: the row pass's ds equals the input backward's, bit for bit")
-        if C in (432, 16, 768) and not keep_rows:
+        if C in (432, 512, 16, 768) and not keep_rows:
             again = run_full(bm, d, kernel=True)
             if not all(torch.equal(g, h) for g, h in zip(got, again)):
                 raise AssertionError(f"bwd_full {what}: two launches differ")
@@ -3910,7 +4041,8 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------------------------- 19
     iso_per_step = iso_phase(torch, np, repo, args.seed, label)
-    iso_times = iso_tail_timings(torch, bm, gen, label)
+    b_per_step = convnext_b_phase(torch, np, args.seed, label)
+    wide_times = {C: wide_tail_timings(torch, bm, gen, label, C) for C in (ISO_C, 512)}
 
     # ---------------------------------------------------------------- 20
     dist_phase(torch, np, repo, init, vit_init, args.seed, label)
@@ -3928,13 +4060,16 @@ def main(argv=None) -> int:
                                                       library_device_ms=red["lib_dev"])
     for k, v in row_dev.items():
         kernels[list(bm.LAUNCHES).index(k)].update(device_ms=v)
-    # the tail at convnext_iso's shape (phase 19): times, bounds and the model
-    # path beside them; the full backward's under the row pass
-    for k, which in (("fwd", "fwd"), ("bwd_input", "bwd_input"), ("bwd_full_rows", "bwd_full")):
-        kernels[list(bm.LAUNCHES).index(k)]["iso432"] = dict(iso_times[which])
-    for k in bm.LAUNCHES:
-        kernels[list(bm.LAUNCHES).index(k)].setdefault("iso432", {})[
-            "launches_per_step"] = iso_per_step[f"block_mlp_{k}"]
+    # the tail at convnext_iso's shape and ConvNeXt-B's stage 2 (phase 19):
+    # times, bounds and the model path beside them; the full backward's under
+    # the row pass; the launches per step of each model's training step
+    for row, C, per_step in (("iso432", ISO_C, iso_per_step), ("c512", 512, b_per_step)):
+        for k, which in (("fwd", "fwd"), ("bwd_input", "bwd_input"),
+                         ("bwd_full_rows", "bwd_full")):
+            kernels[list(bm.LAUNCHES).index(k)][row] = dict(wide_times[C][which])
+        for k in bm.LAUNCHES:
+            kernels[list(bm.LAUNCHES).index(k)].setdefault(row, {})[
+                "launches_per_step"] = per_step[f"block_mlp_{k}"]
     for k in ATT_KERNELS:
         k_ms, p_ms, b_ms, b_by, lib = att_times[k]
         kernels.append(dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],

@@ -11,12 +11,13 @@
 // warpgroup MMAs from swizzled shared tiles, GELU in registers, named
 // barriers instead of __syncthreads), are in block_mlp_common.cuh, which
 // holds the device code both libraries share. At C = 96, 128, 192, 256,
-// 384 and 768 the forward runs fwd_kernel below, one ring item per
+// 384, 432, 512 and 768 the forward runs fwd_kernel below, one ring item per
 // product: chunk j of W1^T (h = u W1c, K-major B) then of W2 (o += g W2c,
 // MN-major B), with the g chunk through a swizzled shared tile and o in
 // registers until the epilogue adds b2, keep * gamma and the residual; at
-// C = 768 in clusters of two blocks, each holding half of C. The other
-// widths keep the WMMA kernels (fwd_kernel_wmma, bwd_kernel_wmma): on the
+// C = 432, 512 and 768 in clusters of two blocks, each holding half of C
+// (432 padded to 512). The other widths (16, 32, 64, 1024) keep the WMMA
+// kernels (fwd_kernel_wmma, bwd_kernel_wmma): on the
 // H100, 64-row tiles at C = 384 measured 8-13% faster than 32-row ones
 // there, and unrolling its k loops gained nothing. Rows past M (the ragged
 // edge, 49 * B at stage 3) are zero-filled on load and masked on store.
@@ -142,8 +143,9 @@ int launch_fwd_wmma(const void* s, const void* r, const float* keep, int rows_pe
 }
 
 // The forward at the kWgmma widths. Ring items: chunk j of W1^T (2 j) and
-// of W2 (2 j + 1). In a cluster (C = 768) each block holds CB = C / 2 of
-// the columns: its halves of u, of every W1^T and W2 chunk and of o; the
+// of W2 (2 j + 1). In a cluster (C = 432, 512, 768) each block holds CB =
+// CP / 2 of the padded columns: its halves of u, of every W1^T and W2 chunk
+// and of o; the
 // blocks exchange their partial h over their halves of C, and each forms g
 // for half of the chunk's columns into both blocks' g tiles
 // (block_mlp_common.cuh: xch_send, xch_add); its ring order is below.
@@ -292,13 +294,17 @@ fwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
     fence_acc(ha);
     ring_release(sm, w1_item(0));
     xch_send(sm, ha, 0, rank);
-    static_assert(P::NCH % 2 == 0, "fwd_kernel: chunks in pairs");
-    for (int j = 0; j < P::NCH - 2; j += 2) {
+    // chunks in pairs (ha, hb), then the last one or two (C = 432: 27)
+    for (int j = 0; j + 2 < P::NCH; j += 2) {
       step(std::true_type{}, j, ha, hb);
       step(std::true_type{}, j + 1, hb, ha);
     }
-    step(std::true_type{}, P::NCH - 2, ha, hb);
-    step(std::false_type{}, P::NCH - 1, hb, ha);
+    if constexpr (P::NCH % 2 == 0) {
+      step(std::true_type{}, P::NCH - 2, ha, hb);
+      step(std::false_type{}, P::NCH - 1, hb, ha);
+    } else {
+      step(std::false_type{}, P::NCH - 1, ha, hb);
+    }
   }
 
   // y = r + keep * gamma * (o + b2), a pair of columns at a time
@@ -306,7 +312,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
   for (int i = 0; i < P::CW / 2; i += 2) {
     const int64_t row = row0 + acc_row(i);
     const int col = c0 + cg * P::CW + acc_col(i);
-    if (row < M) {
+    if (row < M && in_c<C>(col)) {  // a pair of channels (C is even), not of the pad
       const float kp = keep_of(keep, rows_per_keep, row);
       const float2 rv = load2(r + row * C + col);
       const float2 bv = load2(b2 + col);
@@ -360,15 +366,15 @@ int block_mlp_supports(int C) {
 
 // dtype: 0 = float32, 1 = bfloat16 (for s, r, y). keep may be null (all
 // ones). w1 is W1^T [4C, C] at the kWgmma widths, W1 [C, 4C] at the others;
-// the plan (rows, chunk, threads, split, smem, cluster) must be the one built
-// for C.
+// the plan (rows, chunk, threads, split, smem, cluster, padded) must be the
+// one built for C.
 int block_mlp_fwd(int C, int dtype, const void* s, const void* r, const void* keep,
                   int rows_per_keep, const void* ln_g, const void* ln_b, const void* w1,
                   const void* b1, const void* w2, const void* b2, const void* gamma, void* y,
                   int64_t M, int rows, int chunk, int threads, int split, int smem,
-                  int cluster, void* stream) {
+                  int cluster, int padded, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const PlanArgs plan{rows, chunk, threads, split, smem, cluster};
+  const PlanArgs plan{rows, chunk, threads, split, smem, cluster, padded};
 #define CASE(W)                                                                              \
   if (C == W)                                                                                \
     return dtype == 0                                                                        \
@@ -391,9 +397,9 @@ int block_mlp_bwd_input(int C, int dtype, const void* s, const void* keep, int r
                         const void* ln_g, const void* ln_b, const void* w1, const void* b1,
                         const void* w2g, const void* dy, void* ds, int64_t M, int rows,
                         int chunk, int threads, int split, int smem, int cluster,
-                        void* stream) {
+                        int padded, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const PlanArgs plan{rows, chunk, threads, split, smem, cluster};
+  const PlanArgs plan{rows, chunk, threads, split, smem, cluster, padded};
   const FullOut none{};
 #define CASE(W)                                                                              \
   if (C == W)                                                                                \

@@ -14,7 +14,8 @@
 // from one grid step to the next in VMEM. Blocks on Hopper run in parallel,
 // so the sums over the M rows are reductions across blocks, done in passes:
 //   1. bwd_kernel<C, T, true> (block_mlp_common.cuh: TMA + wgmma at C = 96,
-//      128, 192, 256, 384; the WMMA bwd_kernel_wmma at the other widths),
+//      128, 192, 256, 384, and 432, 512, 768 in clusters of two blocks; the
+//      WMMA bwd_kernel_wmma at 16, 32, 64, 1024),
 //      the row pass: ds as the input backward computes it, plus bf16 side
 //      outputs u16, kdy16, g16 and dh16 ([Mpad, C] and [Mpad, 4C]) and column
 //      sums per 64-row tile (per WMMA block) of the f32 dh (db1, summed before
@@ -354,10 +355,10 @@ int block_mlp_bwd_full_rows(int C, int dtype, const void* s, const void* keep,
                             void* ds, int64_t M, int64_t Mpad, void* u16, void* kdy16,
                             void* g16, void* dh16, void* db1_part, void* dlng_part,
                             void* dlnb_part, int rows, int chunk, int threads, int split,
-                            int smem, int cluster, void* stream) {
+                            int smem, int cluster, int padded, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Mpad % kRowPad != 0 || Mpad < M) return -1;
-  const PlanArgs plan{rows, chunk, threads, split, smem, cluster};
+  const PlanArgs plan{rows, chunk, threads, split, smem, cluster, padded};
   const FullOut out{static_cast<bf16*>(u16), static_cast<bf16*>(kdy16), static_cast<bf16*>(g16),
                     static_cast<bf16*>(dh16), static_cast<float*>(db1_part),
                     static_cast<float*>(dlng_part), static_cast<float*>(dlnb_part)};

@@ -65,14 +65,26 @@
 //     the consumers by setmaxnreg.
 //   Rows past M are zero in the u and kdy tiles and are never stored.
 //
-// The design at C = 768 (kCluster = 2): a 64-row tile's u and kdy tiles
-// (192 KB), a 64-row weight chunk (96 KB) and a [64, C] f32 accumulator
-// (384 registers a thread of a warpgroup) do not fit one block. So a
-// thread-block cluster of two blocks takes each tile, block rank r holding
-// columns [384 r, 384 r + 384) of C: its halves of u and kdy, of every ring
-// stage (the K half of a W1^T or w2g chunk, the column half of a W2
-// chunk), of o or du; each block is tiled as C = 384 (two consumer
-// warpgroups of 192 accumulator columns, a producer warpgroup).
+// The design at C = 432, 512 and 768 (kCluster = 2): a 64-row tile's u and
+// kdy tiles (192 KB at C = 768), a 64-row weight chunk (96 KB) and a [64, C]
+// f32 accumulator (384 registers a thread of a warpgroup) do not fit one
+// block, and at 432 and 512 one block has room for the forward's ring but not
+// for the backward's. So a thread-block cluster of two blocks takes each
+// tile, block rank r holding columns [CB r, CB r + CB) of C, CB = CP / 2: its
+// halves of u and kdy, of every ring stage (the K half of a W1^T or w2g
+// chunk, the column half of a W2 chunk), of o or du; each block is tiled as
+// C = CB (two consumer warpgroups of CB / 2 accumulator columns, a producer
+// warpgroup).
+//   * C = 432 (convnext_iso) is 13.5 x 32: it runs the tiling of its padded
+//     width CP = 512 (`kPadded`), rank 1 holding columns 256-431 and 80 pad
+//     columns. The pad is zero wherever a product contracts over it: u and
+//     kdy are written 0 there, the weight boxes are zero-filled by TMA past
+//     column 432 (the box at 448 lies wholly past it), so h and dg are
+//     those of 432 columns and the pad columns of o and du are 0. The
+//     LayerNorm statistics divide by 432, no load or store reaches past
+//     column 432 of a row (a pad column's load is clamped to the last
+//     channel and dropped), and no row sum or column sum takes a pad column.
+//     Padding costs 18.5% more tensor work than 432 needs.
 //   * h = u W1c and dg = kdy w2g_c^T contract over C, so a block forms a
 //     partial over its half. The thread of the same index in the other
 //     block holds the same rows and columns: each thread sends the peer the
@@ -93,8 +105,9 @@
 //     pass's ds stays bit for bit the input backward's.
 //   * The forward is software-pipelined by one chunk (the next chunk's h
 //     runs while this chunk's partial crosses the cluster and its GELU
-//     runs; the producer keeps W1^T a chunk ahead of W2). The backward has
-//     two ring stages, one chunk of w2g and of W1^T, and no room for that.
+//     runs; the producer keeps W1^T a chunk ahead of W2). The backward is
+//     not: at C = 768 its two ring stages hold one chunk of w2g and of
+//     W1^T, and no more (four stages at 432 and 512).
 //   * Launched with cudaLaunchKernelEx and a cluster dimension of 2; the
 //     mbarriers of both blocks are initialised before either block arrives
 //     on the other's (a cluster barrier), and every thread of both blocks
@@ -102,17 +115,16 @@
 //     its peer may still reach its shared memory.
 //
 // The other widths built keep the WMMA kernels (fwd_kernel_wmma,
-// bwd_kernel_wmma): 16, 32 and 64 (the micro models) and 432 (convnext_iso:
-// not a multiple of the boxes' 64 columns), and 512 and 1024 (ConvNeXt-B
-// and -L; ROADMAP B1), where a 64-row tile's operands do not fit a block
-// and the cluster above is not built yet.
+// bwd_kernel_wmma): 16, 32 and 64 (the micro models), and 1024 (ConvNeXt-B's
+// last stage; ROADMAP G4), whose half of C leaves the backward one ring
+// stage: it needs a cluster of four, not built yet.
 //
 // The WMMA design: each block owns BM rows, normalises them into a bf16
 // tile, and streams the 4C axis in chunks of BH columns; per chunk every
 // warp computes one 16-wide column tile of h for all BM rows, the block
 // applies b1 and GELU in shared memory, and every warp accumulates its C
 // columns of the next product into WMMA accumulators, with weight fragments
-// read from L2. Widths that are not a multiple of 32 (C = 432) leave the
+// read from L2. Widths that are not a multiple of 32 (C = 16) leave the
 // last lanes of a row without a channel; the row code masks them behind
 // `if constexpr`.
 
@@ -539,12 +551,46 @@ int launch_bwd_wmma(const void* s, const float* keep, int rows_per_keep, const f
 // The widths that take the TMA + wgmma kernels; the others take the WMMA
 // kernels, chosen here at compile time.
 template <int C>
-constexpr bool kWgmma = C == 96 || C == 128 || C == 192 || C == 256 || C == 384 || C == 768;
+constexpr bool kWgmma = C == 96 || C == 128 || C == 192 || C == 256 || C == 384 || C == 432 || C == 512 || C == 768;
 
 // Blocks of a thread-block cluster that share each 64-row tile, block rank
-// r holding columns [C / kCluster r, + C / kCluster) of C (1: a block alone).
+// r holding columns [CP / kCluster r, + CP / kCluster) of the padded width
+// CP (1: a block alone).
 template <int C>
-constexpr int kCluster = C == 768 ? 2 : 1;
+constexpr int kCluster = C == 432 || C == 512 || C == 768 ? 2 : 1;
+
+// The width the wgmma kernels tile: C, or where C is not a multiple of 32
+// (432), C rounded up to whole 64-column boxes in every block of a cluster.
+// Columns past C are pad: zero in every operand a product contracts over,
+// never loaded from or stored to memory.
+template <int C>
+constexpr int kPadded = C % 32 == 0 ? C : (C + 64 * kCluster<C> - 1) / (64 * kCluster<C>) * (64 * kCluster<C>);
+
+// Whether column c of the padded width is a channel: always where C is not
+// padded, else only below C (a compile-time true at the other widths).
+template <int C>
+__device__ __forceinline__ bool in_c(int c) {
+  if constexpr (kPadded<C> == C) {
+    return true;
+  } else {
+    return c < C;
+  }
+}
+
+// Column c (of W consecutive columns) clamped into the row: a pad column
+// reads the row's last channel(s), and the caller drops what it read (a
+// select on in_c). The loads are then issued unconditionally, as at the
+// other widths: with the loads of s and dy under a column mask, the C = 432
+// input backward ran slower on the H100 than 512's, which has 32 chunks of
+// 4C to its 27 (tools/tree_compare.py --wide).
+template <int C, int W = 1>
+__device__ __forceinline__ int clamp_c(int c) {
+  if constexpr (kPadded<C> == C) {
+    return c;
+  } else {
+    return c < C ? c : C - W;
+  }
+}
 
 constexpr int kBox = 8192;            // a 64 x 64 bf16 box, 128-byte rows
 constexpr int kProducerRegs = 24;     // registers the producer warpgroup keeps
@@ -558,7 +604,8 @@ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 template <int C, int MODE>
 struct Plan {
   static constexpr int CL = kCluster<C>;         // blocks of a cluster
-  static constexpr int CB = C / CL;              // columns of C a block holds
+  static constexpr int CP = kPadded<C>;          // the width tiled
+  static constexpr int CB = CP / CL;             // columns of CP a block holds
   // row tiles of 64 rows: two up to C = 192, and at C = 96, whose
   // accumulators leave registers for more warpgroups, four in the forward
   // and three in the input backward (the row pass keeps two: its rows per
@@ -599,10 +646,12 @@ struct Plan {
   static constexpr int S_FIT = (kSmemMax - FIXED) / TILE;
   static constexpr int S = cmin(cmin(8, 2 * NCH), S_FIT);  // ring stages
   static constexpr int SMEM = FIXED + S * TILE;
-  static_assert(C % 32 == 0 && CW % 32 == 0 && N1 % 32 == 0, "plan: widths");
+  static_assert(CP % 32 == 0 && CW % 32 == 0 && N1 % 32 == 0 && (4 * C) % BH == 0,
+                "plan: widths");
+  static_assert(CP == C || (CL > 1 && CP - C < CB && C % 8 == 0), "plan: padding");
   static_assert(S >= 2 && SMEM <= kSmemMax, "plan: shared memory");
   static_assert(128 * NWG * CREGS + 128 * kProducerRegs <= POOL, "plan: registers");
-  static_assert(CL == 1 || (CL == 2 && R == 1 && NK % 4 == 0 && (C / 32) % CL == 0 &&
+  static_assert(CL == 1 || (CL == 2 && R == 1 && NK % 4 == 0 && (CP / 32) % CL == 0 &&
                             (2 * G * 64 + 2 * 64 + NWG * 8 * CW) * 4 <= TILE),
                 "plan: cluster");
 };
@@ -839,14 +888,17 @@ __device__ __forceinline__ void arrive_tile(uint64_t* bar) {
 // A warp loads a batch of its rows before it reduces any: one row at a time
 // would wait out a round trip to HBM per row. In a cluster each block
 // reads whole rows of s, so both hold the same statistics, bit for bit, and
-// keeps its CB columns (rank r: c - CB r) of u, and of kdy.
+// keeps its CB columns (rank r: c - CB r) of u, and of kdy. At a padded
+// width a pad column's load reads the row's last channel and is dropped,
+// the pad is written 0 into u and kdy, and the statistics are those of the
+// C channels.
 template <int C, class P, typename T, bool BWD>
 __device__ void ln_rows(const T* __restrict__ s, const float* __restrict__ ln_g,
                         const float* __restrict__ ln_b, const T* __restrict__ dy,
                         const float* __restrict__ keep, int rows_per_keep, int64_t row0, int64_t M,
                         int cg, uint32_t rank, unsigned char* u, unsigned char* kdy, float* mean,
                         float* inv) {
-  constexpr int VPL = C / 32;         // values per lane in a row
+  constexpr int VPL = P::CP / 32;     // values per lane in a row (padded)
   constexpr int VPB = VPL / P::CL;    // of them in the block's columns
   constexpr int NR = 16 / P::G;       // rows per warp
   constexpr int BATCH = 48 / VPL >= NR ? NR : (48 / VPL >= 8 ? 8 : 4);  // rows loaded at once
@@ -859,11 +911,18 @@ __device__ void ln_rows(const T* __restrict__ s, const float* __restrict__ ln_g,
     for (int k = 0; k < BATCH; ++k) {
       const int64_t row = row0 + wt + 4 * P::G * (k0 + k);
 #pragma unroll
-      for (int i = 0; i < VPL; ++i) v[k][i] = row < M ? to_f32(s[row * C + lane + 32 * i]) : 0.0f;
+      for (int i = 0; i < VPL; ++i) {
+        const int c = lane + 32 * i;
+        const float x = row < M ? to_f32(s[row * C + clamp_c<C>(c)]) : 0.0f;
+        v[k][i] = in_c<C>(c) ? x : 0.0f;
+      }
       if constexpr (BWD) {
 #pragma unroll
-        for (int i = 0; i < VPB; ++i)
-          dv[k][i] = row < M ? to_f32(dy[row * C + c0 + lane + 32 * i]) : 0.0f;
+        for (int i = 0; i < VPB; ++i) {
+          const int c = c0 + lane + 32 * i;
+          const float x = row < M ? to_f32(dy[row * C + clamp_c<C>(c)]) : 0.0f;
+          dv[k][i] = in_c<C>(c) ? x : 0.0f;
+        }
       }
     }
 #pragma unroll
@@ -878,16 +937,18 @@ __device__ void ln_rows(const T* __restrict__ s, const float* __restrict__ ln_g,
       float sq = 0.0f;
 #pragma unroll
       for (int i = 0; i < VPL; ++i) {
-        const float d = v[k][i] - mu;
+        const float d = in_c<C>(lane + 32 * i) ? v[k][i] - mu : 0.0f;
         sq += d * d;
       }
       const float iv = rsqrtf(warp_sum(sq) / C + kEps);
 #pragma unroll
       for (int i = 0; i < VPL; ++i) {
         const int c = lane + 32 * i;
-        if (P::CL == 1 || i / VPB == static_cast<int>(rank))
+        if (P::CL == 1 || i / VPB == static_cast<int>(rank)) {
+          const float un = (v[k][i] - mu) * iv * ln_g[clamp_c<C>(c)] + ln_b[clamp_c<C>(c)];
           *reinterpret_cast<bf16*>(u + swz(rr, c - c0)) =
-              __float2bfloat16(live ? (v[k][i] - mu) * iv * ln_g[c] + ln_b[c] : 0.0f);
+              __float2bfloat16(live && in_c<C>(c) ? un : 0.0f);
+        }
       }
       if constexpr (BWD) {
         const float kp = live ? keep_of(keep, rows_per_keep, row) : 0.0f;
@@ -924,7 +985,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
   const int c0 = P::CB * rank;  // the block's first column of C
   ring_init(sm);
   if (threadIdx.x >= 128 * P::NWG) {
-    produce(sm, &w2g_map, &w1t_map, c0);
+    produce<P>(sm, &w2g_map, &w1t_map, c0);
     block_end<P>();
     return;
   }
@@ -953,6 +1014,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
     // tiles' rows
     for (int i = threadIdx.x % bar_n; i < 64 * (P::CB / 8); i += bar_n) {
       const int r = i / (P::CB / 8), c = (i % (P::CB / 8)) * 8;
+      if (!in_c<C>(c0 + c)) continue;  // the pad (C is a multiple of 8)
       const size_t gi = static_cast<size_t>(row0 + r) * C + c0 + c;
       *reinterpret_cast<uint4*>(out.u16 + gi) = *reinterpret_cast<const uint4*>(u + swz(r, c));
       *reinterpret_cast<uint4*>(out.kdy16 + gi) = *reinterpret_cast<const uint4*>(kdy + swz(r, c));
@@ -1128,11 +1190,13 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
     const int hi = (i / 2) % 2, rr = rlo + 8 * hi;
     const int64_t row = row0 + rr;
     const int col = c0 + cg * P::CW + acc_col(i);
-    const float2 x = row < M ? load2(s + row * C + col) : make_float2(0.0f, 0.0f);
-    const float2 lg = load2(ln_g + col);
+    const int cc = clamp_c<C, 2>(col);  // a pad pair (C is even) adds no term
+    const bool in = in_c<C>(col);
+    const float2 x = row < M ? load2(s + row * C + cc) : make_float2(0.0f, 0.0f);
+    const float2 lg = load2(ln_g + cc);
     const float x0 = row < M ? (x.x - mean[rr]) * inv[rr] : 0.0f;
     const float x1 = row < M ? (x.y - mean[rr]) * inv[rr] : 0.0f;
-    const float dxh0 = acc[i] * lg.x, dxh1 = acc[i + 1] * lg.y;
+    const float dxh0 = in ? acc[i] * lg.x : 0.0f, dxh1 = in ? acc[i + 1] * lg.y : 0.0f;
     p1[hi] += dxh0;
     p1[hi] += dxh1;
     p2[hi] += dxh0 * x0;
@@ -1201,7 +1265,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
       const int i = 4 * q + 2 * hi, rr = rlo + 8 * hi;
       const int64_t row = row0 + rr;
       const int col = c0 + cg * P::CW + acc_col(i);
-      if (row < M) {
+      if (row < M && in_c<C>(col)) {
         const float2 x = load2(s + row * C + col);
         const float2 lg = load2(ln_g + col);
         const float x0 = (x.x - mean[rr]) * inv[rr], x1 = (x.y - mean[rr]) * inv[rr];
@@ -1235,6 +1299,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
   if constexpr (FULL) {
     named_bar_sync(1 + P::R + w, 128);
     for (int t = threadIdx.x % 128; t < P::CW; t += 128) {
+      if (!in_c<C>(c0 + cg * P::CW + t)) break;  // the pad
       const size_t gi = static_cast<size_t>(tile_idx) * C + c0 + cg * P::CW + t;
       out.dlng_part[gi] = s2[t] + s2[P::CW + t] + s2[2 * P::CW + t] + s2[3 * P::CW + t];
       out.dlnb_part[gi] =
@@ -1261,9 +1326,9 @@ inline bool make_map(CUtensorMap* map, const void* base, int64_t rows, int cols)
 
 // The plan the wrapper passes (ops/block_mlp.py tail_plan): rows per
 // block, chunk width, threads, output column split, shared-memory bytes,
-// blocks per cluster.
+// blocks per cluster, the padded width tiled.
 struct PlanArgs {
-  int rows, chunk, threads, split, smem, cluster;
+  int rows, chunk, threads, split, smem, cluster, padded;
 };
 
 template <int C, int MODE>
@@ -1271,12 +1336,12 @@ bool plan_ok(const PlanArgs& a) {
   if constexpr (kWgmma<C>) {
     using P = Plan<C, MODE>;
     return a.rows == P::BM && a.chunk == P::BH && a.threads == P::THREADS && a.split == P::G &&
-           a.smem == P::SMEM && a.cluster == P::CL;
+           a.smem == P::SMEM && a.cluster == P::CL && a.padded == P::CP;
   } else {
     using K = Cfg<C>;
     const size_t smem = MODE == kFwd ? fwd_smem_bytes<C>() : bwd_smem_bytes<C>();
     return a.rows == K::BM && a.chunk == K::BH && a.threads == K::NTHREADS && a.split == K::NW &&
-           static_cast<size_t>(a.smem) == smem && a.cluster == 1;
+           static_cast<size_t>(a.smem) == smem && a.cluster == 1 && a.padded == C;
   }
 }
 

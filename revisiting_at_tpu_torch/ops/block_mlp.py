@@ -17,10 +17,11 @@ csrc/ replace its TPU kernels:
     cotangents, so the port has no second variant.
 
 The forward, the input backward and the row pass are TMA + wgmma kernels at
-C = 96, 128, 192, 256, 384 and 768 (there in clusters of two blocks, each
-holding half of C) and WMMA kernels at the other widths built; `tail_plan`
-gives each width's tiling, which the C entry points check against the one
-they were built with.
+C = 96, 128, 192, 256, 384, 432, 512 and 768 (the last three in clusters of
+two blocks, each holding half of C; 432 tiled as 512, its 80 pad columns
+zero) and WMMA kernels at the other widths built (16, 32, 64, 1024);
+`tail_plan` gives each width's tiling, which the C entry points check
+against the one they were built with.
 
 The kernels are bound to PyTorch with ctypes and built with nvcc at first
 use into build/kernels/ (ops/cuda_build.py). The sources name what bounds
@@ -166,12 +167,13 @@ def reduce_plan(R: int, N: int) -> tuple[int, int, int]:
 ROW_PAD = 128
 # The widths whose forward, input backward and row pass are the TMA + wgmma
 # kernels (csrc/block_mlp_common.cuh kWgmma); the others keep the WMMA ones.
-WGMMA_WIDTHS = (96, 128, 192, 256, 384, 768)
+WGMMA_WIDTHS = (96, 128, 192, 256, 384, 432, 512, 768)
 # Of those, the widths launched in thread-block clusters, with the blocks per
-# cluster (kCluster): each block of a cluster holds C / cluster of the
+# cluster (kCluster): each block of a cluster holds padded / cluster of the
 # columns of the same 64-row tile. At C = 768 one block has no room for a
-# 64-row tile's u and kdy, two weight stages and the f32 accumulators.
-TAIL_CLUSTER = {768: 2}
+# 64-row tile's u and kdy, two weight stages and the f32 accumulators; at
+# 432 and 512 it has room for the forward's ring, not for the backward's.
+TAIL_CLUSTER = {432: 2, 512: 2, 768: 2}
 TAIL_MODES = ("fwd", "bwd_input", "bwd_full_rows")
 _SMEM_MAX = 232448  # dynamic shared memory an H100 block can use
 _BOX = 8192         # a 64 x 64 bf16 TMA box
@@ -192,11 +194,19 @@ class TailPlan(NamedTuple):
     acc_regs: int   # f32 accumulator registers per consumer thread (o or du, h, dg)
     regs: int       # registers a thread of the block may hold
     part_rows: int  # rows per row of the row pass's column sums
-    cluster: int    # blocks per thread-block cluster, each with C / cluster columns
+    cluster: int    # blocks per thread-block cluster, each with padded / cluster columns
+    padded: int     # the width tiled: C, or (wgmma, C not a multiple of 32) C rounded
+                    # up to 64-column boxes in every block of the cluster; zero pad
 
 
 def _a128(n: int) -> int:
     return -(-n // 128) * 128
+
+
+def _padded(C: int, cluster: int) -> int:
+    """The width the wgmma kernels tile (csrc/block_mlp_common.cuh kPadded)."""
+    step = 64 * cluster
+    return C if C % 32 == 0 else -(-C // step) * step
 
 
 @functools.lru_cache(maxsize=None)
@@ -211,11 +221,13 @@ def tail_plan(C: int, mode: str) -> TailPlan:
     output columns (2 from C = 256), and a producer warpgroup; chunks of
     64 columns of 4C, as many ring stages as the shared memory holds (at
     most 8) beside the u (and kdy) tiles, two g/dh tiles per row tile and
-    the backward's row statistics and column-sum scratch. At C = 768 a
-    cluster of two blocks takes each 64-row tile, each block the tiling of
-    its C / 2 columns, plus the buffer that receives the peer's partial h
-    (and dg); its epilogue's row-sum parts and column-sum scratch reuse the
-    u tile."""
+    the backward's row statistics and column-sum scratch. At C = 432, 512
+    and 768 a cluster of two blocks takes each 64-row tile, each block the
+    tiling of its half of the padded width, plus the buffer that receives
+    the peer's partial h (and dg); its epilogue's row-sum parts and
+    column-sum scratch reuse the u tile. C = 432, not a multiple of 32, is
+    tiled as its padded width 512: 4C = 1728 is 27 whole chunks, and the
+    stages, shared memory and registers are 512's."""
     if mode not in TAIL_MODES:
         raise ValueError(f"tail_plan: unknown mode {mode!r}")
     if C <= 0 or C % 16:
@@ -223,7 +235,8 @@ def tail_plan(C: int, mode: str) -> TailPlan:
     bwd = mode != "fwd"
     if C in WGMMA_WIDTHS:
         cl = TAIL_CLUSTER.get(C, 1)
-        cb = C // cl  # columns of C a block holds
+        cp = _padded(C, cl)
+        cb = cp // cl  # columns of the padded width a block holds
         G = 1 if cb <= 192 else 2
         R = 1 if cb > 192 else 2 if C != 96 else {"fwd": 4, "bwd_input": 3}.get(mode, 2)
         nwg, bm, cw, n1 = R * G, 64 * R, cb // G, 64 // G
@@ -242,7 +255,7 @@ def tail_plan(C: int, mode: str) -> TailPlan:
                  + 256)
         stages = min(8, 2 * (4 * C // 64), (_SMEM_MAX - fixed) // tile)
         return TailPlan("wgmma", bm, 64, threads, G, stages, fixed + stages * tile,
-                        cw // 2 + (n1 if bwd else n1 // 2), regs, 64, cl)
+                        cw // 2 + (n1 if bwd else n1 // 2), regs, 64, cl, cp)
     nt = C // 16
     nw = nt if nt < 6 else (8 if nt % 8 == 0 else (6 if nt % 6 == 0 else 9))
     bm = 64 if C <= 384 else (32 if C <= 768 else 16)
@@ -253,12 +266,12 @@ def tail_plan(C: int, mode: str) -> TailPlan:
     mt = bm // 16
     return TailPlan("wmma", bm, bh, 32 * nw, nw, 0, smem,
                     8 * mt * (nt // nw) + 8 * mt * (2 if bwd else 1),
-                    min(255, 65536 // (32 * nw) // 8 * 8), bm, 1)
+                    min(255, 65536 // (32 * nw) // 8 * 8), bm, 1, C)
 
 
 def _plan_args(C: int, mode: str) -> tuple:
     p = tail_plan(C, mode)
-    return p.rows, p.chunk, p.threads, p.split, p.smem, p.cluster
+    return p.rows, p.chunk, p.threads, p.split, p.smem, p.cluster, p.padded
 
 
 def tail_fusable(C: int, grad_mode: str, wide: bool = False) -> bool:
@@ -382,7 +395,7 @@ def _lib():
     global _lib_handle
     if _lib_handle is None:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        plan = [I] * 6  # rows, chunk, threads, split, smem, cluster
+        plan = [I] * 7  # rows, chunk, threads, split, smem, cluster, padded
         fns = cuda_build.load("block_mlp", {
             "block_mlp_supports": [I],
             "block_mlp_fwd": [I, I, P, P, P, I, P, P, P, P, P, P, P, P, L, *plan, P],

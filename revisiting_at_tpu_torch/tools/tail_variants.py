@@ -1,8 +1,8 @@
-"""Time patched variants of the block tail's C = 768 cluster kernels against
-the kernels as built, in turns, on one GPU: what each part of a chunk of 4C
-costs.
+"""Time patched variants of the block tail's cluster kernels (C = 768, or
+432 and 512 with --width) against the kernels as built, in turns, on one
+GPU: what each part of a chunk of 4C costs.
 
-    python3 -m revisiting_at_tpu_torch.tools.tail_variants
+    python3 -m revisiting_at_tpu_torch.tools.tail_variants [--width 768 | 512 | 432]
 
 Each variant is csrc/ copied to build/tail_variants/<name>/ with a few lines
 replaced, and block_mlp.cu (the forward and the input backward) built from
@@ -17,12 +17,13 @@ it with ops/cuda_build.py's nvcc flags, all builds started together:
     (dg), nor writes the peer's g (dh) tile, and waits on a named barrier
     of its own warpgroups instead of the tile's mbarrier.
 
-All but the first compute wrong results on purpose; each
-variant's error against the plain version is printed beside its time. The
-forward and the input backward are timed at ConvNeXt-T's stage 3 (49 rows
-an image) at batch 200, 80 and 32, on the event clock over ROUNDS rounds in
-turns (the order reversed every other round; medians). Prints one line per
-measurement, with the card's name and power limit.
+All but the first compute wrong results on purpose; each variant's error
+against the plain version is printed beside its time. The forward and the
+input backward are timed at ConvNeXt-T's stage 3 (49 rows an image) at
+batch 200, 80 and 32 (--width 512 and 432: ConvNeXt-B's stage 2 and
+convnext_iso, 196 rows an image at batch 80), on the event clock over
+ROUNDS rounds in turns (the order reversed every other round; medians).
+Prints one line per measurement, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -41,9 +42,8 @@ from revisiting_at_tpu_torch.ops import block_mlp as bm
 from revisiting_at_tpu_torch.ops import cuda_build
 
 ROUNDS = 5
-C = 768
-BATCHES = (200, 80, 32)
-ROWS = 49  # stage 3's rows per image at 224 px
+# the cluster widths: (rows per image at 224 px, batches) of their main path
+WIDTHS = {768: (49, (200, 80, 32)), 512: (196, (80,)), 432: (196, (80,))}
 OUT = cuda_build.BUILD_DIR.parent / "tail_variants"
 
 _LOAD = """    mbar_arrive_expect_tx(&sm.full[st], P::TILE);
@@ -94,7 +94,7 @@ def build() -> dict:
         procs[name] = (d / "lib.so", subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                       stderr=subprocess.PIPE, text=True))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    plan = [I] * 6
+    plan = [I] * 7  # rows, chunk, threads, split, smem, cluster, padded
     sigs = {"block_mlp_supports": [I],
             "block_mlp_fwd": [I, I, P, P, P, I, P, P, P, P, P, P, P, P, L, *plan, P],
             "block_mlp_bwd_input": [I, I, P, P, I, P, P, P, P, P, P, P, L, *plan, P]}
@@ -124,15 +124,21 @@ def time_ms(fn, iters=20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--width", type=int, choices=sorted(WIDTHS), default=768)
+    C = ap.parse_args(argv).width
+    rows, batches = WIDTHS[C]
     if not torch.cuda.is_available():
         print("tail_variants: no GPU", file=sys.stderr)
         return 2
     label = f"[{card()}]"
     libs = build()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for batch in BATCHES:
-        M = ROWS * batch
+    for batch in batches:
+        M = rows * batch
         rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
         s, r, dy = (rnd(M, C).bfloat16() for _ in range(3))
         ln_g, ln_b, b1, b2 = 1.0 + 0.1 * rnd(C), 0.1 * rnd(C), 0.1 * rnd(4 * C), 0.1 * rnd(C)

@@ -2,7 +2,7 @@
 attention forward (or, with --dwconv, the 7x7 depthwise conv's kernels) of
 several trees of the port in turns, on one GPU.
 
-    python3 -m revisiting_at_tpu_torch.tools.tree_compare [--tail-only | --dwconv] TREE [TREE ...]
+    python3 -m revisiting_at_tpu_torch.tools.tree_compare [--tail-only | --wide | --dwconv] TREE [TREE ...]
 
 Each TREE is a checkout of the repository (for example the parent commit
 unpacked by `git archive` into a directory under build/). Its package
@@ -18,7 +18,10 @@ started together. This tree comes last. At the main path's shapes:
     this tree's plain version within
     chip_smoke.py's TOL, with the ms beside the unfused model path's
     (use_pallas=0: cuBLAS matmuls, eager elementwise ops); with
-    --tail-only nothing else is timed;
+    --tail-only nothing else is timed; with --wide in its place the same
+    three kernels at WIDE_SHAPES alone (convnext_iso's C = 432 and
+    ConvNeXt-B's stage-2 C = 512, 196 x 80 rows), only the tail's sources
+    built in each tree;
   * the column reduction (`reduce_cuda`) over the full backward's 15
     partials of ConvNeXt-T's stages 0-2 at batch 80 (the row pass's three
     column sums and the weight pass's two products per stage), and over
@@ -70,8 +73,11 @@ TAIL_TOL = 2e-2
 # and chip_smoke.py's tolerances of its outputs
 DW_SHAPES = [(BATCH, 56, 56, 96), (BATCH, 28, 28, 192), (BATCH, 14, 14, 384)]
 DW_TOL = {"y": 2e-2, "dx": 2e-2, "dw": 3e-6, "db": 2e-6}
+# --wide: (rows per image, C) of convnext_iso (14 x 14 tokens, C = 432) and
+# ConvNeXt-B's stage 2 (C = 512) at 224 px, at BATCH
+WIDE_SHAPES = [(196, 432), (196, 512)]
 HERE = Path(__file__).resolve().parents[2]
-MODES = {"--tail-only": "tail", "--dwconv": "dwconv"}
+MODES = {"--tail-only": "tail", "--wide": "wide", "--dwconv": "dwconv"}
 
 
 def parse_args(argv) -> tuple[str, list[Path]]:
@@ -213,21 +219,26 @@ def model_path(d: dict) -> dict:
                                                          retain_graph=True)}
 
 
-def compare_tail(mods, names, gen, label) -> None:
-    """Each tree's forward, input backward and row pass at the stage shapes,
-    in turns with the other trees and the model path."""
+def compare_tail(mods, names, gen, label, wide=False) -> None:
+    """Each tree's forward, input backward and row pass at the stage shapes
+    (wide: at WIDE_SHAPES), in turns with the other trees and the model
+    path."""
     bm_here = mods[-1][0]
-    shapes = ([("fwd", TAIL_BATCH, rc) for rc in TAIL_STAGES]
-              + [("bwd_input", TAIL_BATCH, rc) for rc in TAIL_STAGES]
-              + [(what, b, TAIL_STAGES[-1]) for what in ("fwd", "bwd_input")
-                 for b in STAGE3_BATCHES]
-              + [("bwd_full_rows", BATCH, rc) for rc in STAGES + [VIT, TAIL_STAGES[-1]]])
+    if wide:
+        shapes = [(what, BATCH, rc) for rc in WIDE_SHAPES
+                  for what in ("fwd", "bwd_input", "bwd_full_rows")]
+    else:
+        shapes = ([("fwd", TAIL_BATCH, rc) for rc in TAIL_STAGES]
+                  + [("bwd_input", TAIL_BATCH, rc) for rc in TAIL_STAGES]
+                  + [(what, b, TAIL_STAGES[-1]) for what in ("fwd", "bwd_input")
+                     for b in STAGE3_BATCHES]
+                  + [("bwd_full_rows", BATCH, rc) for rc in STAGES + [VIT, TAIL_STAGES[-1]]])
     for what, batch, (rows, C) in shapes:
         M = rows * batch
         d = tail_inputs(M, C, gen)
         ref = tail_calls(bm_here, d, M)["plain fwd" if what == "fwd" else "plain bwd"]().float()
         scale = ref.abs().max().item()
-        calls = [tail_calls(bm, d, M)[what] for bm, _, _ in mods]
+        calls = [tail_calls(bm, d, M)[what] for bm, *_ in mods]
         for n, call in zip(names, calls):
             err = (call().float() - ref).abs().max().item()
             if not err <= TAIL_TOL * scale:
@@ -322,13 +333,14 @@ def main(argv=None) -> int:
         print("tree_compare: no GPU", file=sys.stderr)
         return 2
     label = f"[{card()}]"
-    modules = ("dwconv", "cuda_build") if mode == "dwconv" else ("block_mlp", "attention",
-                                                                  "cuda_build")
+    modules = {"dwconv": ("dwconv", "cuda_build"), "wide": ("block_mlp", "cuda_build")}.get(
+        mode, ("block_mlp", "attention", "cuda_build"))
     mods = [load_tree(t, i, modules) for i, t in enumerate(trees)]
     names = [str(t) for t in trees]
-    if mode == "dwconv":  # build the dwconv's source alone in every tree
+    if mode in ("dwconv", "wide"):  # build the sources of the kernels compared alone
+        keep = ("dwconv",) if mode == "dwconv" else ("block_mlp", "block_mlp_bwd")
         for *_, cb in mods:
-            cb.SOURCES = {"dwconv": cb.SOURCES["dwconv"]}
+            cb.SOURCES = {k: cb.SOURCES[k] for k in keep}
     threads = [threading.Thread(target=m[-1].build) for m in mods]
     for b in threads:
         b.start()
@@ -340,6 +352,9 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     if mode == "dwconv":
         compare_dwconv(mods, names, gen, label)
+        return 0
+    if mode == "wide":
+        compare_tail(mods, names, gen, label, wide=True)
         return 0
     bm_here, att_here = mods[-1][0], mods[-1][1]
     compare_tail(mods, names, gen, label)

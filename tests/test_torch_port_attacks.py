@@ -6,6 +6,9 @@ the start and the attack has work to do. Tolerance: the iterates agree to
 1e-4 (f32 gradients through the network differ by ~1e-6 relative; a sign
 step only moves when a gradient component is that close to zero); the
 correctness masks agree exactly; best losses to 1e-4 relative.
+
+CPU time: 32 s of wall time and 60 s of CPU in one pytest process on 8
+cores with an empty JAX compile cache.
 """
 
 import numpy as np
@@ -18,6 +21,8 @@ import torch
 from _torch_port_util import images, model_pair
 from revisiting_at_tpu.attacks import apgd_attack as jax_apgd
 from revisiting_at_tpu_torch.attacks import apgd_attack
+
+torch.set_num_threads(1)
 
 EPS = {"Linf": 8.0 / 255.0, "L2": 0.5}
 

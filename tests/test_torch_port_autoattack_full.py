@@ -16,10 +16,11 @@ Tolerances:
   in test_torch_port_slice.py (1e-4 but for at most 0.1% of its elements,
   each within 2 eps).
 
-CPU time on one core: about 64 s of test time with JAX's persistent
-compile cache warm and 67 s cold; nearly all of it is JAX compiling its
-reference programs: the driver's six (about 15 s), each Square norm's
-init and scan (5-8 s), FAB's scans (about 2 s a norm).
+CPU time: 49 s of wall time and 63 s of CPU in one pytest process on 8
+cores with an empty JAX compile cache; nearly all of it is JAX compiling
+its reference programs: the full run's six (about 15 s), each Square norm's
+init and scan (5-8 s), FAB's scans (about 2 s a norm). The runner's job
+runs torch on one thread, as the tests do.
 """
 
 import json
@@ -46,6 +47,8 @@ from revisiting_at_tpu_torch.evals import (STANDARD_ATTACKS, AutoAttack, AutoAtt
 from revisiting_at_tpu_torch.evals import fab as tfab
 from revisiting_at_tpu_torch.evals import square as tsq
 from revisiting_at_tpu_torch.models import get_model
+
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 T = torch.from_numpy
@@ -304,6 +307,7 @@ def test_runner_dry_run_prints_the_table(capsys):
 
 def test_runner_runs_a_job(run_dir, monkeypatch, capsys):
     monkeypatch.chdir(REPO)  # the job imports the package from the checkout
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the job's torch: one thread, as this process
     runner.main(["--runs", str(run_dir), "--l_norms", "L1", "--img_sizes", "32", "--n_ex", "2",
                  "--batch_size", "2", "--full_aa", "1", "--", "--torch_ckpt",
                  str(run_dir / "w.pt"), "--device", "cpu", "--synthetic", "--n_iter", "1",

@@ -1,8 +1,10 @@
 """Port parity of the 7x7 depthwise conv (revisiting_at_tpu_torch/ops/dwconv.py)
 and of ConvNeXt with `use_pallas_dwconv` against the JAX package on the CPU,
 where the port runs the kernels' plain versions and JAX its Pallas kernels
-in interpret mode. Inputs come from numpy with a seed; about 60 s of CPU
-time on one core, most of it JAX's interpret-mode compiles.
+in interpret mode. Inputs come from numpy with a seed. CPU time: 89 s of
+wall time and 154 s of CPU in one pytest process on 8 cores with an empty
+JAX compile cache, most of it JAX's interpret-mode compiles (the ConvNeXt
+route's logits and input gradient come from one JAX program).
 
 Tolerances, relative to max |ref|:
   * f32 maps: 1e-5. Both sides read x, dy and the weights as f32 and add
@@ -162,9 +164,12 @@ def test_convnext_dwconv_route_matches_jax(use_pallas, tol):
         input_grad_view(tm)
     x = images()
     y = np.arange(len(x)) % NCLS
-    fwd = jax.jit(lambda xx: jm.apply({"params": params}, xx, train=False))
-    lj = fwd(jnp.asarray(x))
-    gj = jax.jit(jax.grad(lambda xx: jnp.sum(jax_ce(fwd(xx), jnp.asarray(y)))))(jnp.asarray(x))
+
+    def loss(xx):  # logits and input gradient from one JAX program
+        logits = jm.apply({"params": params}, xx, train=False)
+        return jnp.sum(jax_ce(logits, jnp.asarray(y))), logits
+
+    (_, lj), gj = jax.jit(jax.value_and_grad(loss, has_aux=True))(jnp.asarray(x))
     xt = T(x).requires_grad_(True)
     lt = tm(xt)
     ce_indiv(lt, T(y)).sum().backward()

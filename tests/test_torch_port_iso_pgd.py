@@ -2,8 +2,9 @@
 (models/convnext.py ConvNeXtIsotropic, the convnext_iso factory entry and
 converter, attacks/pgd.py, attacks/wrapped.py) against the JAX package on
 the CPU, with the same weights (ckpt/convert.py) and JAX's random draws
-injected. About 60 s of CPU time on one core, most of it JAX compiling
-the full-width factory models and the interpret-mode kernels.
+injected. CPU time: 101 s of wall time and 147 s of CPU in one pytest
+process on 8 cores with an empty JAX compile cache, most of it JAX
+compiling the full-width factory models and the interpret-mode kernels.
 
 Tolerances, relative to the largest reference value, in fp32:
   * the full-width factory models (updated 0 and 1, ConvStem, 18 blocks,
@@ -167,11 +168,12 @@ def test_iso_kernel_path_matches_jax():
     x, y = images(n=2), np.array([3, 5])
     yj = jnp.asarray(y)
 
-    def loss(params, xx):
-        return jnp.sum(jax_ce(jm.apply({"params": params}, xx), yj))
+    def loss(params, xx):  # logits and both gradients from one JAX program
+        logits = jm.apply({"params": params}, xx)
+        return jnp.sum(jax_ce(logits, yj)), logits
 
-    logits = jax.jit(lambda xx: jm.apply(v, xx))(jnp.asarray(x))
-    gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(v["params"], jnp.asarray(x))
+    (_, logits), (gp, gx) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))(
+        v["params"], jnp.asarray(x))
     xt = T(x).requires_grad_(True)
     lt = tm(xt)
     ce_indiv(lt, T(y)).sum().backward()

@@ -6,6 +6,9 @@ both frameworks, so they agree to f32 rounding of differently ordered sums
 (rtol 1e-5). The block tail casts matmul operands to bf16 in both; a
 one-ulp difference in an f32 LayerNorm statistic can flip one bf16
 rounding, so it is held to 2e-3 of the largest output.
+
+CPU time: 33 s of wall time and 33 s of CPU in one pytest process on 8
+cores with an empty JAX compile cache.
 """
 
 import numpy as np
@@ -384,19 +387,30 @@ def _header():
 
 def test_tail_plan_mirrors_the_source():
     """tail_plan's constants are the header's: the widths built, those that
-    take the wgmma design (kWgmma), those launched in clusters with the
-    blocks per cluster (kCluster), the row padding (kRowPad) and the
-    producer warpgroup's registers (kProducerRegs)."""
+    take the wgmma design (kWgmma: convnext_iso's 432 and ConvNeXt-B's 512
+    among them), those launched in clusters with the blocks per cluster
+    (kCluster), the padded width (kPadded: C where C is a multiple of 32,
+    else C rounded up to 64-column boxes in every block of the cluster), the
+    row padding (kRowPad) and the producer warpgroup's registers
+    (kProducerRegs)."""
     import re
 
     src = _header()
     assert _built_widths() == list(BUILT_WIDTHS)
     line = next(ln for ln in src.splitlines() if "constexpr bool kWgmma = " in ln)
     assert tuple(int(w) for w in re.findall(r"C == (\d+)", line)) == tbm.WGMMA_WIDTHS
+    assert {432, 512} <= set(tbm.WGMMA_WIDTHS)
     line = next(ln for ln in src.splitlines() if "constexpr int kCluster = " in ln)
     size = int(re.search(r"\? (\d+) : 1;", line)[1])
     assert {int(w): size for w in re.findall(r"C == (\d+)", line)} == tbm.TAIL_CLUSTER
     assert set(tbm.TAIL_CLUSTER) <= set(tbm.WGMMA_WIDTHS)
+    line = next(ln for ln in src.splitlines() if "constexpr int kPadded = " in ln)
+    assert "C % 32 == 0 ? C : (C + 64 * kCluster<C> - 1) / (64 * kCluster<C>) * " \
+           "(64 * kCluster<C>)" in line
+    for C in tbm.WGMMA_WIDTHS:
+        step = 64 * tbm.TAIL_CLUSTER.get(C, 1)
+        want = C if C % 32 == 0 else -(-C // step) * step
+        assert all(tbm.tail_plan(C, m).padded == want for m in tbm.TAIL_MODES), C
     assert re.search(r"constexpr int kRowPad = (\d+);", src)[1] == str(tbm.ROW_PAD)
     assert re.search(r"kProducerRegs = (\d+)", src)[1] == str(tbm._PRODUCER_REGS)
 
@@ -410,9 +424,12 @@ def test_tail_plan_fits_the_card(C, mode):
     addresses; the row pass's rows per block and per column-sum row
     dividing the row padding (itself whole 64-row stages of the weight
     pass). The main
-    path's widths (96, 192, 384, 768) take the TMA + wgmma design in every
-    mode, 768 in clusters of two blocks, each with the tiling of its half of
-    C and, in the backward, at least two ring stages."""
+    path's widths (96, 192, 384, 768, convnext_iso's 432 and ConvNeXt-B's
+    512) take the TMA + wgmma design in every mode, 432, 512 and 768 in
+    clusters of two blocks, each with the tiling of its half of the padded
+    width and, in the backward, at least two ring stages. The wgmma tiling's
+    width conditions hold on the padded width: 432 is tiled as 512, the
+    other widths as themselves; the WMMA kernels tile C itself."""
     p = tbm.tail_plan(C, mode)
     assert p.design == ("wgmma" if C in tbm.WGMMA_WIDTHS else "wmma")
     assert p.cluster == tbm.TAIL_CLUSTER.get(C, 1)
@@ -428,14 +445,21 @@ def test_tail_plan_fits_the_card(C, mode):
         # setmaxnreg moves registers within the block's launch allocation
         pool = p.threads * (65536 // p.threads // 8 * 8)
         assert p.regs * 128 * (p.threads // 128 - 1) + tbm._PRODUCER_REGS * 128 <= pool
-        assert 2 <= p.stages <= 8 and C % 32 == 0 and (C // p.cluster // p.split) % 32 == 0
+        assert 2 <= p.stages <= 8 and p.padded % 32 == 0
+        assert (p.padded // p.cluster // p.split) % 32 == 0
+        # the pad: none at a multiple of 32, else less than the last block's columns
+        assert (p.padded == C) == (C % 32 == 0)
+        assert C <= p.padded < C + p.padded // p.cluster and C % 8 == 0
         assert p.part_rows == 64
         if p.cluster > 1:  # a cluster's blocks share one 64-row tile
             assert p.cluster == 2 and p.rows == 64 and p.cluster <= 8
     else:
         assert p.stages == 0 and p.part_rows == p.rows and p.threads <= 1024
-    if C in (96, 192, 384, 768):
+        assert p.padded == C
+    if C in (96, 192, 384, 432, 512, 768):
         assert p.design == "wgmma"
+    if C in (432, 512, 768):
+        assert p.cluster == 2
 
 
 def test_tail_plan_main_path_values():
@@ -446,7 +470,10 @@ def test_tail_plan_main_path_values():
     split over two warpgroups like C = 384, with three ring stages in the
     forward and two in the backward; the ring as deep as shared memory
     allows; the row pass's column sums a row per 64-row tile, so 3920, 980
-    and 246 rows at batch 80 (ViT-S: 248)."""
+    and 246 rows at batch 80 (ViT-S: 248). convnext_iso's 432 and
+    ConvNeXt-B's 512 run one plan, 512's: a cluster of two blocks a 64-row
+    tile, each block 256 columns over two warpgroups, five ring stages in the
+    forward and four in the backward (432: 80 of its 512 columns pad)."""
     assert tbm.tail_plan(96, "fwd")[:7] == ("wgmma", 256, 64, 640, 1, 6, 230656)
     assert tbm.tail_plan(96, "bwd_input")[:7] == ("wgmma", 192, 64, 512, 1, 5, 232192)
     assert tbm.tail_plan(96, "bwd_full_rows")[:7] == ("wgmma", 128, 64, 384, 1, 7, 225536)
@@ -457,6 +484,12 @@ def test_tail_plan_main_path_values():
     assert [tbm.tail_plan(768, m)[:7] + (tbm.tail_plan(768, m).cluster,) for m in tbm.TAIL_MODES] \
         == [("wgmma", 64, 64, 384, 2, 3, 222464, 2), ("wgmma", 64, 64, 384, 2, 2, 231168, 2),
             ("wgmma", 64, 64, 384, 2, 2, 232192, 2)]
+    for C in (432, 512):
+        assert [tuple(tbm.tail_plan(C, m)[i] for i in (1, 2, 3, 4, 5, 6, 10, 11))
+                for m in tbm.TAIL_MODES] == [(64, 64, 384, 2, 5, 222464, 2, 512),
+                                             (64, 64, 384, 2, 4, 231168, 2, 512),
+                                             (64, 64, 384, 2, 4, 232192, 2, 512)]
+    assert tbm.tail_plan(768, "fwd").padded == 768 and tbm.tail_plan(1024, "fwd").padded == 1024
     parts = [_row_pad(M) // tbm.tail_plan(C, "bwd_full_rows").part_rows
              for M, C in [(3136 * 80, 96), (784 * 80, 192), (196 * 80, 384), (197 * 80, 384)]]
     assert parts == [3920, 980, 246, 248]
@@ -464,3 +497,22 @@ def test_tail_plan_main_path_values():
         tbm.tail_plan(96, "bwd")
     with pytest.raises(ValueError):
         tbm.tail_plan(100, "fwd")
+
+
+@pytest.mark.parametrize("C", BUILT_WIDTHS)
+def test_w1_layout_follows_the_design(C):
+    """The wrappers hand the wgmma widths (convnext_iso's 432 and
+    ConvNeXt-B's 512 among them) W1^T [4C, C], a view where W1 is the
+    transpose of a contiguous [4C, C] as the models pass it, and the WMMA
+    widths W1 [C, 4C]; both contiguous, the same values."""
+    w1 = torch.from_numpy(np.random.RandomState(C).randn(4 * C, C).astype(np.float32)).t()
+    w1_16 = tbm._bf16_t(w1)  # what the dispatch passes: [C, 4C], transposed storage
+    for mode in tbm.TAIL_MODES:
+        got = tbm._w1_layout(w1_16, C, mode)
+        wgmma = C in tbm.WGMMA_WIDTHS
+        assert tbm.tail_plan(C, mode).design == ("wgmma" if wgmma else "wmma")
+        assert got.is_contiguous() and got.dtype == torch.bfloat16
+        assert tuple(got.shape) == ((4 * C, C) if wgmma else (C, 4 * C))
+        assert torch.equal(got.t() if wgmma else got, w1.bfloat16())
+        if wgmma:
+            assert got.data_ptr() == w1_16.data_ptr()  # no copy

@@ -10,6 +10,9 @@ two frameworks agree to ~5e-7 relative, but over some 20 gradient
 evaluations of 24,576 pixels a component close enough to zero can take the
 other sign; momentum then carries that one-step difference to a few
 neighbouring iterates (7 of 24,576 elements in this setup).
+
+CPU time: 31 s of wall time and 48 s of CPU in one pytest process on 8
+cores with an empty JAX compile cache.
 """
 
 import json
@@ -31,6 +34,8 @@ from revisiting_at_tpu_torch.ckpt.convert import save_torch_checkpoint
 from revisiting_at_tpu_torch.cli import eval as eval_cli
 from revisiting_at_tpu_torch.evals import AutoAttack, AutoAttackConfig
 from revisiting_at_tpu_torch.models import get_model
+
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -2,7 +2,7 @@
 CPU: the ptxas report parser and comparison, the slice counts the
 weight-pass sweep tries, the source lines the tail's and the dwconv's
 variant timings patch, and the tree comparison's modes and dwconv shapes. None needs a GPU
-for what is checked here.
+for what is checked here. CPU time: 9 s in one pytest process.
 """
 
 from pathlib import Path
@@ -15,6 +15,8 @@ from revisiting_at_tpu_torch.ops import block_mlp as tbm
 from revisiting_at_tpu_torch.ops import dwconv as tdw
 from revisiting_at_tpu_torch.tools import (dwconv_variants, ptxas_compare, tail_variants,
                                            tree_compare, wgrad_slices)
+
+torch.set_num_threads(1)
 
 # two entries as nvcc's ptxas prints them; the anonymous namespace carries
 # a per-build hash (a9690f21 / 058fe1ae here)
@@ -94,12 +96,23 @@ def test_tail_variants_patch_lines_of_the_source(name):
 @pytest.mark.parametrize("argv,mode", [(["build/parent"], "all"),
                                        (["--tail-only", "build/parent"], "tail"),
                                        (["--dwconv", "build/parent"], "dwconv"),
-                                       (["build/parent", "--dwconv"], "dwconv")])
+                                       (["build/parent", "--dwconv"], "dwconv"),
+                                       (["--wide", "build/parent"], "wide")])
 def test_tree_compare_modes(argv, mode):
     """A flag anywhere picks the mode; the trees keep their order and this
     tree comes last."""
     got, trees = tree_compare.parse_args(argv)
     assert got == mode and trees == [Path("build/parent"), tree_compare.HERE]
+
+
+def test_tree_compare_wide_shapes_are_iso_and_convnext_b_stage_2():
+    """--wide times convnext_iso's and ConvNeXt-B stage 2's shape: 196 rows
+    an image (14 x 14 at 224 px) at C = 432 and 512, both wgmma widths in
+    clusters of two blocks, at the training batch."""
+    assert tree_compare.WIDE_SHAPES == [(chip_smoke.ISO_ROWS, chip_smoke.ISO_C), (196, 512)]
+    assert tree_compare.BATCH == chip_smoke.TRAIN_BATCH
+    for _, C in tree_compare.WIDE_SHAPES:
+        assert {tbm.tail_plan(C, m).cluster for m in tbm.TAIL_MODES} == {2}
 
 
 def test_tree_compare_refuses_two_modes():

@@ -24,11 +24,12 @@ Tolerances:
   * the orbax reader and the .pt bridge: logits within 1e-5 of max |logit|
     (the same f32 weights through two frameworks' plain paths).
 
-CPU time on one core: about 55 s of test time with JAX's persistent compile
-cache warm (about 70 s of wall time with the imports), most of it JAX
-compiling its reference programs (the MultiSteps step about 11 s, two APGD
-evaluations, the models' forwards), the two cli.runner subprocesses (about
-8 s) and the port's training runs (about 1-2 s each).
+CPU time: 84 s of wall time and 111 s of CPU in one pytest process on 8
+cores with an empty JAX compile cache, most of it JAX compiling its
+reference programs (the MultiSteps step about 11 s, two APGD evaluations,
+the models' forwards), the two cli.runner subprocesses (about 8 s; torch
+on one thread there, as here) and the port's training runs (about 1-2 s
+each).
 """
 
 import functools
@@ -568,9 +569,10 @@ def test_port_weights_load_into_jax(root, kind):
     assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
-def test_runner_over_a_port_run_and_a_jax_run(root, jax_runs, capfd):
+def test_runner_over_a_port_run_and_a_jax_run(root, jax_runs, capfd, monkeypatch):
     """cli.runner runs one job per run, each reading its own checkpoint (a
     port run's .pt, a JAX run's orbax snapshot), with no --torch_ckpt."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the jobs' torch: one thread, as this process
     runs = [str(_trained("convnext_micro", root)), str(jax_runs["convnext_micro"][0])]
     runner.main(["--runs", *runs, "--l_norms", "Linf", "--img_sizes", "32", "--n_ex", "2",
                  "--batch_size", "2", "--", "--device", "cpu", "--synthetic", "--n_iter", "1",
