@@ -17,9 +17,12 @@ Phases, each fatal on failure:
      ragged with a keep); both also at a ragged M, in f32 once, with a
      per-sample keep once, at the other widths built (ConvNeXt-B/L), at
      convnext_iso's C = 432 and ConvNeXt-B's stage-2 C = 512 (196 rows an
-     image: batch 32, the full backward at batch 80, ragged with a keep, f32)
-     and at the micro models' C = 16, 32, 64; the first launch of each
-     cluster kernel (C = 432, 512, 768) under a watchdog; the weight pass with
+     image: batch 32, the full backward at batch 80, ragged with a keep, f32),
+     at ConvNeXt-B's stage-3 C = 1024 (49 rows an image: batch 32 and 80,
+     ragged with a keep, f32) and at the micro models' C = 16, 32, 64 (padded
+     to 64); the first launch of each cluster kernel (C = 432, 512, 768 in
+     clusters of two, 1024 in clusters of four; its plan and the clusters the
+     card holds at a time logged) under a watchdog; the weight pass with
      its reduction alone, both products, at WGRAD_CASES (the stage shapes, a
      ragged M, ViT-S, C = 432, every other width); the attention forward and
      backward (dq, dk, dv) at ATT_CASES (ViT-S, M and B at batch 80 and 197
@@ -36,9 +39,10 @@ Phases, each fatal on failure:
      a watchdog); each output within its own tolerance (TOL). Two
      launches must give the same bits (every kernel), the full backward's
      row pass must give the input backward's ds bit for bit (stages 0-2
-     at batch 80, C = 432, 512 and 768, ragged M with a keep), and seven
-     planted faults (one block's partial h left out of the C = 768 and
-     C = 512 clusters' exchange, the C = 432 forward's LayerNorm statistics taken
+     at batch 80, C = 432, 512, 768 and 1024, ragged M with a keep), and
+     eight planted faults (the last block's partial h left out of rank 0's
+     columns in the C = 768, 512 and 1024 clusters' exchange, the C = 432
+     forward's LayerNorm statistics taken
      over its padded 512 columns, a slice of M left out of dW1, a row group left
      out of db1, one zero key past N left unmasked in the attention, a
      dwconv band's top halo row read as zero, one block's partial left out
@@ -199,13 +203,14 @@ Phases, each fatal on failure:
      ConvNeXt-B-CvSt (convnext_base, ConvStem, 88.75 M parameters: stage 2
      is 27 blocks at C = 512) at 224 px, batch 80, 2 warm-up steps, then in
      turns with use_pallas=0, the tail's kernels launched 141, 72, 33, 66
-     and 165 times a step, the kernel step profiled; one step against the
-     CPU at batch 2.
+     and 165 times a step, the kernel step profiled (the tail's row kernels
+     also by width: stage 3's C = 1024 forward and input backward 9 and 6
+     times a step); one step against the CPU at batch 2.
      The tail's times at the iso shape (M = 196 x 80, C = 432) and at
-     ConvNeXt-B's stage 2 (M = 196 x 80, C = 512): forward, input backward,
-     full backward, beside their bounds, plain versions and the model path,
-     go into the kernels line (`iso432`, `c512`), each kernel with its
-     `design` there.
+     ConvNeXt-B's stages 2 (M = 196 x 80, C = 512) and 3 (M = 49 x 80, C =
+     1024): forward, input backward, full backward, beside their bounds,
+     plain versions and the model path, go into the kernels line
+     (`iso432`, `c512`, `c1024`), each kernel with its `design` there.
  20. the distributed paths (parallel/): (a) under a one-rank NCCL process
      group, `cli.train.main` on ConvNeXt-T-CvSt (224 px, batch 80,
      use_pallas=1, 4 synthetic batches; the tail's five kernels must
@@ -251,6 +256,7 @@ import argparse
 import datetime
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -307,6 +313,10 @@ WGRAD_CASES = [("stage 0", 3136 * TRAIN_BATCH, 96), ("stage 1", 784 * TRAIN_BATC
                ("C=128", 3136 + 40, 128), ("C=256", 784 + 40, 256), ("C=512", 196 * 2 + 8, 512),
                ("C=768", 49 * 2 + 5, 768), ("C=1024", 49 * 2 + 5, 1024),
                ("C=16", 3136 * 2 + 40, 16), ("C=32", 784 * 2 + 8, 32), ("C=64", 196 * 4 + 5, 64)]
+# widths whose tail kernels phase 3 also checks for the same bits over two
+# launches (beside the first case): the cluster widths and the smallest
+# padded one
+BITWISE_WIDTHS = (16, 432, 512, 768, 1024)
 # the port's CUDA kernels (anonymous namespace of csrc/*.cu), for profiles
 TAIL_KERNEL_NAMES = ("fwd_kernel", "bwd_kernel", "wgrad_kernel", "reduce_kernel")
 ATT_KERNEL_NAMES = ("attn_fwd_kernel", "attn_bwd_rows_kernel", "attn_bwd_cols_kernel")
@@ -906,7 +916,7 @@ def _profile_once(torch, what: str, fn, n: int, label: str):
         wall = (time.time() - t0) * 1000 / n
     families = {"attention kernels": 0.0, "tail kernels": 0.0, "dwconv kernels": 0.0,
                 "gemm": 0.0, "conv": 0.0, "other": 0.0}
-    top = []
+    top, tail_kernels = [], {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.key == "augment":
             continue  # "augment": the step's span on the device, not a kernel
@@ -919,6 +929,7 @@ def _profile_once(torch, what: str, fn, n: int, label: str):
             families["dwconv kernels"] += us
         elif any(f"(anonymous namespace)::{k}" in name for k in TAIL_KERNEL_NAMES):
             families["tail kernels"] += us
+            tail_kernels[name] = (us / 1000, e.count / n)
         elif any(k in low for k in ("conv", "dgrad", "wgrad", "fprop", "cudnn", "implicit")):
             families["conv"] += us
         elif any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet")):
@@ -946,7 +957,30 @@ def _profile_once(torch, what: str, fn, n: int, label: str):
         + "; top: " + "; ".join(f"{name} {us / 1000:.2f} ms" for us, name in top[:6])
         + f" {label}")
     out = {k: v / 1000 for k, v in families.items()}
-    out.update(wall=wall, device=device, library_depthwise=lib_dw / 1000, augment=aug / 1000)
+    out.update(wall=wall, device=device, library_depthwise=lib_dw / 1000, augment=aug / 1000,
+               tail_kernels=tail_kernels)
+    return out
+
+
+# a tail row kernel's name in a profile: kernel, width, I/O type, and FULL
+# for bwd_kernel (the row pass: true, the input backward: false)
+TAIL_TEMPLATE = re.compile(r"::(fwd_kernel|bwd_kernel)<(\d+), [\w:]+(?:, (true|false))?>")
+
+
+def tail_by_width(prof, C: int) -> dict:
+    """{LAUNCHES key: (device ms, launches) per call} of the tail's row
+    kernels at width C in a profile_breakdown result ({} when it saw no
+    device time): the forward, the input backward and the row pass, each
+    summed over its I/O types."""
+    out = {}
+    for name, (ms, count) in ((prof or {}).get("tail_kernels") or {}).items():
+        m = TAIL_TEMPLATE.search(name)
+        if m is None or int(m[2]) != C:
+            continue
+        key = {"fwd_kernel": "fwd", "false": "bwd_input", "true": "bwd_full_rows"}[
+            m[1] if m[3] is None else m[3]]
+        ms0, count0 = out.get(key, (0.0, 0.0))
+        out[key] = (ms0 + ms, count0 + count)
     return out
 
 
@@ -2435,15 +2469,21 @@ ISO_PER_STEP = {"block_mlp_fwd": tail_forwards_per_step(18, 18, False),
 B_PER_STEP = {"block_mlp_fwd": tail_forwards_per_step(36, 33, False),
               "block_mlp_bwd_input": ATTACK_ITERS * 36, "block_mlp_bwd_full_rows": 33,
               "block_mlp_wgrad": 2 * 33, "block_mlp_reduce": 5 * 33}
+# of those, stage 3's (C = 1024, the clusters of four): its 3 blocks in the
+# attack only
+B_PER_STEP_1024 = {"block_mlp_fwd": tail_forwards_per_step(3, 0, False),
+                   "block_mlp_bwd_input": ATTACK_ITERS * 3, "block_mlp_bwd_full_rows": 0}
 
 
 def convnext_b_phase(torch, np, seed, label) -> dict:
     """Phase 19 (d): phase 6's step on ConvNeXt-B-CvSt (convnext_base,
     not_original=1, random weights from the seed, LayerScale from U(0.1, 1))
     at 224 px, batch 80: 2 warm-up steps, then in turns with use_pallas=0,
-    B_PER_STEP's tail launches a step, the kernel step profiled; one step
-    against the CPU at batch 2. Returns the tail's launches per step of the
-    kernel step."""
+    B_PER_STEP's tail launches a step, the kernel step profiled (its tail
+    row kernels split by width); one step against the CPU at batch 2.
+    Returns the tail's launches per step of the kernel step, and the C =
+    1024 kernels' launches per step as the profile counts them (None: not
+    measured)."""
     from revisiting_at_tpu_torch.models import get_model
 
     t0 = time.time()
@@ -2477,9 +2517,19 @@ def convnext_b_phase(torch, np, seed, label) -> dict:
             f"5: {', '.join('%.2f' % t for t in v)}) {label}")
         if not np.isfinite(losses[name]).all():
             raise AssertionError(f"ConvNeXt-B {name}-tail step: non-finite loss {losses[name]}")
-    profile_breakdown(torch, f"phase 19 (d) ConvNeXt-B train step B={TRAIN_BATCH} (kernel tail), "
-                      f"per step", lambda: steps["kernel"][1](steps["kernel"][0], xb, yb), 3,
-                      label)
+    prof = profile_breakdown(torch, f"phase 19 (d) ConvNeXt-B train step B={TRAIN_BATCH} "
+                             f"(kernel tail), per step",
+                             lambda: steps["kernel"][1](steps["kernel"][0], xb, yb), 3, label)
+    for C in (128, 256, 512, 1024):
+        for k, (ms, count) in sorted(tail_by_width(prof, C).items()):
+            log(f"phase 19 (d) tail {k} at C={C}: {ms:.2f} ms of device time a step, "
+                f"{count:.2f} launches a step {label}")
+    by_width = tail_by_width(prof, 1024)
+    per_step_1024 = {f"block_mlp_{k}": (round(by_width.get(k, (0.0, 0.0))[1]) if prof else None)
+                     for k in ("fwd", "bwd_input", "bwd_full_rows")}
+    if prof and per_step_1024 != B_PER_STEP_1024:
+        log(f"phase 19 (d): the profile counts {per_step_1024} C = 1024 launches a step, "
+            f"not {B_PER_STEP_1024} (the profiler can miss kernels as tracing starts)")
     del steps, xb, yb
     torch.cuda.empty_cache()
     t1 = time.time()
@@ -2488,7 +2538,7 @@ def convnext_b_phase(torch, np, seed, label) -> dict:
                                    "stages.2.blocks.26.mlp.fc2.weight"))
     log(f"phase 19 (d): {time.time() - t0:.1f} s, the step against the CPU "
         f"{time.time() - t1:.1f} s of it")
-    return per_step
+    return per_step, per_step_1024
 
 
 def iso_init(torch, seed: int, updated: bool) -> dict:
@@ -2500,17 +2550,18 @@ def iso_init(torch, seed: int, updated: bool) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def wide_tail_timings(torch, bm, gen, label, C) -> dict:
-    """The block tail at 196 x 80 rows of width C: convnext_iso's shape (C =
-    432) or ConvNeXt-B's stage 2 (C = 512), both on the cluster-of-two TMA +
-    wgmma kernels: forward and input backward beside their plain versions
-    (in turns p, k, k, p), the plain model path's tail (bf16 cuBLAS, erf
-    GELU) and bounds as phase 8 books them; the full backward (row pass,
-    weight passes and reductions) beside its plain version and the model
-    path's weight backward, bound as _bwd_kernel's work."""
+def wide_tail_timings(torch, bm, gen, label, C, rows) -> dict:
+    """The block tail at `rows` x 80 rows of width C: convnext_iso's shape
+    (C = 432, 196 rows an image), ConvNeXt-B's stage 2 (C = 512, 196) or
+    stage 3 (C = 1024, 49), on the cluster kernels (two blocks, four at
+    1024): forward and input backward beside their plain versions (in turns
+    p, k, k, p), the plain model path's tail (bf16 cuBLAS, erf GELU) and
+    bounds as phase 8 books them; the full backward (row pass, weight passes
+    and reductions) beside its plain version and the model path's weight
+    backward, bound as _bwd_kernel's work."""
     from revisiting_at_tpu_torch.models.convnext import plain_tail
 
-    M = ISO_ROWS * TRAIN_BATCH
+    M = rows * TRAIN_BATCH
     tag = "iso" if C == ISO_C else f"C={C}"
     d = tail_inputs(torch, M, C, torch.bfloat16, gen)
     s_in, r_in = d["s"].clone().requires_grad_(True), d["r"].clone().requires_grad_(True)
@@ -3519,6 +3570,10 @@ def main(argv=None) -> int:
     # the other widths built for ConvNeXt-B/L, at a few ragged tiles each
     cases += [(3136 + 40, 128, torch.bfloat16, 0), (784 + 40, 256, torch.bfloat16, 0),
               (49 * 2 + 5, 1024, torch.bfloat16, 0)]
+    # ConvNeXt-B's stage 3 (C = 1024, clusters of four blocks) at APGD-CE's
+    # and the training batch, ragged at 147 rows with a per-sample keep, f32
+    cases += [(49 * 32, 1024, torch.bfloat16, 0), (49 * TRAIN_BATCH, 1024, torch.bfloat16, 0),
+              (49 * 3, 1024, torch.bfloat16, 49), (49 * 4, 1024, torch.float32, 0)]
     # convnext_iso's C = 432 (14x14 tokens) and ConvNeXt-B's stage 2 (C =
     # 512, 196 rows an image), both clusters of two blocks on 512's tiling:
     # batch 32, ragged with a keep, f32
@@ -3535,8 +3590,12 @@ def main(argv=None) -> int:
     # the first launch of each cluster kernel under a watchdog: a block
     # whose peer never arrives, a ring stage whose bytes never land (or a
     # setmaxnreg raise past the pool) waits forever, and the process ends
-    # with a message instead
-    for C, rows in ((768, 49), (ISO_C, ISO_ROWS), (512, ISO_ROWS)):
+    # with a message instead. The plan and the clusters the card holds at a
+    # time (a wave) are logged.
+    for C, rows in ((768, 49), (ISO_C, ISO_ROWS), (512, ISO_ROWS), (1024, 49)):
+        for which in bm.TAIL_MODES:
+            log(f"plan {which} C={C}: {bm.tail_plan(C, which)}; "
+                f"{bm.tail_max_clusters(C, which)} clusters at a time")
         d = tail_inputs(torch, rows * 3, C, torch.bfloat16, gen, rows)
         for which in ("fwd", "bwd_input"):
             first_launch(torch, f"{which} C={C} (cluster of {bm.tail_plan(C, which).cluster})",
@@ -3554,28 +3613,30 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             what = f"{which} M={M} C={C} {dtype} keep={bool(keep_rows)}"
             err[which] = max(err[which], check(torch, what, got, ref, TOL[which]))
-            if (i == 0 or C in (432, 512, 16, 768)) and not torch.equal(
+            if (i == 0 or C in BITWISE_WIDTHS) and not torch.equal(
                     got, run_tail(bm, d, which, kernel=True)):
                 raise AssertionError(f"{what}: two launches differ")
-        if i == 0 or C in (432, 512, 16, 768):
+        if i == 0 or C in BITWISE_WIDTHS:
             log(f"fwd, bwd_input M={M} C={C}: bitwise equal over two launches")
         if (M, C) == (ISO_ROWS * 32, ISO_C):
             planted_fault(f"fwd with the LayerNorm statistics over the padded 512 columns, "
                           f"M={M} C={C}", padded_ln_forward(torch, bm, d, 512),
                           run_tail(bm, d, "fwd", kernel=False), TOL["fwd"])
-        if (M, C) in ((49 * 32, 768), (ISO_ROWS * 32, 512)):
+        if (M, C) in ((49 * 32, 768), (ISO_ROWS * 32, 512), (49 * 32, 1024)):
             # planted fault: one block's partial h left out of the exchange.
-            # Rank 0 of each cluster finalises the 16 columns of each 32 of
-            # 4C that start at a multiple of 32; W1 zero in rank 1's half of C
-            # (rows 384..767 at 768, 256..511 at 512) for those columns is
+            # In a cluster of cl blocks, rank 0 finalises the 32 / cl columns
+            # of each 32 of 4C that start at a multiple of 32 (one warpgroup's
+            # share); W1 zero in the last rank's part of C (rows 384..767 at
+            # 768, 256..511 at 512, 768..1023 at 1024) for those columns is
             # exactly that block's partial missing from their h
+            cl = bm.tail_plan(C, "fwd").cluster
             w1_bad = d["w1"].clone()
-            w1_bad[C // 2:, torch.arange(4 * C, device="cuda") % 32 < 16] = 0
+            w1_bad[C - C // cl:, torch.arange(4 * C, device="cuda") % 32 < 32 // cl] = 0
             bad = bm.fwd_cuda(d["s"], d["r"], d["keep"], d["rows"], d["ln_g"], d["ln_b"],
                               w1_bad.bfloat16(), d["b1"], d["w2"].bfloat16(), d["b2"], d["gamma"])
             torch.cuda.synchronize()
-            planted_fault(f"fwd without rank 1's partial h in rank 0's columns, M={M} C={C}",
-                          bad, run_tail(bm, d, "fwd", kernel=False), TOL["fwd"])
+            planted_fault(f"fwd without rank {cl - 1}'s partial h in rank 0's columns, M={M} "
+                          f"C={C}", bad, run_tail(bm, d, "fwd", kernel=False), TOL["fwd"])
             del w1_bad, bad
     # the full backward: ConvNeXt-T's stages 0-2 at the training batch, where
     # tail_fusable(C, "full") admits the kernel, then ragged M, f32 I/O, a
@@ -3585,9 +3646,12 @@ def main(argv=None) -> int:
                    (784 * 2, 192, torch.float32, 0), (196 * 4, 384, torch.bfloat16, 196),
                    (3136 + 40, 128, torch.bfloat16, 0), (784 + 40, 256, torch.bfloat16, 0),
                    (49 * 2 + 5, 768, torch.bfloat16, 0), (49 * 2 + 5, 1024, torch.bfloat16, 0)]
-    # C = 768 (wide_tail's row pass, clusters of two blocks) at the training
-    # batch, and ragged (147 rows) with a keep
-    full_cases += [(49 * TRAIN_BATCH, 768, torch.bfloat16, 0), (49 * 3, 768, torch.bfloat16, 49)]
+    # C = 768 and 1024 (wide_tail's row pass, clusters of two and four
+    # blocks) at the training batch, and ragged (147 rows) with a keep; 1024
+    # also in f32
+    full_cases += [(49 * TRAIN_BATCH, 768, torch.bfloat16, 0), (49 * 3, 768, torch.bfloat16, 49),
+                   (49 * TRAIN_BATCH, 1024, torch.bfloat16, 0),
+                   (49 * 3, 1024, torch.bfloat16, 49), (49 * 4, 1024, torch.float32, 0)]
     # convnext_iso's C = 432 and ConvNeXt-B's stage 2 (C = 512) at the
     # training batch (full mode admits C <= 512), and ragged with a keep
     for C in (ISO_C, 512):
@@ -3610,7 +3674,7 @@ def main(argv=None) -> int:
         for name, g, r in zip(FULL_COTANGENTS, got, ref):
             e = check(torch, f"bwd_full {name:6s} {what}", g, r, TOL[name])
             err[FULL_ERR_KEY[name]] = max(err[FULL_ERR_KEY[name]], e)
-        if i < 3 or C in (432, 512, 768) or (keep_rows and M % 64 and C in bm.WGMMA_WIDTHS):
+        if i < 3 or C in (432, 512, 768, 1024) or (keep_rows and M % 64):
             # the stage shapes at the training batch, the cluster widths and a
             # ragged M with a keep: the row pass's ds is the input
             # backward's, bit for bit
@@ -3618,7 +3682,7 @@ def main(argv=None) -> int:
                 raise AssertionError(f"bwd_full {what}: the row pass's ds differs from the "
                                      "input backward's")
             log(f"bwd_full {what}: the row pass's ds equals the input backward's, bit for bit")
-        if C in (432, 512, 16, 768) and not keep_rows:
+        if C in BITWISE_WIDTHS and not keep_rows:
             again = run_full(bm, d, kernel=True)
             if not all(torch.equal(g, h) for g, h in zip(got, again)):
                 raise AssertionError(f"bwd_full {what}: two launches differ")
@@ -4041,8 +4105,9 @@ def main(argv=None) -> int:
 
     # ---------------------------------------------------------------- 19
     iso_per_step = iso_phase(torch, np, repo, args.seed, label)
-    b_per_step = convnext_b_phase(torch, np, args.seed, label)
-    wide_times = {C: wide_tail_timings(torch, bm, gen, label, C) for C in (ISO_C, 512)}
+    b_per_step, b_per_step_1024 = convnext_b_phase(torch, np, args.seed, label)
+    wide_times = {C: wide_tail_timings(torch, bm, gen, label, C, rows)
+                  for C, rows in ((ISO_C, ISO_ROWS), (512, 196), (1024, 49))}
 
     # ---------------------------------------------------------------- 20
     dist_phase(torch, np, repo, init, vit_init, args.seed, label)
@@ -4060,16 +4125,19 @@ def main(argv=None) -> int:
                                                       library_device_ms=red["lib_dev"])
     for k, v in row_dev.items():
         kernels[list(bm.LAUNCHES).index(k)].update(device_ms=v)
-    # the tail at convnext_iso's shape and ConvNeXt-B's stage 2 (phase 19):
-    # times, bounds and the model path beside them; the full backward's under
-    # the row pass; the launches per step of each model's training step
-    for row, C, per_step in (("iso432", ISO_C, iso_per_step), ("c512", 512, b_per_step)):
+    # the tail at convnext_iso's shape and ConvNeXt-B's stages 2 and 3 (phase
+    # 19): times, bounds and the model path beside them; the full backward's
+    # under the row pass; the launches per step of each model's training
+    # step (at C = 1024 the 1024 kernels' own, from the step's profile)
+    for row, C, per_step in (("iso432", ISO_C, iso_per_step), ("c512", 512, b_per_step),
+                             ("c1024", 1024, b_per_step_1024)):
         for k, which in (("fwd", "fwd"), ("bwd_input", "bwd_input"),
                          ("bwd_full_rows", "bwd_full")):
             kernels[list(bm.LAUNCHES).index(k)][row] = dict(wide_times[C][which])
         for k in bm.LAUNCHES:
-            kernels[list(bm.LAUNCHES).index(k)].setdefault(row, {})[
-                "launches_per_step"] = per_step[f"block_mlp_{k}"]
+            if f"block_mlp_{k}" in per_step:
+                kernels[list(bm.LAUNCHES).index(k)].setdefault(row, {})[
+                    "launches_per_step"] = per_step[f"block_mlp_{k}"]
     for k in ATT_KERNELS:
         k_ms, p_ms, b_ms, b_by, lib = att_times[k]
         kernels.append(dict(name=k, route="cuda", source=SOURCE[k], replaces=REPLACES[k],

@@ -13,13 +13,12 @@
 // The TPU kernel runs its grid in order and accumulates dW1, A, db1 and dLN
 // from one grid step to the next in VMEM. Blocks on Hopper run in parallel,
 // so the sums over the M rows are reductions across blocks, done in passes:
-//   1. bwd_kernel<C, T, true> (block_mlp_common.cuh: TMA + wgmma at C = 96,
-//      128, 192, 256, 384, and 432, 512, 768 in clusters of two blocks; the
-//      WMMA bwd_kernel_wmma at 16, 32, 64, 1024),
-//      the row pass: ds as the input backward computes it, plus bf16 side
-//      outputs u16, kdy16, g16 and dh16 ([Mpad, C] and [Mpad, 4C]) and column
-//      sums per 64-row tile (per WMMA block) of the f32 dh (db1, summed before
-//      the bf16 cast as JAX does), of du * xhat and of du.
+//   1. bwd_kernel<C, T, true> (block_mlp_common.cuh: TMA + wgmma at every
+//      width, at 432, 512 and 768 in clusters of two blocks, at 1024 in
+//      clusters of four), the row pass: ds as the input backward computes
+//      it, plus bf16 side outputs u16, kdy16, g16 and dh16 ([Mpad, C] and
+//      [Mpad, 4C]) and column sums per 64-row tile of the f32 dh (db1,
+//      summed before the bf16 cast as JAX does), of du * xhat and of du.
 //   2. wgrad_kernel, the weight pass: f32 partials of X^T @ Y over slices of
 //      the M rows, for dW1 (X = u16, Y = dh16) and A (X = g16, Y = kdy16).
 //   3. reduce_kernel sums partials over their leading axis in a fixed order,
@@ -346,8 +345,7 @@ extern "C" {
 // be null (all ones). Mpad is M rounded up to a multiple of kRowPad (128);
 // u16, kdy16 are [Mpad, C], g16, dh16 [Mpad, 4C] (bf16); db1_part is
 // [Mpad / part_rows, 4C], dlng_part and dlnb_part [Mpad / part_rows, C]
-// (f32), part_rows being the plan's (64 at the kWgmma widths, the WMMA
-// kernel's rows per block at the others). w1 and the plan as for
+// (f32), part_rows being the plan's (64). w1 and the plan as for
 // block_mlp_fwd (block_mlp.cu).
 int block_mlp_bwd_full_rows(int C, int dtype, const void* s, const void* keep,
                             int rows_per_keep, const void* ln_g, const void* ln_b,
@@ -418,6 +416,16 @@ int block_mlp_wgrad(const void* x, int P, const void* y, int Q, int64_t Mpad,
   if (err != 0 || out == nullptr) return err;
   return launch_reduce(static_cast<const float*>(part), n_split, int64_t{P} * Q, red_lanes,
                        red_splits, red_rows, static_cast<float*>(out), st);
+}
+
+// The thread-block clusters of the bf16 row pass at width C that the card
+// holds at a time, as block_mlp_max_clusters (block_mlp.cu) gives them.
+int block_mlp_rows_max_clusters(int C) {
+#define CASE(W) \
+  if (C == W) return clusters_of<W, kBwdRows>(bwd_kernel<W, bf16, true>);
+  BLOCK_MLP_WIDTHS(CASE)
+#undef CASE
+  return -1;
 }
 
 // out[N] = the sum of part[R, N] (f32) over R, in one launch with the plan

@@ -23,12 +23,13 @@
 // A block cannot hold the weights (16 C^2 bytes in bf16, 2.4 MB at C =
 // 384), so it streams them over the 4C axis and reads them from L2 once per
 // block: as many flops per L2 byte as the block has rows (64 for a 64-row
-// block, more than the L2 can feed at the tensor-core rate). The WMMA design
-// ran each product as synchronous 16x16 WMMA with weight fragments loaded
-// straight from L2, serialised every chunk through f32 shared memory and
-// two __syncthreads, and ran at 5-7% of the bf16 peak.
+// block, more than the L2 can feed at the tensor-core rate). The port's
+// first design (synchronous 16x16 WMMA with weight fragments loaded
+// straight from L2, every chunk serialised through f32 shared memory and
+// two __syncthreads) ran at 5-7% of the bf16 peak. Every width built now
+// takes the one design below; only its tiling (`Plan`) differs by width.
 //
-// The design at C = 96, 128, 192, 256 and 384 (`kWgmma`, a block alone):
+// The design:
 //   * One producer thread keeps TMA loads of the weights in flight through a
 //     ring of S stages guarded by mbarriers. Each stage is one 64-row chunk
 //     of the 4C axis of a [4C, C] weight: W1^T (the wrapper transposes W1),
@@ -65,81 +66,73 @@
 //     the consumers by setmaxnreg.
 //   Rows past M are zero in the u and kdy tiles and are never stored.
 //
-// The design at C = 432, 512 and 768 (kCluster = 2): a 64-row tile's u and
-// kdy tiles (192 KB at C = 768), a 64-row weight chunk (96 KB) and a [64, C]
-// f32 accumulator (384 registers a thread of a warpgroup) do not fit one
-// block, and at 432 and 512 one block has room for the forward's ring but not
-// for the backward's. So a thread-block cluster of two blocks takes each
-// tile, block rank r holding columns [CB r, CB r + CB) of C, CB = CP / 2: its
-// halves of u and kdy, of every ring stage (the K half of a W1^T or w2g
-// chunk, the column half of a W2 chunk), of o or du; each block is tiled as
-// C = CB (two consumer warpgroups of CB / 2 accumulator columns, a producer
+// Padded widths (`kPadded`): the tiling takes whole 64-column boxes and
+// 32-column accumulator slices in every block. The micro models' C = 16 and
+// 32 are tiled as 64, convnext_iso's C = 432 (13.5 x 32) as 512; the other
+// widths as themselves. The pad is zero wherever a product contracts over
+// it: u and kdy are written 0 there, the weight boxes are zero-filled by
+// TMA past column C (a box that lies wholly past it is all zero), so h and
+// dg are those of C columns and the pad columns of o and du are 0. The
+// LayerNorm statistics divide by C, no load or store reaches past column C
+// of a row (a pad column's load is clamped to the last channel and
+// dropped), and no row sum or column sum takes a pad column. Padding costs
+// 18.5% more tensor work than 432 needs; at C = 16 and 32 the products are
+// tiny, and 4C is one or two chunks (a ring of two or four stages).
+//
+// Thread-block clusters (`kCluster`): at C = 432, 512 and 768 a 64-row
+// tile's u and kdy tiles (192 KB at C = 768), a 64-row weight chunk (96 KB)
+// and a [64, C] f32 accumulator (384 registers a thread of a warpgroup) do
+// not fit one block, and at 432 and 512 one block has room for the
+// forward's ring but not for the backward's; at C = 1024 half of C still
+// leaves the backward one ring stage. So a cluster of CL blocks takes each
+// tile (two at 432, 512 and 768, four at 1024), block rank r holding columns
+// [CB r, CB r + CB) of the padded width, CB = CP / CL = 256 (384 at 768): its
+// part of u and kdy, of every ring stage (the K part of a W1^T or w2g chunk,
+// the column part of a W2 chunk), of o or du; each block is tiled as C = CB
+// (two consumer warpgroups of CB / 2 accumulator columns, a producer
 // warpgroup).
-//   * C = 432 (convnext_iso) is 13.5 x 32: it runs the tiling of its padded
-//     width CP = 512 (`kPadded`), rank 1 holding columns 256-431 and 80 pad
-//     columns. The pad is zero wherever a product contracts over it: u and
-//     kdy are written 0 there, the weight boxes are zero-filled by TMA past
-//     column 432 (the box at 448 lies wholly past it), so h and dg are
-//     those of 432 columns and the pad columns of o and du are 0. The
-//     LayerNorm statistics divide by 432, no load or store reaches past
-//     column 432 of a row (a pad column's load is clamped to the last
-//     channel and dropped), and no row sum or column sum takes a pad column.
-//     Padding costs 18.5% more tensor work than 432 needs.
 //   * h = u W1c and dg = kdy w2g_c^T contract over C, so a block forms a
-//     partial over its half. The thread of the same index in the other
-//     block holds the same rows and columns: each thread sends the peer the
-//     half of its registers that the peer finalises (8 f32 of h, and of dg)
-//     into the peer's shared memory by st.async, whose bytes complete on the
-//     peer's mbarrier (no thread waits for a remote store to be
-//     acknowledged, as a release arrive on the peer's barrier would); the
-//     peer adds them to its own, a + b, the same bits in every launch.
-//   * Each block applies b1 and GELU (gelu') to its half of the chunk's
-//     columns and writes the bf16 g (dh16) into its own g tile and, by
-//     st.async, the peer's; a tile's mbarrier counts this block's warps and
-//     the peer's bytes before o (du) reads it. o and du have the block's own
+//     partial over its CB columns. The thread of the same index in every
+//     other block holds the same rows and columns: each thread sends each
+//     peer the NK = N1 / 2 / CL registers that the peer finalises (of h, and
+//     of dg) into a slot of the peer's shared memory kept for this sender,
+//     by st.async, whose bytes complete on the peer's mbarrier (no thread
+//     waits for a remote store to be acknowledged, as a release arrive on
+//     the peer's barrier would). Every block adds the CL partials of its
+//     columns in rank order, ((p0 + p1) + p2) + p3, its own in its rank's
+//     place: the same bits in every launch, and in the row pass as in the
+//     input backward.
+//   * Each block applies b1 and GELU (gelu') to its N1 / CL of a warpgroup's
+//     chunk columns and writes the bf16 g (dh16) into its own g tile and, by
+//     st.async, every peer's; a tile's mbarrier counts this block's warps and
+//     the peers' bytes before o (du) reads it. o and du have the block's own
 //     columns as N: no exchange.
-//   * LayerNorm: each block reads whole rows of s, so both hold the same
+//   * LayerNorm: each block reads whole rows of s, so all hold the same
 //     statistics; the backward's row sums m1, m2 cross the cluster once,
-//     added in the same order in both blocks. Each block writes y or ds,
-//     and the row pass's side outputs, for the columns it owns: the row
-//     pass's ds stays bit for bit the input backward's.
+//     added in rank order in every block. Each block writes y or ds, and
+//     the row pass's side outputs, for the columns it owns: the row pass's
+//     ds stays bit for bit the input backward's.
 //   * The forward is software-pipelined by one chunk (the next chunk's h
 //     runs while this chunk's partial crosses the cluster and its GELU
 //     runs; the producer keeps W1^T a chunk ahead of W2). The backward is
 //     not: at C = 768 its two ring stages hold one chunk of w2g and of
-//     W1^T, and no more (four stages at 432 and 512).
-//   * Launched with cudaLaunchKernelEx and a cluster dimension of 2; the
-//     mbarriers of both blocks are initialised before either block arrives
-//     on the other's (a cluster barrier), and every thread of both blocks
-//     meets at a cluster barrier at the end, so that no block exits while
-//     its peer may still reach its shared memory.
-//
-// The other widths built keep the WMMA kernels (fwd_kernel_wmma,
-// bwd_kernel_wmma): 16, 32 and 64 (the micro models), and 1024 (ConvNeXt-B's
-// last stage; ROADMAP G4), whose half of C leaves the backward one ring
-// stage: it needs a cluster of four, not built yet.
-//
-// The WMMA design: each block owns BM rows, normalises them into a bf16
-// tile, and streams the 4C axis in chunks of BH columns; per chunk every
-// warp computes one 16-wide column tile of h for all BM rows, the block
-// applies b1 and GELU in shared memory, and every warp accumulates its C
-// columns of the next product into WMMA accumulators, with weight fragments
-// read from L2. Widths that are not a multiple of 32 (C = 16) leave the
-// last lanes of a row without a channel; the row code masks them behind
-// `if constexpr`.
+//     W1^T, and no more (three stages at 1024, four at 432 and 512).
+//   * Launched with cudaLaunchKernelEx and a cluster dimension of CL; the
+//     mbarriers of every block are initialised before any block arrives on
+//     another's (a cluster barrier), and every thread of every block meets
+//     at a cluster barrier at the end, so that no block exits while a peer
+//     may still reach its shared memory.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -148,49 +141,12 @@ constexpr float kK0 = 0.7978845608028654f;  // sqrt(2/pi)
 constexpr float kK1 = 0.044715f;
 constexpr float kEps = 1e-6f;
 
-template <int C>
-struct Cfg {
-  static constexpr int H = 4 * C;
-  static constexpr int NT = C / 16;                   // 16-wide column tiles of C
-  // warps per block: one per column tile below 6 tiles (C = 16, 32, 64)
-  static constexpr int NW = NT < 6 ? NT : (NT % 8 == 0 ? 8 : (NT % 6 == 0 ? 6 : 9));
-  static constexpr int NTHREADS = NW * 32;
-  static constexpr int BM = C <= 384 ? 64 : (C <= 768 ? 32 : 16);  // rows per block
-  static constexpr int MT = BM / 16;                  // 16-row tiles per block
-  static constexpr int BH = 16 * NW;                  // 4C chunk: one tile per warp
-  static constexpr int CPW = NT / NW;                 // C column tiles per warp
-  static constexpr int VPL = (C + 31) / 32;           // values per lane in a row
-  static constexpr int LDU = C + 8;                   // bf16 [BM][C] row stride
-  static constexpr int LDH = BH + 4;                  // f32 [BM][BH] row stride
-  static constexpr int LDG = BH + 8;                  // bf16 [BM][BH] row stride
-  static_assert(C % 16 == 0, "C must be a multiple of 16");
-  static_assert(NT % NW == 0, "column tiles must split evenly over warps");
-  static_assert(H % BH == 0, "4C must split into whole chunks");
-  static_assert(NTHREADS == 2 * BH, "each thread owns one column of a chunk");
-};
-
 // Rows of the full backward's side buffers are padded to a multiple of this
 // (a multiple of every block's rows and of the weight kernel's depth step).
 constexpr int kRowPad = 128;
 
-__host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
-
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
-
-// Whether value i of a lane's row values (channel lane + 32 * i) is a
-// channel: always where C is a multiple of 32, else only below C.
-template <int C>
-__device__ __forceinline__ bool lane_in_row(int c) {
-  if constexpr (C % 32 == 0) {
-    return true;
-  } else {
-    return c < C;
-  }
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -203,13 +159,7 @@ __device__ __forceinline__ float gelu_tanh(float h) {
   return 0.5f * h * (1.0f + t);
 }
 
-__device__ __forceinline__ float dgelu_tanh(float h) {
-  float t = tanhf(kK0 * (h + kK1 * h * h * h));
-  float dinner = kK0 * (1.0f + 3.0f * kK1 * h * h);
-  return 0.5f * (1.0f + t) + 0.5f * h * (1.0f - t * t) * dinner;
-}
-
-// gelu(h) and gelu'(h) from one tanh, the same formulas as above.
+// gelu(h) and gelu'(h) from one tanh, gelu by the formula above.
 __device__ __forceinline__ void gelu_and_dgelu_tanh(float h, float& g, float& dg) {
   float t = tanhf(kK0 * (h + kK1 * h * h * h));
   float dinner = kK0 * (1.0f + 3.0f * kK1 * h * h);
@@ -221,350 +171,37 @@ __device__ __forceinline__ float keep_of(const float* keep, int rows_per_keep, i
   return keep ? keep[row / rows_per_keep] : 1.0f;
 }
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> AFrag;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> AColFrag;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> BRowFrag;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> BColFrag;
-
-// LayerNorm of the block's BM rows into u16 (bf16). Rows past M become 0.
-// Each warp normalises whole rows; statistics are f32 and two-pass, as in
-// the TPU kernel's _ln_f32. mean/inv are stored when the backward needs them.
-template <int C, typename T>
-__device__ void layer_norm_rows(const T* __restrict__ s, const float* __restrict__ ln_g,
-                                const float* __restrict__ ln_b, int64_t row0, int64_t M,
-                                bf16* u16, float* mean_out, float* inv_out) {
-  using K = Cfg<C>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int rr = warp; rr < K::BM; rr += K::NW) {
-    const int64_t row = row0 + rr;
-    bf16* urow = u16 + rr * K::LDU;
-    if (row >= M) {
-#pragma unroll
-      for (int i = 0; i < K::VPL; ++i)
-        if (lane_in_row<C>(lane + 32 * i)) urow[lane + 32 * i] = __float2bfloat16(0.0f);
-      if (lane == 0 && mean_out) { mean_out[rr] = 0.0f; inv_out[rr] = 0.0f; }
-      continue;
-    }
-    const T* srow = s + row * C;
-    float v[K::VPL];
-    float sum = 0.0f;
-#pragma unroll
-    for (int i = 0; i < K::VPL; ++i) {
-      v[i] = lane_in_row<C>(lane + 32 * i) ? to_f32(srow[lane + 32 * i]) : 0.0f;
-      sum += v[i];
-    }
-    const float mu = warp_sum(sum) / C;
-    float sq = 0.0f;
-#pragma unroll
-    for (int i = 0; i < K::VPL; ++i) {
-      float d = lane_in_row<C>(lane + 32 * i) ? v[i] - mu : 0.0f;
-      sq += d * d;
-    }
-    const float inv = rsqrtf(warp_sum(sq) / C + kEps);
-#pragma unroll
-    for (int i = 0; i < K::VPL; ++i) {
-      const int c = lane + 32 * i;
-      if (lane_in_row<C>(c)) urow[c] = __float2bfloat16((v[i] - mu) * inv * ln_g[c] + ln_b[c]);
-    }
-    if (lane == 0 && mean_out) { mean_out[rr] = mu; inv_out[rr] = inv; }
-  }
-}
-
-template <int C>
-constexpr size_t fwd_smem_bytes() {
-  using K = Cfg<C>;
-  return align128(K::BM * K::LDU * 2) + align128(K::BM * K::LDH * 4) +
-         align128(K::BM * K::LDG * 2) + align128(K::NW * 256 * 4);
-}
-
-template <int C>
-constexpr size_t bwd_smem_bytes() {
-  using K = Cfg<C>;
-  return 2 * align128(K::BM * K::LDU * 2) + 2 * align128(K::BM * K::LDH * 4) +
-         align128(K::BM * K::LDG * 2) + align128(K::NW * 256 * 4) + align128(4 * K::BM * 4);
-}
-
 // Side outputs of the full backward's row pass (FULL = true); unused otherwise.
 struct FullOut {
   bf16* u16;        // [Mpad, C]  bf16(LN(s)), 0 past M
   bf16* kdy16;      // [Mpad, C]  bf16(keep * dy), 0 past M
   bf16* g16;        // [Mpad, 4C] bf16(gelu(h)), 0 past M
   bf16* dh16;       // [Mpad, 4C] bf16(dh), 0 past M
-  // column sums over each group of `part_rows` rows (the plan's: 64 for
-  // the wgmma design, BM for the WMMA kernels), in row order
+  // column sums over each 64-row tile (the plan's `part_rows`), in row order
   float* db1_part;  // [Mpad / part_rows, 4C] of the f32 dh
   float* dlng_part; // [Mpad / part_rows, C]  of du * xhat
   float* dlnb_part; // [Mpad / part_rows, C]  of du
 };
 
-// The WMMA backward of the tail for BM rows (the widths without
-// kWgmma): ds from dy, with w2g = bf16(W2 * gamma). FULL = false is the
-// input-only backward (_bwd_input_kernel). FULL = true is the row pass of
-// the full backward (_bwd_kernel): the same ds, bit for bit, plus the side
-// outputs above, its column sums per block of BM rows.
-template <int C, typename T, bool FULL>
-__global__ void __launch_bounds__(Cfg<C>::NTHREADS)
-bwd_kernel_wmma(const T* __restrict__ s, const float* __restrict__ keep, int rows_per_keep,
-           const float* __restrict__ ln_g, const float* __restrict__ ln_b,
-           const bf16* __restrict__ w1, const float* __restrict__ b1,
-           const bf16* __restrict__ w2g, const T* __restrict__ dy,
-           T* __restrict__ ds, int64_t M, FullOut out) {
-  using K = Cfg<C>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* p = smem;
-  bf16* u16 = reinterpret_cast<bf16*>(p);     p += align128(K::BM * K::LDU * 2);
-  bf16* kdy16 = reinterpret_cast<bf16*>(p);   p += align128(K::BM * K::LDU * 2);
-  float* hbuf = reinterpret_cast<float*>(p);  p += align128(K::BM * K::LDH * 4);
-  float* dgbuf = reinterpret_cast<float*>(p); p += align128(K::BM * K::LDH * 4);
-  bf16* dh16 = reinterpret_cast<bf16*>(p);    p += align128(K::BM * K::LDG * 2);
-  float* scratch = reinterpret_cast<float*>(p); p += align128(K::NW * 256 * 4);
-  float* mean = reinterpret_cast<float*>(p);
-  float* inv = mean + K::BM;
-  float* sum1 = inv + K::BM;   // row sums of du * g
-  float* sum2 = sum1 + K::BM;  // row sums of du * g * xhat
-  // Parts of sum1 and sum2 per 16-wide column tile, [NT][BM] each, added in
-  // tile order (no atomics). They reuse hbuf, which no thread reads after
-  // the last chunk's GELU step and its __syncthreads.
-  float* part1 = hbuf;
-  float* part2 = hbuf + K::NT * K::BM;
-  static_assert(2 * K::NT <= K::LDH, "row-sum parts must fit in hbuf");
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * K::BM;
+// ------------------------------------------------------------- the plans
 
-  layer_norm_rows<C, T>(s, ln_g, ln_b, row0, M, u16, mean, inv);
-  for (int i = threadIdx.x; i < K::BM * C; i += K::NTHREADS) {
-    const int rr = i / C, c = i % C;
-    const int64_t row = row0 + rr;
-    const float v = row < M ? keep_of(keep, rows_per_keep, row) * to_f32(dy[row * C + c]) : 0.0f;
-    kdy16[rr * K::LDU + c] = __float2bfloat16(v);
-  }
-  __syncthreads();
-  if constexpr (FULL) {
-    // u16 and kdy16 are the left operands of the weight pass: 16-byte copies
-    for (int i = threadIdx.x; i < K::BM * (C / 8); i += K::NTHREADS) {
-      const int rr = i / (C / 8), c8 = (i % (C / 8)) * 8;
-      const size_t gi = static_cast<size_t>(row0 + rr) * C + c8;
-      *reinterpret_cast<uint4*>(out.u16 + gi) =
-          *reinterpret_cast<const uint4*>(u16 + rr * K::LDU + c8);
-      *reinterpret_cast<uint4*>(out.kdy16 + gi) =
-          *reinterpret_cast<const uint4*>(kdy16 + rr * K::LDU + c8);
-    }
-  }
-
-  AccFrag du[K::MT][K::CPW];
-#pragma unroll
-  for (int mi = 0; mi < K::MT; ++mi)
-#pragma unroll
-    for (int ci = 0; ci < K::CPW; ++ci) wmma::fill_fragment(du[mi][ci], 0.0f);
-
-  for (int h0 = 0; h0 < K::H; h0 += K::BH) {
-    const int j0 = h0 + 16 * warp;  // this warp's 16 columns of the chunk
-    {
-      AccFrag hf[K::MT];
-#pragma unroll
-      for (int mi = 0; mi < K::MT; ++mi) wmma::fill_fragment(hf[mi], 0.0f);
-      for (int k = 0; k < C; k += 16) {
-        BRowFrag b;  // W1[k.., j0..]
-        wmma::load_matrix_sync(b, w1 + static_cast<size_t>(k) * K::H + j0, K::H);
-#pragma unroll
-        for (int mi = 0; mi < K::MT; ++mi) {
-          AFrag a;
-          wmma::load_matrix_sync(a, u16 + mi * 16 * K::LDU + k, K::LDU);
-          wmma::mma_sync(hf[mi], a, b, hf[mi]);
-        }
-      }
-#pragma unroll
-      for (int mi = 0; mi < K::MT; ++mi)
-        wmma::store_matrix_sync(hbuf + mi * 16 * K::LDH + 16 * warp, hf[mi], K::LDH,
-                                wmma::mem_row_major);
-    }
-    {
-      AccFrag gf[K::MT];  // dg = kdy16 @ w2g^T: B[c, j] = w2g[j, c]
-#pragma unroll
-      for (int mi = 0; mi < K::MT; ++mi) wmma::fill_fragment(gf[mi], 0.0f);
-      for (int k = 0; k < C; k += 16) {
-        BColFrag b;
-        wmma::load_matrix_sync(b, w2g + static_cast<size_t>(j0) * C + k, C);
-#pragma unroll
-        for (int mi = 0; mi < K::MT; ++mi) {
-          AFrag a;
-          wmma::load_matrix_sync(a, kdy16 + mi * 16 * K::LDU + k, K::LDU);
-          wmma::mma_sync(gf[mi], a, b, gf[mi]);
-        }
-      }
-#pragma unroll
-      for (int mi = 0; mi < K::MT; ++mi)
-        wmma::store_matrix_sync(dgbuf + mi * 16 * K::LDH + 16 * warp, gf[mi], K::LDH,
-                                wmma::mem_row_major);
-    }
-    __syncthreads();
-    if constexpr (FULL) {
-      // NTHREADS = 2 * BH: this thread owns column cc of the chunk and every
-      // other row; its f32 dh sum and its partner's are added in a fixed order
-      float db1_acc = 0.0f;
-      for (int i = threadIdx.x; i < K::BM * K::BH; i += K::NTHREADS) {
-        const int rr = i / K::BH, cc = i % K::BH;
-        const bool live = row0 + rr < M;
-        const float h = hbuf[rr * K::LDH + cc] + b1[h0 + cc];
-        float g, dgl;
-        gelu_and_dgelu_tanh(h, g, dgl);
-        const float dh = live ? dgbuf[rr * K::LDH + cc] * dgl : 0.0f;
-        const bf16 dhb = __float2bfloat16(dh);
-        dh16[rr * K::LDG + cc] = dhb;
-        const size_t gi = static_cast<size_t>(row0 + rr) * K::H + h0 + cc;
-        out.g16[gi] = __float2bfloat16(live ? g : 0.0f);
-        out.dh16[gi] = dhb;
-        db1_acc += dh;
-      }
-      scratch[threadIdx.x] = db1_acc;
-    } else {
-      for (int i = threadIdx.x; i < K::BM * K::BH; i += K::NTHREADS) {
-        const int rr = i / K::BH, cc = i % K::BH;
-        const float h = hbuf[rr * K::LDH + cc] + b1[h0 + cc];
-        dh16[rr * K::LDG + cc] = __float2bfloat16(dgbuf[rr * K::LDH + cc] * dgelu_tanh(h));
-      }
-    }
-    __syncthreads();
-    if constexpr (FULL) {
-      if (threadIdx.x < K::BH)
-        out.db1_part[static_cast<size_t>(blockIdx.x) * K::H + h0 + threadIdx.x] =
-            scratch[threadIdx.x] + scratch[threadIdx.x + K::BH];
-    }
-    // du[:, this warp's columns] += dh16 @ W1^T: B[j, c] = W1[c, j]
-#pragma unroll
-    for (int k = 0; k < K::BH; k += 16) {
-      AFrag a[K::MT];
-#pragma unroll
-      for (int mi = 0; mi < K::MT; ++mi)
-        wmma::load_matrix_sync(a[mi], dh16 + mi * 16 * K::LDG + k, K::LDG);
-#pragma unroll
-      for (int ci = 0; ci < K::CPW; ++ci) {
-        BColFrag b;
-        wmma::load_matrix_sync(
-            b, w1 + static_cast<size_t>((warp * K::CPW + ci) * 16) * K::H + h0 + k, K::H);
-#pragma unroll
-        for (int mi = 0; mi < K::MT; ++mi) wmma::mma_sync(du[mi][ci], a[mi], b, du[mi][ci]);
-      }
-    }
-  }
-  // the epilogue reuses scratch, which the last chunk's db1 partial still reads
-  if constexpr (FULL) __syncthreads();
-
-  // LayerNorm backward: ds = inv * (dxh - mean(dxh) - xhat * mean(dxh * xhat)),
-  // dxh = du * ln_g. Pass 1 reduces the row sums, pass 2 writes ds. The full
-  // backward also sums du * xhat and du over the block's rows per column.
-  float* scr = scratch + warp * 256;
-  float col_g[FULL ? K::CPW : 1], col_b[FULL ? K::CPW : 1];
-  if constexpr (FULL) {
-#pragma unroll
-    for (int ci = 0; ci < K::CPW; ++ci) { col_g[ci] = 0.0f; col_b[ci] = 0.0f; }
-  }
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-    if (pass == 1) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < K::BM; i += K::NTHREADS) {
-        float a = 0.0f, b = 0.0f;
-        for (int t = 0; t < K::NT; ++t) { a += part1[t * K::BM + i]; b += part2[t * K::BM + i]; }
-        sum1[i] = a;
-        sum2[i] = b;
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int mi = 0; mi < K::MT; ++mi) {
-#pragma unroll
-      for (int ci = 0; ci < K::CPW; ++ci) {
-        wmma::store_matrix_sync(scr, du[mi][ci], 16, wmma::mem_row_major);
-        __syncwarp();
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int idx = lane + 32 * e, rr = mi * 16 + idx / 16, cc = idx % 16;
-          const int64_t row = row0 + rr;
-          const int col = (warp * K::CPW + ci) * 16 + cc;
-          const bool live = row < M;
-          const float xhat = live ? (to_f32(s[row * C + col]) - mean[rr]) * inv[rr] : 0.0f;
-          const float dxh = scr[idx] * ln_g[col];
-          if (pass == 0) {
-            if constexpr (FULL) {
-              // lane holds column lane % 16 and rows lane / 16 + 2e
-              col_g[ci] += live ? scr[idx] * xhat : 0.0f;
-              col_b[ci] += live ? scr[idx] : 0.0f;
-            }
-            // lanes 0-15 hold one row, lanes 16-31 the next: reduce over 16 lanes
-            float p1 = dxh, p2 = dxh * xhat;
-#pragma unroll
-            for (int o = 8; o > 0; o >>= 1) {
-              p1 += __shfl_xor_sync(0xffffffffu, p1, o);
-              p2 += __shfl_xor_sync(0xffffffffu, p2, o);
-            }
-            if (cc == 0) {
-              const int t = warp * K::CPW + ci;  // this column tile
-              part1[t * K::BM + rr] = p1;
-              part2[t * K::BM + rr] = p2;
-            }
-          } else if (live) {
-            const float m1 = sum1[rr] / C, m2 = sum2[rr] / C;
-            ds[row * C + col] = from_f32<T>(inv[rr] * (dxh - m1 - xhat * m2));
-          }
-        }
-        __syncwarp();
-      }
-    }
-  }
-  if constexpr (FULL) {
-#pragma unroll
-    for (int ci = 0; ci < K::CPW; ++ci) {
-      const float g = col_g[ci] + __shfl_xor_sync(0xffffffffu, col_g[ci], 16);
-      const float b = col_b[ci] + __shfl_xor_sync(0xffffffffu, col_b[ci], 16);
-      if (lane < 16) {
-        const size_t gi = static_cast<size_t>(blockIdx.x) * C + (warp * K::CPW + ci) * 16 + lane;
-        out.dlng_part[gi] = g;
-        out.dlnb_part[gi] = b;
-      }
-    }
-  }
-}
-
-template <int C, typename T, bool FULL>
-int launch_bwd_wmma(const void* s, const float* keep, int rows_per_keep, const float* ln_g,
-               const float* ln_b, const bf16* w1, const float* b1, const bf16* w2g,
-               const void* dy, void* ds, int64_t M, int64_t rows, FullOut out,
-               cudaStream_t stream) {
-  using K = Cfg<C>;
-  constexpr size_t smem = bwd_smem_bytes<C>();
-  auto kern = bwd_kernel_wmma<C, T, FULL>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned grid = static_cast<unsigned>((rows + K::BM - 1) / K::BM);
-  kern<<<grid, K::NTHREADS, smem, stream>>>(
-      static_cast<const T*>(s), keep, rows_per_keep, ln_g, ln_b, w1, b1, w2g,
-      static_cast<const T*>(dy), static_cast<T*>(ds), M, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-
-// ------------------------------------------------------------- wgmma design
-
-// The widths that take the TMA + wgmma kernels; the others take the WMMA
-// kernels, chosen here at compile time.
+// The widths the TMA + wgmma kernels are built for: every width built
+// (BLOCK_MLP_WIDTHS); a Plan of any other width does not compile.
 template <int C>
-constexpr bool kWgmma = C == 96 || C == 128 || C == 192 || C == 256 || C == 384 || C == 432 || C == 512 || C == 768;
+constexpr bool kWgmma = C == 16 || C == 32 || C == 64 || C == 96 || C == 128 || C == 192 || C == 256 || C == 384 || C == 432 || C == 512 || C == 768 || C == 1024;
 
 // Blocks of a thread-block cluster that share each 64-row tile, block rank
 // r holding columns [CP / kCluster r, + CP / kCluster) of the padded width
 // CP (1: a block alone).
 template <int C>
-constexpr int kCluster = C == 432 || C == 512 || C == 768 ? 2 : 1;
+constexpr int kCluster = C == 1024 ? 4 : (C == 432 || C == 512 || C == 768 ? 2 : 1);
 
-// The width the wgmma kernels tile: C, or where C is not a multiple of 32
-// (432), C rounded up to whole 64-column boxes in every block of a cluster.
-// Columns past C are pad: zero in every operand a product contracts over,
-// never loaded from or stored to memory.
+// The width the kernels tile: C, or C rounded up to whole 64-column boxes
+// in every block of a cluster where C is below 64 (16, 32) or not a
+// multiple of 32 (432). Columns past C are pad: zero in every operand a
+// product contracts over, never loaded from or stored to memory.
 template <int C>
-constexpr int kPadded = C % 32 == 0 ? C : (C + 64 * kCluster<C> - 1) / (64 * kCluster<C>) * (64 * kCluster<C>);
+constexpr int kPadded = C < 64 || C % 32 != 0 ? (C + 64 * kCluster<C> - 1) / (64 * kCluster<C>) * (64 * kCluster<C>) : C;
 
 // Whether column c of the padded width is a channel: always where C is not
 // padded, else only below C (a compile-time true at the other widths).
@@ -638,9 +275,10 @@ struct Plan {
   static constexpr int PART_BYTES = MODE != kFwd && G > 1 && CL == 1 ? 2 * G * BM * 4 : 0;
   static constexpr int SCR_BYTES =
       MODE == kBwdRows ? (CL == 1 ? NWG * 32 * (N1 + CW) : NWG * 32 * N1 / CL) : 0;
-  // a chunk's partials from the peer (h, and dg), and the peer's half of a g/dh tile
-  static constexpr int XCH_BYTES = CL == 1 ? 0 : (MODE == kFwd ? 1 : 2) * 128 * NWG * NK * 4;
-  static constexpr int GPEER_BYTES = 128 * NWG * NK / 2 * 4;
+  // a chunk's partials from the CL - 1 peers (h, and dg), and the peers'
+  // parts of a g/dh tile
+  static constexpr int XCH_BYTES = (MODE == kFwd ? 1 : 2) * (CL - 1) * 128 * NWG * NK * 4;
+  static constexpr int GPEER_BYTES = (CL - 1) * 128 * NWG * NK * 2;
   static constexpr int FIXED = 1024 + R * TILE + KDY_BYTES + R * 2 * kBox + STATS_BYTES +
                                PART_BYTES + SCR_BYTES + XCH_BYTES + 256;
   static constexpr int S_FIT = (kSmemMax - FIXED) / TILE;
@@ -648,11 +286,12 @@ struct Plan {
   static constexpr int SMEM = FIXED + S * TILE;
   static_assert(CP % 32 == 0 && CW % 32 == 0 && N1 % 32 == 0 && (4 * C) % BH == 0,
                 "plan: widths");
-  static_assert(CP == C || (CL > 1 && CP - C < CB && C % 8 == 0), "plan: padding");
+  static_assert(kWgmma<C>, "plan: a width built");
+  static_assert(CP == C || (CP - C < CB && C % 8 == 0), "plan: padding");
   static_assert(S >= 2 && SMEM <= kSmemMax, "plan: shared memory");
   static_assert(128 * NWG * CREGS + 128 * kProducerRegs <= POOL, "plan: registers");
-  static_assert(CL == 1 || (CL == 2 && R == 1 && NK % 4 == 0 && (CP / 32) % CL == 0 &&
-                            (2 * G * 64 + 2 * 64 + NWG * 8 * CW) * 4 <= TILE),
+  static_assert(CL == 1 || ((CL == 2 || CL == 4) && R == 1 && NK % 4 == 0 && (CP / 32) % CL == 0 &&
+                            (2 * G * 64 + CL * 2 * 64 + NWG * 8 * CW) * 4 <= TILE),
                 "plan: cluster");
 };
 
@@ -668,12 +307,13 @@ struct TailSmem {
   float* part;          // [2][R][G][64] row-sum parts (backward, G > 1, no cluster)
   float* scr;           // [NWG][8 * N1 + 8 * CW] column-sum scratch (row pass; a
                         // cluster: [NWG][8 * N1 / CL], the rest in the u tile)
-  float* xch;           // [1 or 2][NK / 4][128 NWG] float4: the peer's partial h (dg)
+  float* xch;           // [1 or 2][CL - 1][NK / 4][128 NWG] float4: the peers' partial
+                        // h (dg), a slot per peer (xch_slot)
   uint64_t* full;       // [S]
   uint64_t* empty;      // [S]
-  uint64_t* xfull;      // [1] the peer's partials have landed (cluster)
-  uint64_t* gfull;      // [2] both blocks' halves of a g/dh tile are written (cluster)
-  uint64_t* rsfull;     // [1] the peer's row sums have landed (cluster, backward)
+  uint64_t* xfull;      // [1] the peers' partials have landed (cluster)
+  uint64_t* gfull;      // [2] every block's part of a g/dh tile is written (cluster)
+  uint64_t* rsfull;     // [1] the peers' row sums have landed (cluster, backward)
 
   __device__ explicit TailSmem(unsigned char* raw) {
     unsigned char* p = reinterpret_cast<unsigned char*>(
@@ -752,8 +392,8 @@ __device__ __forceinline__ void ring_release(const TailSmem<P>& sm, int item) {
 }
 
 // The ring's barriers and, in a cluster, the exchange's; a cluster's
-// blocks start only when both have initialised theirs, since the peer
-// arrives on them
+// blocks start only when all have initialised theirs, since the peers
+// arrive on them
 template <class P>
 __device__ void ring_init(const TailSmem<P>& sm) {
   if (threadIdx.x == 0) {
@@ -762,8 +402,8 @@ __device__ void ring_init(const TailSmem<P>& sm) {
       mbar_init(&sm.empty[st], 4 * P::NWG);    // one arrive per consumer warp
     }
     if constexpr (P::CL > 1) {
-      mbar_init(sm.xfull, 1);                  // expect_peer, and the peer's bytes
-      mbar_init(&sm.gfull[0], 4 * P::NWG);     // each consumer warp, and the peer's bytes
+      mbar_init(sm.xfull, 1);                  // expect_peer, and the peers' bytes
+      mbar_init(&sm.gfull[0], 4 * P::NWG);     // each consumer warp, and the peers' bytes
       mbar_init(&sm.gfull[1], 4 * P::NWG);
       mbar_init(sm.rsfull, 1);
     }
@@ -817,8 +457,8 @@ __device__ __forceinline__ uint32_t block_rank() {
     return 0;
 }
 
-// The end of a block: in a cluster, every thread of both blocks, so that
-// no block exits while its peer may still reach its shared memory.
+// The end of a block: in a cluster, every thread of every block, so that
+// no block exits while a peer may still reach its shared memory.
 template <class P>
 __device__ __forceinline__ void block_end() {
   if constexpr (P::CL > 1) cluster_sync();
@@ -827,52 +467,78 @@ __device__ __forceinline__ void block_end() {
 // The cluster's exchange of a product that contracts over C (h = u W1c,
 // dg = kdy w2g_c^T): a block holds its partial over its CB columns of C for
 // the whole chunk, a thread N1 / 2 registers (d), and finalises NK of them:
-// rank r the registers [NK r, NK (r + 1)), chunk columns cg N1 + N1 / 2 r
-// .. + N1 / 2. The thread of the same index in the peer holds the same
-// rows and columns, so each thread sends the peer the half it finalises
-// into the peer's exchange slot `part` (0: h, 1: dg), its bytes completing
-// on the peer's xfull, and adds the half it receives to its own: a + b,
-// two terms, in every launch the same bits.
+// rank r the registers [NK r, NK (r + 1)), chunk columns cg N1 + N1 / CL r
+// .. + N1 / CL. The thread of the same index in every other block holds the
+// same rows and columns, so each thread sends each peer the registers that
+// peer finalises into its exchange slot for this sender (`part` 0: h, 1:
+// dg), the bytes completing on the peer's xfull, and sums the CL partials
+// of its own registers in rank order, its own in its rank's place: ((p0 +
+// p1) + p2) + p3, in every launch the same bits. A register array takes no
+// run-time index: the loops over ranks are unrolled, so each register's
+// index is a constant and `rank` only picks between them.
+
+// the slot of block `to`'s exchange buffer that block `from` writes
+__device__ __forceinline__ int xch_slot(int from, int to) { return from < to ? from : from - 1; }
+template <class P>
+__device__ __forceinline__ float* xch_buf(const TailSmem<P>& sm, int part, int slot) {
+  return sm.xch + (part * (P::CL - 1) + slot) * (P::NK * 128 * P::NWG);
+}
 template <class P>
 __device__ __forceinline__ void xch_send(const TailSmem<P>& sm, const float (&d)[P::N1 / 2],
                                          int part, uint32_t rank) {
-  const uint32_t base = map_rank(sm.xch + part * (P::NK * 128 * P::NWG), rank ^ 1);
-  const uint32_t bar = map_rank(sm.xfull, rank ^ 1);
 #pragma unroll
-  for (int q = 0; q < P::NK / 4; ++q) {
-    // what the peer finalises (selects: a register array takes no run-time index)
-    const int lo = 4 * q, hi = P::NK + 4 * q;
-    st_async(base + (q * 128 * P::NWG + threadIdx.x) * 16,
-             rank ? make_float4(d[lo], d[lo + 1], d[lo + 2], d[lo + 3])
-                  : make_float4(d[hi], d[hi + 1], d[hi + 2], d[hi + 3]),
-             bar);
+  for (int to = 0; to < P::CL; ++to) {
+    if (to == static_cast<int>(rank)) continue;
+    const uint32_t base = map_rank(xch_buf(sm, part, xch_slot(rank, to)), to);
+    const uint32_t peer_bar = map_rank(sm.xfull, to);
+#pragma unroll
+    for (int q = 0; q < P::NK / 4; ++q) {
+      const int k = P::NK * to + 4 * q;  // what block `to` finalises
+      st_async(base + (q * 128 * P::NWG + threadIdx.x) * 16,
+               make_float4(d[k], d[k + 1], d[k + 2], d[k + 3]), peer_bar);
+    }
   }
 }
 template <class P>
 __device__ __forceinline__ void xch_add(const TailSmem<P>& sm, const float (&d)[P::N1 / 2],
                                         int part, uint32_t rank, float (&out)[P::NK]) {
-  const float4* src = reinterpret_cast<const float4*>(sm.xch + part * (P::NK * 128 * P::NWG));
 #pragma unroll
   for (int q = 0; q < P::NK / 4; ++q) {
-    const float4 v = src[q * 128 * P::NWG + threadIdx.x];
-    const int lo = 4 * q, hi = P::NK + 4 * q;  // what this block finalises: hi in rank 1
-    out[4 * q] = (rank ? d[hi] : d[lo]) + v.x;
-    out[4 * q + 1] = (rank ? d[hi + 1] : d[lo + 1]) + v.y;
-    out[4 * q + 2] = (rank ? d[hi + 2] : d[lo + 2]) + v.z;
-    out[4 * q + 3] = (rank ? d[hi + 3] : d[lo + 3]) + v.w;
+#pragma unroll
+    for (int from = 0; from < P::CL; ++from) {
+      const int k = P::NK * from + 4 * q;  // this block's registers when from == rank
+      float4 v;
+      if (from == static_cast<int>(rank)) {
+        v = make_float4(d[k], d[k + 1], d[k + 2], d[k + 3]);
+      } else {
+        v = reinterpret_cast<const float4*>(
+            xch_buf(sm, part, xch_slot(from, rank)))[q * 128 * P::NWG + threadIdx.x];
+      }
+      if (from == 0) {
+        out[4 * q] = v.x;
+        out[4 * q + 1] = v.y;
+        out[4 * q + 2] = v.z;
+        out[4 * q + 3] = v.w;
+      } else {
+        out[4 * q] += v.x;
+        out[4 * q + 1] += v.y;
+        out[4 * q + 2] += v.z;
+        out[4 * q + 3] += v.w;
+      }
+    }
   }
 }
-// This block's barrier `bar` (count 1) is to take `bytes` from the peer:
+// This block's barrier `bar` (count 1) is to take `bytes` from the peers:
 // one consumer thread arrives, expecting them, and the phase completes
-// once they have landed, whichever comes first. (An arrive on the peer's
+// once they have landed, whichever comes first. (An arrive on a peer's
 // barrier with release at cluster scope instead waits for the thread's
 // remote stores to be acknowledged, twice a chunk.)
 __device__ __forceinline__ void expect_peer(uint64_t* bar, uint32_t bytes) {
   if (threadIdx.x == 0) mbar_arrive_expect_tx(bar, bytes);
 }
-// this warp's part of this block's half of a g/dh tile is written: one
-// arrive on this block's `bar`, warp 0's also expecting the peer's half
-// (its st.async bytes)
+// this warp's part of this block's columns of a g/dh tile is written: one
+// arrive on this block's `bar`, warp 0's also expecting the peers' parts
+// (their st.async bytes)
 template <class P>
 __device__ __forceinline__ void arrive_tile(uint64_t* bar) {
   __syncwarp();
@@ -881,13 +547,33 @@ __device__ __forceinline__ void arrive_tile(uint64_t* bar) {
   else if (threadIdx.x % 32 == 0)
     mbar_arrive(bar);
 }
+// The .shared::cluster addresses of a g/dh tile and of its barrier in every
+// other block of the cluster (peer p: rank + 1 + p, modulo CL), for the
+// pairs of bf16 values this block finalises.
+template <class P>
+struct TilePeers {
+  uint32_t tile[P::CL - 1], bar[P::CL - 1];
+  __device__ TilePeers(const unsigned char* t, const uint64_t* b, uint32_t rank) {
+#pragma unroll
+    for (int p = 0; p < P::CL - 1; ++p) {
+      const uint32_t to = (rank + 1 + p) % P::CL;
+      tile[p] = map_rank(t, to);
+      bar[p] = map_rank(b, to);
+    }
+  }
+  // v at byte `off` of every peer's tile
+  __device__ __forceinline__ void send(uint32_t off, uint32_t v) const {
+#pragma unroll
+    for (int p = 0; p < P::CL - 1; ++p) st_async(tile[p] + off, v, bar[p]);
+  }
+};
 
 // LayerNorm of the row tile's 64 rows (row0..) into the swizzled bf16 tile
 // u, split over the tile's 4 G warps, whole rows a warp; rows past M become
 // 0. The backward also forms kdy = bf16(keep * dy) and keeps mean and inv.
 // A warp loads a batch of its rows before it reduces any: one row at a time
 // would wait out a round trip to HBM per row. In a cluster each block
-// reads whole rows of s, so both hold the same statistics, bit for bit, and
+// reads whole rows of s, so all hold the same statistics, bit for bit, and
 // keeps its CB columns (rank r: c - CB r) of u, and of kdy. At a padded
 // width a pad column's load reads the row's last channel and is dropped,
 // the pad is written 0 into u and kdy, and the statistics are those of the
@@ -964,8 +650,8 @@ __device__ void ln_rows(const T* __restrict__ s, const float* __restrict__ ln_g,
   }
 }
 
-// Backward of the tail (kWgmma widths): ds from dy, with w2g = bf16(W2 *
-// gamma), over BM rows a block (a cluster: 64 rows, CB columns a block).
+// Backward of the tail: ds from dy, with w2g = bf16(W2 * gamma), over BM
+// rows a block (a cluster: 64 rows, CB columns a block).
 // FULL = false is the input-only backward (_bwd_input_kernel); FULL = true
 // is the full backward's row pass (_bwd_kernel): the same ds, bit for bit,
 // plus the side outputs of FullOut, column sums per 64-row tile, each
@@ -1097,10 +783,10 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
               s1[t] + s1[P::N1 + t] + s1[2 * P::N1 + t] + s1[3 * P::N1 + t];
       }
     } else {
-      // the cluster: h and dg summed over both blocks' halves of C for the
+      // the cluster: h and dg summed over every block's part of C for the
       // chunk columns this block finalises (NK registers a thread, columns
-      // cg N1 + N1 / 2 rank ..); dh = dg * gelu'(h + b1) into both blocks'
-      // dh tiles
+      // cg N1 + N1 / CL rank ..); dh = dg * gelu'(h + b1) into every block's
+      // dh tile
       xch_send(sm, h, 0, rank);
       xch_send(sm, dg, 1, rank);
       float hs[P::NK], dgs[P::NK];
@@ -1108,11 +794,10 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
       mbar_wait_cluster(sm.xfull, j & 1);
       xch_add(sm, h, 0, rank, hs);
       xch_add(sm, dg, 1, rank, dgs);
-      const uint32_t dh_peer = map_rank(dh_s, rank ^ 1);
-      const uint32_t dh_bar = map_rank(&sm.gfull[j & 1], rank ^ 1);
+      const TilePeers<P> dh_peers(dh_s, &sm.gfull[j & 1], rank);
 #pragma unroll
       for (int i = 0; i < P::NK; i += 2) {
-        const int c = cg * P::N1 + P::N1 / 2 * rank + acc_col(i);
+        const int c = cg * P::N1 + P::N1 / P::CL * rank + acc_col(i);
         const float2 bb = load2(b1 + 64 * j + c);
         float g0, g1, d0, d1;
         gelu_and_dgelu_tanh(hs[i] + bb.x, g0, d0);
@@ -1122,7 +807,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
         const uint32_t dhp = pack_bf16(dgs[i], dgs[i + 1]);
         const uint32_t off = swz(acc_row(i), c);
         *reinterpret_cast<uint32_t*>(dh_s + off) = dhp;
-        st_async(dh_peer + off, dhp, dh_bar);
+        dh_peers.send(off, dhp);
         if constexpr (FULL) {
           const int64_t row = row0 + acc_row(i);
           const bool live = row < M;
@@ -1148,7 +833,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
         }
       }
       // a proxy fence after this thread's writes to its own tile, and one
-      // after the wait for the peer's writes, before the wgmma reads them
+      // after the wait for the peers' writes, before the wgmma reads them
       fence_proxy_async();
       arrive_tile<P>(&sm.gfull[j & 1]);
       mbar_wait_cluster(&sm.gfull[j & 1], (j >> 1) & 1);
@@ -1182,7 +867,7 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
   // LayerNorm backward: ds = inv * (dxh - mean(dxh) - xhat * mean(dxh * xhat)),
   // dxh = du * ln_g. A thread holds rows lo = acc_row(0) and lo + 8 of the
   // tile; the row sums go over its values, its quad, then the row tile's
-  // warpgroups in order, then (a cluster) the two blocks' sums.
+  // warpgroups in order, then (a cluster) the blocks' sums in rank order.
   const int rlo = acc_row(0);
   float p1[2] = {0.0f, 0.0f}, p2[2] = {0.0f, 0.0f};
 #pragma unroll
@@ -1211,7 +896,8 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
     }
   }
   // a cluster's epilogue scratch in the u tile: the row-sum parts [2][G][64],
-  // the peer's row sums [2][64], the column-sum scratch [NWG][8 CW]
+  // the blocks' row sums [CL][2][64] (slot r from block r), the column-sum
+  // scratch [NWG][8 CW]
   float* epi = reinterpret_cast<float*>(sm.u);
   if constexpr (P::G > 1) {
     float* part1 = (P::CL == 1 ? sm.part : epi) + 64 * rt * P::G;  // [R][G][64], then part2 alike
@@ -1237,26 +923,39 @@ bwd_kernel(const __grid_constant__ CUtensorMap w1t_map, const __grid_constant__ 
     }
   }
   if constexpr (P::CL > 1) {
-    // the two blocks' row sums: a + b, the same bits in both blocks
-    float* peer_rs = epi + 2 * P::G * 64;  // [2][64], written by the peer
+    // the blocks' row sums, added in rank order: the same bits in every block
+    float* rs = epi + 2 * P::G * 64;  // [CL][2][64]: slot r written by block r
     if (cg == 0 && lane % 4 == 0) {
-      const uint32_t dst = map_rank(peer_rs, rank ^ 1), bar = map_rank(sm.rsfull, rank ^ 1);
 #pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        st_async(dst + (rlo + 8 * hi) * 4, p1[hi], bar);
-        st_async(dst + (64 + rlo + 8 * hi) * 4, p2[hi], bar);
+      for (int to = 0; to < P::CL; ++to) {
+        if (to == static_cast<int>(rank)) continue;
+        const uint32_t dst = map_rank(rs + 2 * 64 * rank, to), bar = map_rank(sm.rsfull, to);
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          st_async(dst + (rlo + 8 * hi) * 4, p1[hi], bar);
+          st_async(dst + (64 + rlo + 8 * hi) * 4, p2[hi], bar);
+        }
       }
     }
-    expect_peer(sm.rsfull, 2 * 64 * 4);
+    expect_peer(sm.rsfull, (P::CL - 1) * 2 * 64 * 4);
     mbar_wait_cluster(sm.rsfull, 0);
 #pragma unroll
     for (int hi = 0; hi < 2; ++hi) {
-      p1[hi] += peer_rs[rlo + 8 * hi];
-      p2[hi] += peer_rs[64 + rlo + 8 * hi];
+      float a = 0.0f, b = 0.0f;
+#pragma unroll
+      for (int from = 0; from < P::CL; ++from) {
+        const bool own = from == static_cast<int>(rank);
+        const float t1 = own ? p1[hi] : rs[2 * 64 * from + rlo + 8 * hi];
+        const float t2 = own ? p2[hi] : rs[2 * 64 * from + 64 + rlo + 8 * hi];
+        a = from == 0 ? t1 : a + t1;
+        b = from == 0 ? t2 : b + t2;
+      }
+      p1[hi] = a;
+      p2[hi] = b;
     }
   }
   float* s2 = P::CL == 1 ? scr + 8 * P::N1  // [2][4 warps][CW]: du * xhat, du (row pass)
-                         : epi + 2 * P::G * 64 + 2 * 64 + w * 8 * P::CW;
+                         : epi + 2 * P::G * 64 + P::CL * 2 * 64 + w * 8 * P::CW;
 #pragma unroll
   for (int q = 0; q < P::CW / 8; ++q) {
     float cgx[2] = {0.0f, 0.0f}, cgb[2] = {0.0f, 0.0f};
@@ -1333,22 +1032,54 @@ struct PlanArgs {
 
 template <int C, int MODE>
 bool plan_ok(const PlanArgs& a) {
-  if constexpr (kWgmma<C>) {
-    using P = Plan<C, MODE>;
-    return a.rows == P::BM && a.chunk == P::BH && a.threads == P::THREADS && a.split == P::G &&
-           a.smem == P::SMEM && a.cluster == P::CL && a.padded == P::CP;
-  } else {
-    using K = Cfg<C>;
-    const size_t smem = MODE == kFwd ? fwd_smem_bytes<C>() : bwd_smem_bytes<C>();
-    return a.rows == K::BM && a.chunk == K::BH && a.threads == K::NTHREADS && a.split == K::NW &&
-           static_cast<size_t>(a.smem) == smem && a.cluster == 1 && a.padded == C;
-  }
+  using P = Plan<C, MODE>;
+  return a.rows == P::BM && a.chunk == P::BH && a.threads == P::THREADS && a.split == P::G &&
+         a.smem == P::SMEM && a.cluster == P::CL && a.padded == P::CP;
 }
 
-// Launch a wgmma kernel of plan P over `rows` rows: a block per BM rows, or
-// at kCluster > 1 a cluster of CL blocks per 64-row tile (cudaLaunchKernelEx
-// with the cluster dimension). Returns cudaGetLastError(), or -3 when the
-// card cannot hold one such cluster at a time (asked once per kernel).
+// The launch configuration of plan P at kCluster > 1: `blocks` blocks in
+// clusters of CL (cudaLaunchKernelEx with the cluster dimension).
+template <class P>
+void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[1], unsigned blocks,
+                    cudaStream_t stream) {
+  cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(P::THREADS);
+  cfg.dynamicSmemBytes = P::SMEM;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = P::CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+}
+
+// The clusters of plan P running `kern` that the card holds at a time
+// (cudaOccupancyMaxActiveClusters, asked once per kernel; 0: not one), or
+// minus a CUDA error.
+template <class P, typename... Params>
+int max_clusters(void (*kern)(Params...)) {
+  static int clusters = -1;
+  if (clusters < 0) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    cluster_config<P>(cfg, attr, P::CL, nullptr);
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    clusters = n;
+  }
+  return clusters;
+}
+
+// Launch a kernel of plan P over `rows` rows: a block per BM rows, or at
+// kCluster > 1 a cluster of CL blocks per 64-row tile. Returns
+// cudaGetLastError(), or -3 when the card cannot hold one such cluster at a
+// time.
 template <class P, typename... Params, typename... Args>
 int launch_plan(void (*kern)(Params...), int64_t rows, cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
@@ -1358,37 +1089,25 @@ int launch_plan(void (*kern)(Params...), int64_t rows, cudaStream_t stream, Args
     kern<<<tiles, P::THREADS, P::SMEM, stream>>>(args...);
     return static_cast<int>(cudaGetLastError());
   } else {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(tiles * P::CL);
-    cfg.blockDim = dim3(P::THREADS);
-    cfg.dynamicSmemBytes = P::SMEM;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = P::CL;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    static int clusters = -1;  // that the card holds at a time
-    if (clusters < 0) {
-      int n = 0;
-      err = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      clusters = n;
-    }
+    const int clusters = max_clusters<P>(kern);
+    if (clusters < 0) return -clusters;
     if (clusters == 0) return -3;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    cluster_config<P>(cfg, attr, tiles * P::CL, stream);
     err = cudaLaunchKernelEx(&cfg, kern, args...);
     return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
   }
 }
 
+// The backward at width C: w1 is W1^T [4C, C].
 template <int C, typename T, bool FULL>
-int launch_bwd_wgmma(const void* s, const float* keep, int rows_per_keep, const float* ln_g,
-                     const float* ln_b, const bf16* w1t, const float* b1, const bf16* w2g,
-                     const void* dy, void* ds, int64_t M, int64_t rows, FullOut out,
-                     cudaStream_t stream) {
+int launch_bwd(const PlanArgs& plan, const void* s, const float* keep, int rows_per_keep,
+               const float* ln_g, const float* ln_b, const bf16* w1t, const float* b1,
+               const bf16* w2g, const void* dy, void* ds, int64_t M, int64_t rows, FullOut out,
+               cudaStream_t stream) {
   using P = Plan<C, FULL ? kBwdRows : kBwdInput>;
+  if (!plan_ok<C, FULL ? kBwdRows : kBwdInput>(plan)) return -1;
   CUtensorMap a, b;
   if (!make_map(&a, w1t, 4 * C, C) || !make_map(&b, w2g, 4 * C, C)) return -2;
   return launch_plan<P>(bwd_kernel<C, T, FULL>, rows, stream, a, b, static_cast<const T*>(s), keep,
@@ -1396,20 +1115,15 @@ int launch_bwd_wgmma(const void* s, const float* keep, int rows_per_keep, const 
                         static_cast<T*>(ds), M, out);
 }
 
-// The backward at width C in the design built for it: w1 is W1^T [4C, C]
-// for the kWgmma widths, W1 [C, 4C] for the others.
-template <int C, typename T, bool FULL>
-int launch_bwd(const PlanArgs& plan, const void* s, const float* keep, int rows_per_keep,
-               const float* ln_g, const float* ln_b, const bf16* w1, const float* b1,
-               const bf16* w2g, const void* dy, void* ds, int64_t M, int64_t rows, FullOut out,
-               cudaStream_t stream) {
-  if (!plan_ok<C, FULL ? kBwdRows : kBwdInput>(plan)) return -1;
-  if constexpr (kWgmma<C>)
-    return launch_bwd_wgmma<C, T, FULL>(s, keep, rows_per_keep, ln_g, ln_b, w1, b1, w2g, dy, ds,
-                                        M, rows, out, stream);
+// The clusters of the bf16 kernel of width C and mode MODE (a kernel of
+// `kern`'s library) that the card holds at a time; -1 where the plan has
+// no clusters.
+template <int C, int MODE, typename... Params>
+int clusters_of(void (*kern)(Params...)) {
+  if constexpr (Plan<C, MODE>::CL == 1)
+    return -1;
   else
-    return launch_bwd_wmma<C, T, FULL>(s, keep, rows_per_keep, ln_g, ln_b, w1, b1, w2g, dy, ds,
-                                       M, rows, out, stream);
+    return max_clusters<Plan<C, MODE>>(kern);
 }
 
 }  // namespace

@@ -16,12 +16,12 @@ csrc/ replace its TPU kernels:
     of that kernel (`_bwd_split`, its `split_bwd` knob) computes the same
     cotangents, so the port has no second variant.
 
-The forward, the input backward and the row pass are TMA + wgmma kernels at
-C = 96, 128, 192, 256, 384, 432, 512 and 768 (the last three in clusters of
-two blocks, each holding half of C; 432 tiled as 512, its 80 pad columns
-zero) and WMMA kernels at the other widths built (16, 32, 64, 1024);
-`tail_plan` gives each width's tiling, which the C entry points check
-against the one they were built with.
+The forward, the input backward and the row pass are TMA + wgmma kernels
+at every width built (`WGMMA_WIDTHS`): at C = 432, 512 and 768 in clusters
+of two blocks, at 1024 in clusters of four, each block holding its part of
+C; 432 tiled as 512, 16 and 32 as 64, the pad columns zero. `tail_plan`
+gives each width's tiling, which the C entry points check against the one
+they were built with.
 
 The kernels are bound to PyTorch with ctypes and built with nvcc at first
 use into build/kernels/ (ops/cuda_build.py). The sources name what bounds
@@ -165,15 +165,16 @@ def reduce_plan(R: int, N: int) -> tuple[int, int, int]:
 # (csrc/block_mlp_common.cuh kRowPad): a multiple of every plan's rows per
 # block and of the weight pass's 64-row stages.
 ROW_PAD = 128
-# The widths whose forward, input backward and row pass are the TMA + wgmma
-# kernels (csrc/block_mlp_common.cuh kWgmma); the others keep the WMMA ones.
-WGMMA_WIDTHS = (96, 128, 192, 256, 384, 432, 512, 768)
+# The widths the forward, input backward and row pass are built for, all
+# TMA + wgmma kernels (csrc/block_mlp_common.cuh kWgmma, BLOCK_MLP_WIDTHS).
+WGMMA_WIDTHS = (16, 32, 64, 96, 128, 192, 256, 384, 432, 512, 768, 1024)
 # Of those, the widths launched in thread-block clusters, with the blocks per
 # cluster (kCluster): each block of a cluster holds padded / cluster of the
 # columns of the same 64-row tile. At C = 768 one block has no room for a
 # 64-row tile's u and kdy, two weight stages and the f32 accumulators; at
-# 432 and 512 it has room for the forward's ring, not for the backward's.
-TAIL_CLUSTER = {432: 2, 512: 2, 768: 2}
+# 432 and 512 it has room for the forward's ring, not for the backward's;
+# at 1024 half of C leaves the backward one ring stage, a quarter three.
+TAIL_CLUSTER = {432: 2, 512: 2, 768: 2, 1024: 4}
 TAIL_MODES = ("fwd", "bwd_input", "bwd_full_rows")
 _SMEM_MAX = 232448  # dynamic shared memory an H100 block can use
 _BOX = 8192         # a 64 x 64 bf16 TMA box
@@ -184,89 +185,76 @@ _PRODUCER_REGS = 24
 
 class TailPlan(NamedTuple):
     """The tiling of the tail kernels at one width and mode."""
-    design: str     # "wgmma" (TMA + wgmma) or "wmma" (the WMMA kernels)
+    design: str     # "wgmma": TMA + wgmma, the one design at every width
     rows: int       # rows per block
     chunk: int      # columns of the 4C axis per chunk
     threads: int    # threads per block
-    split: int      # output columns split over this many warpgroups (wmma: warps)
-    stages: int     # weight chunks in flight (the TMA ring; 0 for wmma)
+    split: int      # output columns split over this many warpgroups
+    stages: int     # weight chunks in flight (the TMA ring)
     smem: int       # dynamic shared memory, bytes
     acc_regs: int   # f32 accumulator registers per consumer thread (o or du, h, dg)
     regs: int       # registers a thread of the block may hold
     part_rows: int  # rows per row of the row pass's column sums
     cluster: int    # blocks per thread-block cluster, each with padded / cluster columns
-    padded: int     # the width tiled: C, or (wgmma, C not a multiple of 32) C rounded
-                    # up to 64-column boxes in every block of the cluster; zero pad
-
-
-def _a128(n: int) -> int:
-    return -(-n // 128) * 128
+    padded: int     # the width tiled: C, or (C below 64 or not a multiple of 32) C
+                    # rounded up to 64-column boxes in every block of the cluster; zero pad
 
 
 def _padded(C: int, cluster: int) -> int:
-    """The width the wgmma kernels tile (csrc/block_mlp_common.cuh kPadded)."""
+    """The width the kernels tile (csrc/block_mlp_common.cuh kPadded)."""
     step = 64 * cluster
-    return C if C % 32 == 0 else -(-C // step) * step
+    return -(-C // step) * step if C < 64 or C % 32 else C
 
 
 @functools.lru_cache(maxsize=None)
 def tail_plan(C: int, mode: str) -> TailPlan:
     """The tiling csrc/block_mlp_common.cuh builds at width C for `mode`
-    ('fwd', 'bwd_input' or 'bwd_full_rows'), mirrored from its Plan (the
-    wgmma widths) and Cfg (the others); the C entry points take (rows,
-    chunk, threads, split, smem) and refuse a plan they were not built for.
+    ('fwd', 'bwd_input' or 'bwd_full_rows'), mirrored from its Plan; the C
+    entry points take (rows, chunk, threads, split, smem, cluster, padded)
+    and refuse a plan they were not built for.
 
-    wgmma: R row tiles of 64 rows (up to C = 192: 2, and at C = 96 4 in
-    the forward, 3 in the input backward) by G warpgroups over their C
-    output columns (2 from C = 256), and a producer warpgroup; chunks of
-    64 columns of 4C, as many ring stages as the shared memory holds (at
-    most 8) beside the u (and kdy) tiles, two g/dh tiles per row tile and
-    the backward's row statistics and column-sum scratch. At C = 432, 512
-    and 768 a cluster of two blocks takes each 64-row tile, each block the
-    tiling of its half of the padded width, plus the buffer that receives
-    the peer's partial h (and dg); its epilogue's row-sum parts and
-    column-sum scratch reuse the u tile. C = 432, not a multiple of 32, is
-    tiled as its padded width 512: 4C = 1728 is 27 whole chunks, and the
-    stages, shared memory and registers are 512's."""
+    R row tiles of 64 rows (up to C = 192: 2, and at C = 96 4 in the
+    forward, 3 in the input backward) by G warpgroups over their C output
+    columns (2 from C = 256), and a producer warpgroup; chunks of 64 columns
+    of 4C, as many ring stages as the shared memory holds (at most 8, and
+    two chunks' worth) beside the u (and kdy) tiles, two g/dh tiles per row
+    tile and the backward's row statistics and column-sum scratch. At C =
+    432, 512 and 768 a cluster of two blocks takes each 64-row tile, at 1024
+    a cluster of four, each block the tiling of its part of the padded
+    width, plus the buffer that receives the peers' partial h (and dg), a
+    slot per peer; its epilogue's row-sum parts and column-sum scratch reuse
+    the u tile. A width below 64 or not a multiple of 32 is tiled as its
+    padded width: C = 16 and 32 as 64 (4C is one and two chunks), 432 as
+    512 (4C = 1728 is 27 whole chunks; the stages, shared memory and
+    registers are 512's)."""
     if mode not in TAIL_MODES:
         raise ValueError(f"tail_plan: unknown mode {mode!r}")
-    if C <= 0 or C % 16:
-        raise ValueError(f"tail_plan: C must be a positive multiple of 16, got {C}")
+    if C not in WGMMA_WIDTHS:
+        raise ValueError(f"tail_plan: no kernel is built for C = {C}; the widths built are "
+                         f"{WGMMA_WIDTHS}")
     bwd = mode != "fwd"
-    if C in WGMMA_WIDTHS:
-        cl = TAIL_CLUSTER.get(C, 1)
-        cp = _padded(C, cl)
-        cb = cp // cl  # columns of the padded width a block holds
-        G = 1 if cb <= 192 else 2
-        R = 1 if cb > 192 else 2 if C != 96 else {"fwd": 4, "bwd_input": 3}.get(mode, 2)
-        nwg, bm, cw, n1 = R * G, 64 * R, cb // G, 64 // G
-        threads = 128 * (nwg + 1)  # and the producer warpgroup
-        # the block's registers, an even split's, which setmaxnreg moves
-        # from the producer to the consumers
-        pool = threads * (65536 // threads // 8 * 8)
-        regs = min(240, (pool - 128 * _PRODUCER_REGS) // (128 * nwg) // 8 * 8)
-        tile = _BOX * -(-cb // 64)
-        scratch = (n1 + cw if cl == 1 else n1 // cl) * nwg * 32
-        fixed = (1024 + R * tile * (2 if bwd else 1) + R * 2 * _BOX
-                 + (2 * bm * 4 if bwd else 0)
-                 + (2 * G * bm * 4 if bwd and G > 1 and cl == 1 else 0)
-                 + (scratch if mode == "bwd_full_rows" else 0)
-                 + ((2 if bwd else 1) * 128 * nwg * (n1 // 2 // cl) * 4 if cl > 1 else 0)
-                 + 256)
-        stages = min(8, 2 * (4 * C // 64), (_SMEM_MAX - fixed) // tile)
-        return TailPlan("wgmma", bm, 64, threads, G, stages, fixed + stages * tile,
-                        cw // 2 + (n1 if bwd else n1 // 2), regs, 64, cl, cp)
-    nt = C // 16
-    nw = nt if nt < 6 else (8 if nt % 8 == 0 else (6 if nt % 6 == 0 else 9))
-    bm = 64 if C <= 384 else (32 if C <= 768 else 16)
-    bh = 16 * nw
-    ldu, ldh, ldg = C + 8, bh + 4, bh + 8
-    smem = ((2 if bwd else 1) * _a128(bm * ldu * 2) + (2 if bwd else 1) * _a128(bm * ldh * 4)
-            + _a128(bm * ldg * 2) + _a128(nw * 256 * 4) + (_a128(4 * bm * 4) if bwd else 0))
-    mt = bm // 16
-    return TailPlan("wmma", bm, bh, 32 * nw, nw, 0, smem,
-                    8 * mt * (nt // nw) + 8 * mt * (2 if bwd else 1),
-                    min(255, 65536 // (32 * nw) // 8 * 8), bm, 1, C)
+    cl = TAIL_CLUSTER.get(C, 1)
+    cp = _padded(C, cl)
+    cb = cp // cl  # columns of the padded width a block holds
+    G = 1 if cb <= 192 else 2
+    R = 1 if cb > 192 else 2 if C != 96 else {"fwd": 4, "bwd_input": 3}.get(mode, 2)
+    nwg, bm, cw, n1 = R * G, 64 * R, cb // G, 64 // G
+    threads = 128 * (nwg + 1)  # and the producer warpgroup
+    # the block's registers, an even split's, which setmaxnreg moves from
+    # the producer to the consumers
+    pool = threads * (65536 // threads // 8 * 8)
+    regs = min(240, (pool - 128 * _PRODUCER_REGS) // (128 * nwg) // 8 * 8)
+    tile = _BOX * -(-cb // 64)
+    scratch = (n1 + cw if cl == 1 else n1 // cl) * nwg * 32
+    exchange = (2 if bwd else 1) * (cl - 1) * 128 * nwg * (n1 // 2 // cl) * 4
+    fixed = (1024 + R * tile * (2 if bwd else 1) + R * 2 * _BOX
+             + (2 * bm * 4 if bwd else 0)
+             + (2 * G * bm * 4 if bwd and G > 1 and cl == 1 else 0)
+             + (scratch if mode == "bwd_full_rows" else 0)
+             + exchange + 256)
+    stages = min(8, 2 * (4 * C // 64), (_SMEM_MAX - fixed) // tile)
+    return TailPlan("wgmma", bm, 64, threads, G, stages, fixed + stages * tile,
+                    cw // 2 + (n1 if bwd else n1 // 2), regs, 64, cl, cp)
 
 
 def _plan_args(C: int, mode: str) -> tuple:
@@ -398,6 +386,7 @@ def _lib():
         plan = [I] * 7  # rows, chunk, threads, split, smem, cluster, padded
         fns = cuda_build.load("block_mlp", {
             "block_mlp_supports": [I],
+            "block_mlp_max_clusters": [I, I],
             "block_mlp_fwd": [I, I, P, P, P, I, P, P, P, P, P, P, P, P, L, *plan, P],
             "block_mlp_bwd_input": [I, I, P, P, I, P, P, P, P, P, P, P, L, *plan, P],
         })
@@ -406,6 +395,7 @@ def _lib():
                                         P, P, P, P, P, P, P, *plan, P],
             "block_mlp_wgrad": [P, I, P, I, L, L, I, P, P, I, I, L, P],
             "block_mlp_reduce": [P, L, L, I, I, L, P, P],
+            "block_mlp_rows_max_clusters": [I],
         }))
         _lib_handle = types.SimpleNamespace(**fns)
     return _lib_handle
@@ -447,13 +437,10 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _w1_layout(w1_16, C, mode):
-    """W1 as the kernel at width C takes it: W1^T [4C, C] for the wgmma
-    design (a view when w1_16 is the transpose of a contiguous [4C, C]),
-    W1 [C, 4C] for the WMMA kernels; both contiguous."""
-    if tail_plan(C, mode).design == "wgmma":
-        return w1_16.t().contiguous()
-    return w1_16.contiguous()
+def _w1_layout(w1_16):
+    """W1 [C, 4C] as the kernels take it: W1^T [4C, C], contiguous (a view
+    when w1_16 is the transpose of a contiguous [4C, C])."""
+    return w1_16.t().contiguous()
 
 
 def _raise_on(err, what):
@@ -462,6 +449,22 @@ def _raise_on(err, what):
                  -3: "no thread-block cluster of the plan fits the card"}
         raise RuntimeError(f"block_mlp {what} kernel launch failed: "
                            f"{cause.get(err, f'cudaError {err}')}")
+
+
+def tail_max_clusters(C: int, mode: str) -> int:
+    """The thread-block clusters of the bf16 kernel of width C and `mode`
+    that the card holds at a time (cudaOccupancyMaxActiveClusters): what a
+    wave of the cluster kernels holds. Raises for a width without clusters
+    and where the query fails."""
+    if tail_plan(C, mode).cluster == 1:
+        raise ValueError(f"tail_max_clusters: C = {C} runs no thread-block clusters")
+    lib = _lib()
+    n = (lib.block_mlp_rows_max_clusters(C) if mode == "bwd_full_rows"
+         else lib.block_mlp_max_clusters(C, TAIL_MODES.index(mode)))
+    if n < 0:
+        raise RuntimeError(f"block_mlp: cudaOccupancyMaxActiveClusters failed at C = {C} "
+                           f"({mode}): cudaError {-n}")
+    return n
 
 
 def fwd_cuda(s, r, keep, rows_per_keep, ln_g, ln_b, w1_16, b1, w2_16, b2, gamma):
@@ -475,7 +478,7 @@ def fwd_cuda(s, r, keep, rows_per_keep, ln_g, ln_b, w1_16, b1, w2_16, b2, gamma)
     y = torch.empty_like(s)
     if M == 0:
         return y
-    w1k = _w1_layout(w1_16, C, "fwd")
+    w1k = _w1_layout(w1_16)
     err = cuda_build.launch(
         s, _lib().block_mlp_fwd, C, _DTYPE_CODE[s.dtype], _ptr(s), _ptr(r), _ptr(keep),
         rows_per_keep, _ptr(ln_g), _ptr(ln_b), _ptr(w1k), _ptr(b1), _ptr(w2_16), _ptr(b2),
@@ -493,7 +496,7 @@ def bwd_input_cuda(s, keep, rows_per_keep, ln_g, ln_b, w1_16, b1, w2g16, dy):
     ds = torch.empty_like(s)
     if M == 0:
         return ds
-    w1k = _w1_layout(w1_16, C, "bwd_input")
+    w1k = _w1_layout(w1_16)
     err = cuda_build.launch(
         s, _lib().block_mlp_bwd_input, C, _DTYPE_CODE[s.dtype], _ptr(s), _ptr(keep),
         rows_per_keep, _ptr(ln_g), _ptr(ln_b), _ptr(w1k), _ptr(b1), _ptr(w2g16), _ptr(dy),
@@ -518,7 +521,7 @@ def bwd_full_rows_cuda(s, keep, rows_per_keep, ln_g, ln_b, w1_16, b1, w2g16, dy)
               (parts, 4 * C, f32), (parts, C, f32), (parts, C, f32))
     side = tuple(torch.empty(r, c, dtype=t, device=s.device) for r, c, t in shapes)
     ds = torch.empty_like(s)
-    w1k = _w1_layout(w1_16, C, "bwd_full_rows")
+    w1k = _w1_layout(w1_16)
     err = cuda_build.launch(
         s, _lib().block_mlp_bwd_full_rows, C, _DTYPE_CODE[s.dtype], _ptr(s), _ptr(keep),
         rows_per_keep, _ptr(ln_g), _ptr(ln_b), _ptr(w1k), _ptr(b1), _ptr(w2g16), _ptr(dy),

@@ -1,8 +1,8 @@
 """Time patched variants of the block tail's cluster kernels (C = 768, or
-432 and 512 with --width) against the kernels as built, in turns, on one
-GPU: what each part of a chunk of 4C costs.
+432, 512 and 1024 with --width) against the kernels as built, in turns, on
+one GPU: what each part of a chunk of 4C costs.
 
-    python3 -m revisiting_at_tpu_torch.tools.tail_variants [--width 768 | 512 | 432]
+    python3 -m revisiting_at_tpu_torch.tools.tail_variants [--width 768 | 512 | 432 | 1024]
 
 Each variant is csrc/ copied to build/tail_variants/<name>/ with a few lines
 replaced, and block_mlp.cu (the forward and the input backward) built from
@@ -13,15 +13,16 @@ it with ops/cuda_build.py's nvcc flags, all builds started together:
     marks every later item as landed, so the products reuse stale stages;
   * no tanh: gelu and gelu' take 0.5 h for tanh(...), the rest of their
     arithmetic kept;
-  * no exchange: a block neither sends nor waits for its peer's partial h
-    (dg), nor writes the peer's g (dh) tile, and waits on a named barrier
+  * no exchange: a block neither sends nor waits for its peers' partial h
+    (dg), nor writes the peers' g (dh) tiles, and waits on a named barrier
     of its own warpgroups instead of the tile's mbarrier.
 
 All but the first compute wrong results on purpose; each variant's error
 against the plain version is printed beside its time. The forward and the
 input backward are timed at ConvNeXt-T's stage 3 (49 rows an image) at
 batch 200, 80 and 32 (--width 512 and 432: ConvNeXt-B's stage 2 and
-convnext_iso, 196 rows an image at batch 80), on the event clock over
+convnext_iso, 196 rows an image at batch 80; --width 1024: ConvNeXt-B's
+stage 3, 49 rows an image at batch 80), on the event clock over
 ROUNDS rounds in turns (the order reversed every other round; medians).
 Prints one line per measurement, with the card's name and power limit.
 """
@@ -43,7 +44,7 @@ from revisiting_at_tpu_torch.ops import cuda_build
 
 ROUNDS = 5
 # the cluster widths: (rows per image at 224 px, batches) of their main path
-WIDTHS = {768: (49, (200, 80, 32)), 512: (196, (80,)), 432: (196, (80,))}
+WIDTHS = {768: (49, (200, 80, 32)), 512: (196, (80,)), 432: (196, (80,)), 1024: (49, (80,))}
 OUT = cuda_build.BUILD_DIR.parent / "tail_variants"
 
 _LOAD = """    mbar_arrive_expect_tx(&sm.full[st], P::TILE);
@@ -62,8 +63,7 @@ VARIANTS = {
                     ("mbar_wait_cluster(sm.xfull, j & 1);", ""),
                     ("xch_send(sm, h, 0, rank);", ""), ("xch_send(sm, dg, 1, rank);", ""),
                     ("xch_send(sm, hn, 0, rank);", ""), ("xch_send(sm, ha, 0, rank);", ""),
-                    ("st_async(g_peer + off, gp, g_bar);", ""),
-                    ("st_async(dh_peer + off, dhp, dh_bar);", ""),
+                    ("g_peers.send(off, gp);", ""), ("dh_peers.send(off, dhp);", ""),
                     (_TILE, "      fence_proxy_async();\n      named_bar_sync(bar, bar_n);")],
 }
 

@@ -20,8 +20,8 @@ started together. This tree comes last. At the main path's shapes:
     (use_pallas=0: cuBLAS matmuls, eager elementwise ops); with
     --tail-only nothing else is timed; with --wide in its place the same
     three kernels at WIDE_SHAPES alone (convnext_iso's C = 432 and
-    ConvNeXt-B's stage-2 C = 512, 196 x 80 rows), only the tail's sources
-    built in each tree;
+    ConvNeXt-B's stage-2 C = 512, 196 x 80 rows, and its stage-3 C = 1024,
+    49 x 80 rows), only the tail's sources built in each tree;
   * the column reduction (`reduce_cuda`) over the full backward's 15
     partials of ConvNeXt-T's stages 0-2 at batch 80 (the row pass's three
     column sums and the weight pass's two products per stage), and over
@@ -74,8 +74,8 @@ TAIL_TOL = 2e-2
 DW_SHAPES = [(BATCH, 56, 56, 96), (BATCH, 28, 28, 192), (BATCH, 14, 14, 384)]
 DW_TOL = {"y": 2e-2, "dx": 2e-2, "dw": 3e-6, "db": 2e-6}
 # --wide: (rows per image, C) of convnext_iso (14 x 14 tokens, C = 432) and
-# ConvNeXt-B's stage 2 (C = 512) at 224 px, at BATCH
-WIDE_SHAPES = [(196, 432), (196, 512)]
+# ConvNeXt-B's stages 2 (C = 512) and 3 (7 x 7, C = 1024) at 224 px, at BATCH
+WIDE_SHAPES = [(196, 432), (196, 512), (49, 1024)]
 HERE = Path(__file__).resolve().parents[2]
 MODES = {"--tail-only": "tail", "--wide": "wide", "--dwconv": "dwconv"}
 

@@ -386,33 +386,42 @@ def _header():
 
 
 def test_tail_plan_mirrors_the_source():
-    """tail_plan's constants are the header's: the widths built, those that
-    take the wgmma design (kWgmma: convnext_iso's 432 and ConvNeXt-B's 512
-    among them), those launched in clusters with the blocks per cluster
-    (kCluster), the padded width (kPadded: C where C is a multiple of 32,
-    else C rounded up to 64-column boxes in every block of the cluster), the
-    row padding (kRowPad) and the producer warpgroup's registers
-    (kProducerRegs)."""
+    """tail_plan's constants are the header's: the widths built, all of
+    which take the TMA + wgmma design (kWgmma), those launched in clusters
+    with the blocks per cluster (kCluster: two at convnext_iso's 432 and
+    ConvNeXt-B's 512 and 768, four at 1024), the padded width (kPadded: C
+    where C is a multiple of 32 from 64, else C rounded up to 64-column
+    boxes in every block of the cluster), the row padding (kRowPad) and the
+    producer warpgroup's registers (kProducerRegs)."""
     import re
+    from pathlib import Path
 
     src = _header()
     assert _built_widths() == list(BUILT_WIDTHS)
     line = next(ln for ln in src.splitlines() if "constexpr bool kWgmma = " in ln)
     assert tuple(int(w) for w in re.findall(r"C == (\d+)", line)) == tbm.WGMMA_WIDTHS
-    assert {432, 512} <= set(tbm.WGMMA_WIDTHS)
+    assert tbm.WGMMA_WIDTHS == BUILT_WIDTHS
     line = next(ln for ln in src.splitlines() if "constexpr int kCluster = " in ln)
-    size = int(re.search(r"\? (\d+) : 1;", line)[1])
-    assert {int(w): size for w in re.findall(r"C == (\d+)", line)} == tbm.TAIL_CLUSTER
-    assert set(tbm.TAIL_CLUSTER) <= set(tbm.WGMMA_WIDTHS)
+    cluster = {int(w): int(size) for group, size in re.findall(r"((?:C == \d+(?: \|\| )?)+) \? (\d+)",
+                                                                line)
+               for w in re.findall(r"C == (\d+)", group)}
+    assert cluster == tbm.TAIL_CLUSTER == {432: 2, 512: 2, 768: 2, 1024: 4}
+    assert line.rstrip().endswith(": 1);")
     line = next(ln for ln in src.splitlines() if "constexpr int kPadded = " in ln)
-    assert "C % 32 == 0 ? C : (C + 64 * kCluster<C> - 1) / (64 * kCluster<C>) * " \
-           "(64 * kCluster<C>)" in line
+    assert "C < 64 || C % 32 != 0 ? (C + 64 * kCluster<C> - 1) / (64 * kCluster<C>) * " \
+           "(64 * kCluster<C>) : C" in line
     for C in tbm.WGMMA_WIDTHS:
         step = 64 * tbm.TAIL_CLUSTER.get(C, 1)
-        want = C if C % 32 == 0 else -(-C // step) * step
+        want = C if C >= 64 and C % 32 == 0 else -(-C // step) * step
         assert all(tbm.tail_plan(C, m).padded == want for m in tbm.TAIL_MODES), C
+    assert [tbm.tail_plan(C, "fwd").padded for C in (16, 32, 64, 432)] == [64, 64, 64, 512]
     assert re.search(r"constexpr int kRowPad = (\d+);", src)[1] == str(tbm.ROW_PAD)
     assert re.search(r"kProducerRegs = (\d+)", src)[1] == str(tbm._PRODUCER_REGS)
+    # one design: the WMMA kernels and their configuration are gone
+    for ours in ("block_mlp_common.cuh", "block_mlp.cu", "block_mlp_bwd.cu"):
+        text = (Path(tbm.__file__).resolve().parents[1] / "csrc" / ours).read_text()
+        for gone in (r"wmma::", r"fwd_kernel_wmma", r"bwd_kernel_wmma", r"\bCfg<"):
+            assert not re.search(gone, text), (ours, gone)
 
 
 @pytest.mark.parametrize("mode", ["fwd", "bwd_input", "bwd_full_rows"])
@@ -423,15 +432,14 @@ def test_tail_plan_fits_the_card(C, mode):
     accumulators of a consumer thread within its registers, with room for
     addresses; the row pass's rows per block and per column-sum row
     dividing the row padding (itself whole 64-row stages of the weight
-    pass). The main
-    path's widths (96, 192, 384, 768, convnext_iso's 432 and ConvNeXt-B's
-    512) take the TMA + wgmma design in every mode, 432, 512 and 768 in
-    clusters of two blocks, each with the tiling of its half of the padded
-    width and, in the backward, at least two ring stages. The wgmma tiling's
-    width conditions hold on the padded width: 432 is tiled as 512, the
-    other widths as themselves; the WMMA kernels tile C itself."""
+    pass). Every width takes the TMA + wgmma design in every mode: 432, 512
+    and 768 in clusters of two blocks, 1024 in clusters of four, each block
+    with the tiling of its part of the padded width and, in the backward,
+    at least two ring stages. The tiling's width conditions hold on the
+    padded width: 16 and 32 are tiled as 64, 432 as 512, the other widths
+    as themselves; the pad is less than a block's columns."""
     p = tbm.tail_plan(C, mode)
-    assert p.design == ("wgmma" if C in tbm.WGMMA_WIDTHS else "wmma")
+    assert p.design == "wgmma"
     assert p.cluster == tbm.TAIL_CLUSTER.get(C, 1)
     assert 0 < p.smem <= 232448
     assert p.chunk % 16 == 0 and (4 * C) % p.chunk == 0
@@ -439,27 +447,28 @@ def test_tail_plan_fits_the_card(C, mode):
     if mode == "bwd_full_rows":  # its side buffers' rows are padded to ROW_PAD
         assert tbm.ROW_PAD % p.rows == 0 and tbm.ROW_PAD % p.part_rows == 0
     assert tbm.ROW_PAD % tbm.WGRAD_DEPTH == 0 and p.rows % 16 == 0
-    if p.design == "wgmma":
-        row_tiles = p.rows // 64
-        assert p.threads == 128 * (row_tiles * p.split + 1)  # and the producer warpgroup
-        # setmaxnreg moves registers within the block's launch allocation
-        pool = p.threads * (65536 // p.threads // 8 * 8)
-        assert p.regs * 128 * (p.threads // 128 - 1) + tbm._PRODUCER_REGS * 128 <= pool
-        assert 2 <= p.stages <= 8 and p.padded % 32 == 0
-        assert (p.padded // p.cluster // p.split) % 32 == 0
-        # the pad: none at a multiple of 32, else less than the last block's columns
-        assert (p.padded == C) == (C % 32 == 0)
-        assert C <= p.padded < C + p.padded // p.cluster and C % 8 == 0
-        assert p.part_rows == 64
-        if p.cluster > 1:  # a cluster's blocks share one 64-row tile
-            assert p.cluster == 2 and p.rows == 64 and p.cluster <= 8
-    else:
-        assert p.stages == 0 and p.part_rows == p.rows and p.threads <= 1024
-        assert p.padded == C
-    if C in (96, 192, 384, 432, 512, 768):
-        assert p.design == "wgmma"
+    row_tiles = p.rows // 64
+    assert p.threads == 128 * (row_tiles * p.split + 1)  # and the producer warpgroup
+    # setmaxnreg moves registers within the block's launch allocation
+    pool = p.threads * (65536 // p.threads // 8 * 8)
+    assert p.regs * 128 * (p.threads // 128 - 1) + tbm._PRODUCER_REGS * 128 <= pool
+    # a ring of at least two stages, and no more than the chunks' items
+    assert 2 <= p.stages <= min(8, 2 * (4 * C // p.chunk)) and p.padded % 32 == 0
+    assert (p.padded // p.cluster // p.split) % 32 == 0
+    # the pad: none at a multiple of 32 from 64, else less than a block's columns
+    assert (p.padded == C) == (C >= 64 and C % 32 == 0)
+    assert C <= p.padded < C + p.padded // p.cluster and C % 8 == 0
+    assert p.part_rows == 64
+    if p.cluster > 1:  # a cluster's blocks share one 64-row tile
+        assert p.cluster in (2, 4) and p.rows == 64
+        # each thread finalises whole float4s of h (and dg): N1 / 2 / cluster
+        assert (64 // p.split // 2 // p.cluster) % 4 == 0
     if C in (432, 512, 768):
         assert p.cluster == 2
+    if C == 1024:
+        assert p.cluster == 4
+    if C < 64:  # the micro widths: 4C is one or two chunks of 64
+        assert p.padded == 64 and p.stages == 2 * (4 * C // 64)
 
 
 def test_tail_plan_main_path_values():
@@ -473,7 +482,11 @@ def test_tail_plan_main_path_values():
     and 246 rows at batch 80 (ViT-S: 248). convnext_iso's 432 and
     ConvNeXt-B's 512 run one plan, 512's: a cluster of two blocks a 64-row
     tile, each block 256 columns over two warpgroups, five ring stages in the
-    forward and four in the backward (432: 80 of its 512 columns pad)."""
+    forward and four in the backward (432: 80 of its 512 columns pad).
+    ConvNeXt-B's 1024: a cluster of four blocks a 64-row tile, each block
+    256 columns as at 512, five ring stages in the forward and three in the
+    backward (the exchange takes three peers' partials). The micro widths
+    16, 32 and 64: 64 columns, two row tiles a block, a ring of 2, 4 and 8."""
     assert tbm.tail_plan(96, "fwd")[:7] == ("wgmma", 256, 64, 640, 1, 6, 230656)
     assert tbm.tail_plan(96, "bwd_input")[:7] == ("wgmma", 192, 64, 512, 1, 5, 232192)
     assert tbm.tail_plan(96, "bwd_full_rows")[:7] == ("wgmma", 128, 64, 384, 1, 7, 225536)
@@ -484,11 +497,20 @@ def test_tail_plan_main_path_values():
     assert [tbm.tail_plan(768, m)[:7] + (tbm.tail_plan(768, m).cluster,) for m in tbm.TAIL_MODES] \
         == [("wgmma", 64, 64, 384, 2, 3, 222464, 2), ("wgmma", 64, 64, 384, 2, 2, 231168, 2),
             ("wgmma", 64, 64, 384, 2, 2, 232192, 2)]
+    fields = (1, 2, 3, 4, 5, 6, 10, 11)  # rows, chunk, threads, split, stages, smem, cluster, padded
     for C in (432, 512):
-        assert [tuple(tbm.tail_plan(C, m)[i] for i in (1, 2, 3, 4, 5, 6, 10, 11))
+        assert [tuple(tbm.tail_plan(C, m)[i] for i in fields)
                 for m in tbm.TAIL_MODES] == [(64, 64, 384, 2, 5, 222464, 2, 512),
                                              (64, 64, 384, 2, 4, 231168, 2, 512),
                                              (64, 64, 384, 2, 4, 232192, 2, 512)]
+    assert [tuple(tbm.tail_plan(1024, m)[i] for i in fields) for m in tbm.TAIL_MODES] \
+        == [(64, 64, 384, 2, 5, 226560, 4, 1024), (64, 64, 384, 2, 3, 206592, 4, 1024),
+            (64, 64, 384, 2, 3, 207104, 4, 1024)]
+    assert [tuple(tbm.tail_plan(C, m)[i] for i in fields) for C in (16, 32, 64)
+            for m in ("fwd", "bwd_full_rows")] \
+        == [(128, 64, 384, 1, 2, 66816, 1, 64), (128, 64, 384, 1, 2, 92416, 1, 64),
+            (128, 64, 384, 1, 4, 83200, 1, 64), (128, 64, 384, 1, 4, 108800, 1, 64),
+            (128, 64, 384, 1, 8, 115968, 1, 64), (128, 64, 384, 1, 8, 141568, 1, 64)]
     assert tbm.tail_plan(768, "fwd").padded == 768 and tbm.tail_plan(1024, "fwd").padded == 1024
     parts = [_row_pad(M) // tbm.tail_plan(C, "bwd_full_rows").part_rows
              for M, C in [(3136 * 80, 96), (784 * 80, 192), (196 * 80, 384), (197 * 80, 384)]]
@@ -497,22 +519,24 @@ def test_tail_plan_main_path_values():
         tbm.tail_plan(96, "bwd")
     with pytest.raises(ValueError):
         tbm.tail_plan(100, "fwd")
+    with pytest.raises(ValueError):
+        tbm.tail_plan(48, "fwd")  # a multiple of 16 that no kernel is built for
 
 
 @pytest.mark.parametrize("C", BUILT_WIDTHS)
 def test_w1_layout_follows_the_design(C):
-    """The wrappers hand the wgmma widths (convnext_iso's 432 and
-    ConvNeXt-B's 512 among them) W1^T [4C, C], a view where W1 is the
-    transpose of a contiguous [4C, C] as the models pass it, and the WMMA
-    widths W1 [C, 4C]; both contiguous, the same values."""
+    """The wrappers hand every width (the micro widths and ConvNeXt-B's
+    1024 among them) W1^T [4C, C], contiguous, a view where W1 is the
+    transpose of a contiguous [4C, C] as the models pass it, the same
+    values; and a copy where W1 is a contiguous [C, 4C]."""
     w1 = torch.from_numpy(np.random.RandomState(C).randn(4 * C, C).astype(np.float32)).t()
     w1_16 = tbm._bf16_t(w1)  # what the dispatch passes: [C, 4C], transposed storage
-    for mode in tbm.TAIL_MODES:
-        got = tbm._w1_layout(w1_16, C, mode)
-        wgmma = C in tbm.WGMMA_WIDTHS
-        assert tbm.tail_plan(C, mode).design == ("wgmma" if wgmma else "wmma")
-        assert got.is_contiguous() and got.dtype == torch.bfloat16
-        assert tuple(got.shape) == ((4 * C, C) if wgmma else (C, 4 * C))
-        assert torch.equal(got.t() if wgmma else got, w1.bfloat16())
-        if wgmma:
-            assert got.data_ptr() == w1_16.data_ptr()  # no copy
+    got = tbm._w1_layout(w1_16)
+    assert all(tbm.tail_plan(C, mode).design == "wgmma" for mode in tbm.TAIL_MODES)
+    assert got.is_contiguous() and got.dtype == torch.bfloat16
+    assert tuple(got.shape) == (4 * C, C)
+    assert torch.equal(got.t(), w1.bfloat16())
+    assert got.data_ptr() == w1_16.data_ptr()  # no copy
+    w1_rows = w1.bfloat16().contiguous()  # [C, 4C] row-major: one copy, transposed
+    copied = tbm._w1_layout(w1_rows)
+    assert copied.is_contiguous() and torch.equal(copied, got)

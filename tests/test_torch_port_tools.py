@@ -106,13 +106,15 @@ def test_tree_compare_modes(argv, mode):
 
 
 def test_tree_compare_wide_shapes_are_iso_and_convnext_b_stage_2():
-    """--wide times convnext_iso's and ConvNeXt-B stage 2's shape: 196 rows
-    an image (14 x 14 at 224 px) at C = 432 and 512, both wgmma widths in
-    clusters of two blocks, at the training batch."""
-    assert tree_compare.WIDE_SHAPES == [(chip_smoke.ISO_ROWS, chip_smoke.ISO_C), (196, 512)]
+    """--wide times convnext_iso's and ConvNeXt-B stage 2's shape, 196 rows
+    an image (14 x 14 at 224 px) at C = 432 and 512, in clusters of two
+    blocks, and ConvNeXt-B stage 3's, 49 rows an image at C = 1024, in
+    clusters of four, at the training batch."""
+    assert tree_compare.WIDE_SHAPES == [(chip_smoke.ISO_ROWS, chip_smoke.ISO_C), (196, 512),
+                                        (49, 1024)]
     assert tree_compare.BATCH == chip_smoke.TRAIN_BATCH
     for _, C in tree_compare.WIDE_SHAPES:
-        assert {tbm.tail_plan(C, m).cluster for m in tbm.TAIL_MODES} == {2}
+        assert {tbm.tail_plan(C, m).cluster for m in tbm.TAIL_MODES} == {4 if C == 1024 else 2}
 
 
 def test_tree_compare_refuses_two_modes():
